@@ -1,0 +1,77 @@
+"""vfs_tpu_torch stands alone: it imports neither jax/flax nor vfs_tpu,
+its entry points never drop to the CPU quietly, and importing the kernel
+module needs neither nvcc nor a GPU (kernels build at their first CUDA
+call)."""
+
+import os
+import os.path as osp
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import vfs_tpu_torch
+from vfs_tpu_torch.ops import _build
+from vfs_tpu_torch.ops.video_affinity import video_topk_affinity_cuda
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+
+_BLOCKED_IMPORT = r'''
+import importlib.abc, pkgutil, sys
+
+BLOCKED = ('jax', 'jaxlib', 'flax', 'vfs_tpu')
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ImportError(f'{name} is blocked in this test')
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import vfs_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vfs_tpu_torch.__path__,
+                                                'vfs_tpu_torch.')]
+for name in names:
+    __import__(name)
+import chip_smoke
+assert callable(chip_smoke.main)
+from vfs_tpu_torch.ops import _build
+assert not _build._LIBS, 'a kernel was built at import'
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+'''
+
+
+def test_imports_without_jax_or_reference_package():
+    proc = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vfs_tpu_torch.resolve_device()
+    from vfs_tpu_torch.models import build_model
+    model = build_model(
+        dict(type='VanillaTracker', backbone=dict(type='ResNet', depth=18)),
+        test_cfg=dict(neighbor_range=6, strides=(1, 2, 1, 1),
+                      out_indices=(2,)))
+    imgs = np.zeros((2, 32, 32, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.forward_test(imgs, np.zeros((32, 32), np.int64),
+                           [dict(original_shape=(32, 32))])
+    assert vfs_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_without_building():
+    feats = torch.zeros(3, 4, 5, 8)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        video_topk_affinity_cuda(feats, 3.0, 0.07, 4, 2)
+    assert video_topk_affinity_cuda.launches == 0
+    assert not _build._LIBS

@@ -1,0 +1,131 @@
+"""Whole-video label propagation (PyTorch counterpart of
+``vfs_tpu/ops/propagation.py``).
+
+This slice ports the decoupled two-phase engine, the path that every
+eval config of the repo takes (``neighbor_range`` set,
+``with_first_neighbor=True``):
+
+- phase 1, ``video_topk_affinity``: for every frame at once, the top-k
+  scores and source cells over the bank (frame 0 plus the ``P`` preceding
+  frames, circle-masked). Selection depends only on features, so it needs
+  no frame loop;
+- phase 2, ``propagate_labels``: the softmax-weighted label gather, the
+  only sequential part (frame ``t`` reads labels propagated to earlier
+  frames).
+
+Results match the JAX package's scan tiers, including the reference's
+frame-0 duplication while ``t <= precede_frames`` and its tie order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .affinity import l2_normalize
+from .video_affinity import video_topk_affinity
+
+
+class PropagationConfig(NamedTuple):
+    """The JAX package's fields and defaults, so one ``test_cfg`` drives
+    both packages. ``backend`` ``'pallas_video'`` and ``'tiled'`` both run
+    the decoupled engine (their results are identical in the JAX
+    package); the TPU layout keys (``pallas_tile``, ``pallas_scores``,
+    ``pallas_fetch``, ``pallas_store``, ``pallas_matmul``,
+    ``pallas_group_frames``, ``pallas_extract``, ``pallas_interpret``,
+    ``tile``, ``query_chunk`` and every ``video_*`` key) are accepted and
+    have no effect here."""
+    precede_frames: int = 20
+    topk: int = 10
+    temperature: float = 0.07
+    with_first: bool = True
+    with_first_neighbor: bool = True
+    with_norm: bool = True
+    query_chunk: int = 1284
+    neighbor_range: Optional[int] = None
+    tile: tuple = (12, 16)
+    backend: str = 'tiled'
+    pallas_tile: tuple = (8, 8)
+    pallas_scores: str = 'float32'
+    pallas_fetch: str = 'perframe'
+    pallas_precision: str = 'float32'
+    pallas_store: str = 'concat'
+    pallas_matmul: str = 'perframe'
+    pallas_group_frames: Optional[int] = None
+    pallas_extract: str = 'mask'
+    pallas_interpret: bool = False
+    video_early_exit: bool = True
+    video_extract: str = 'sweep'
+    video_bank_splits: Optional[int] = None
+    video_sweep_rows: int = 1
+    video_pass_mode: str = 'maxfirst'
+    video_engine: str = 'v2'
+    video_qpair: int = 0
+    video_compact: bool = True
+
+
+def _check_supported(cfg: PropagationConfig) -> None:
+    """Raise ``NotImplementedError`` for the configurations a later slice
+    of the port brings (see ROADMAP.md)."""
+    if cfg.backend not in ('pallas_video', 'tiled'):
+        raise NotImplementedError(
+            f"backend={cfg.backend!r} (the per-step scan kernel or the dense "
+            "path) is ported in a later slice; use 'pallas_video' or 'tiled'")
+    if not (cfg.neighbor_range is not None and cfg.with_first_neighbor
+            and cfg.with_norm and cfg.with_first):
+        raise NotImplementedError(
+            'only the local decoupled engine is ported (neighbor_range set, '
+            'with_first, with_first_neighbor and with_norm True); the dense '
+            'masked path comes in a later slice')
+    if cfg.pallas_precision != 'float32':
+        raise NotImplementedError(
+            "pallas_precision='bfloat16' (bf16 features) is ported in a "
+            'later slice')
+
+
+def propagate_labels(scores: torch.Tensor, src: torch.Tensor,
+                     seg_first: torch.Tensor) -> torch.Tensor:
+    """Phase 2: ``seg[t] = sum_k softmax(scores[t])_k * seg[src[t]_k]``
+    frame by frame. ``scores``/``src`` ``(T, h, w, k)``; ``seg_first``
+    ``(h, w, K)``. Returns ``(T, h, w, K)`` logits, frame 0 = seg_first."""
+    t_total, h, w, _ = scores.shape
+    k_classes = seg_first.shape[-1]
+    weights = torch.softmax(scores, dim=-1)
+    seg_all = torch.zeros((t_total * h * w, k_classes), dtype=torch.float32,
+                          device=scores.device)
+    seg_all[:h * w] = seg_first.reshape(h * w, k_classes)
+    for t in range(1, t_total):
+        vals = seg_all[src[t]]                       # (h, w, k, K)
+        out = (weights[t][..., None] * vals).sum(-2)  # (h, w, K)
+        seg_all[t * h * w:(t + 1) * h * w] = out.reshape(h * w, k_classes)
+    return seg_all.view(t_total, h, w, k_classes)
+
+
+def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
+                    mask: Optional[torch.Tensor],
+                    cfg: PropagationConfig) -> torch.Tensor:
+    """Propagate first-frame labels through a video.
+
+    Args:
+        feats: (T, H, W, C) backbone features (frame 0 first), on the
+            device the work runs on.
+        seg_first: (H, W, K) one-hot (or soft) frame-0 labels at feature
+            resolution.
+        mask: unused by the local engine; kept for the JAX signature.
+        cfg: PropagationConfig.
+
+    Returns:
+        (T, H, W, K) label logits; frame 0 is ``seg_first``.
+    """
+    del mask
+    _check_supported(cfg)
+    seg_first = seg_first.to(torch.float32)
+    if feats.shape[0] < 2:
+        return seg_first[None][:feats.shape[0]]
+    feats = l2_normalize(feats.to(torch.float32), dim=-1).contiguous()
+    scores, src = video_topk_affinity(
+        feats, radius=float(cfg.neighbor_range // 2),
+        temperature=cfg.temperature, topk=cfg.topk,
+        precede_frames=cfg.precede_frames)
+    return propagate_labels(scores, src, seg_first)

@@ -1,0 +1,192 @@
+"""Masked top-k video affinity: phase 1 of label propagation.
+
+PyTorch counterpart of ``vfs_tpu/ops/pallas_affinity_video.py``
+(``video_topk_affinity2``, the default engine of the decoupled path). The
+TPU kernel's layout tricks (VMEM key ring, query-frame pairing, compact
+lanes, bank splits, 128-lane padding) are not part of the contract; the
+results are:
+
+- ``feats`` is ``(T, h, w, C)`` fp32, contiguous and already
+  L2-normalised.
+- For every frame ``t >= 1`` and query cell, the exact top-k of
+  ``dot(q, key) * float32(1 / temperature)`` over the bank positions
+  ``j = 0..P``: ``j = 0`` is frame 0; ``j = s + 1`` is ring slot ``s``,
+  holding frame ``t-1 - ((t-1-s) mod P)`` and live iff ``s <= t-1`` (so
+  frame 0 is a key twice while ``t <= P``). Keys lie inside the circle
+  ``float(dy^2 + dx^2) < radius^2`` and inside the map.
+- Ties go to the lowest ``(j, ky, kx)``.
+- Returns ``scores`` ``(T, h, w, k)`` fp32 and ``src`` ``(T, h, w, k)``
+  int64, ``src = f*h*w + ky*w + kx``. Where a query has fewer than ``k``
+  valid keys, the rest are filler: score ``NEG_INF`` (softmax weight 0)
+  and ``src`` = the query's own cell in frame 0. Row 0 is zero.
+
+A CPU tensor takes the plain version, ``video_topk_affinity_reference``;
+a CUDA tensor launches the hand-written kernel
+(``vfs_tpu_torch/csrc/video_topk_affinity.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .affinity import NEG_INF
+
+KERNEL_NAME = 'video_topk_affinity'
+
+
+def circle_offsets(radius: float, device=None):
+    """Window offsets ``(dy, dx)`` in row-major order with
+    ``float(dy^2 + dx^2) < radius^2``; ``r = ceil(radius - 1)`` is the
+    largest offset. Returns ``(r, dy, dx)``."""
+    r = int(math.ceil(radius - 1))
+    d = torch.arange(-r, r + 1, device=device)
+    dy, dx = torch.meshgrid(d, d, indexing='ij')
+    dy, dx = dy.reshape(-1), dx.reshape(-1)
+    keep = (dy.float()**2 + dx.float()**2) < radius * radius
+    return r, dy[keep], dx[keep]
+
+
+def bank_frame(t: int, j: int, precede_frames: int) -> Optional[int]:
+    """Source frame of bank position ``j`` for query frame ``t``, or None
+    while the ring slot is not live."""
+    if j == 0:
+        return 0
+    s = j - 1
+    if s > t - 1:
+        return None
+    return t - 1 - ((t - 1 - s) % precede_frames)
+
+
+def video_topk_affinity_reference(feats: torch.Tensor, radius: float,
+                                  temperature: float, topk: int,
+                                  precede_frames: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: dense per-frame score matrices,
+    the window gathered in ``(j, dy, dx)`` order, selection by a stable
+    descending sort (``torch.topk``'s tie order is unspecified)."""
+    t_total, h, w, c = feats.shape
+    dev = feats.device
+    hw = h * w
+    p = precede_frames
+    _, dy, dx = circle_offsets(radius, dev)
+    ky = torch.arange(h, device=dev).view(h, 1, 1) + dy
+    kx = torch.arange(w, device=dev).view(1, w, 1) + dx
+    inb = ((ky >= 0) & (ky < h) & (kx >= 0) & (kx < w)).reshape(hw, -1)
+    key_pos = (ky.clamp(0, h - 1) * w + kx.clamp(0, w - 1)).reshape(hw, -1)
+    own = torch.arange(hw, device=dev)[:, None]
+    inv_tau = torch.tensor(1.0 / temperature, dtype=torch.float32,
+                           device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+
+    scores = torch.zeros((t_total, h, w, topk), dtype=torch.float32,
+                         device=dev)
+    src = torch.zeros((t_total, h, w, topk), dtype=torch.int64, device=dev)
+    for t in range(1, t_total):
+        q = feats[t].reshape(hw, c)
+        cand, cand_src, valid = [], [], []
+        for j in range(p + 1):
+            f = bank_frame(t, j, p)
+            if f is None:
+                cand.append(neg.expand(key_pos.shape))
+                cand_src.append(key_pos)
+                valid.append(torch.zeros_like(inb))
+                continue
+            s = (q @ feats[f].reshape(hw, c).T) * inv_tau
+            cand.append(torch.where(inb, s.gather(1, key_pos), neg))
+            cand_src.append(f * hw + key_pos)
+            valid.append(inb)
+        cand = torch.cat(cand, 1)
+        order = torch.sort(cand, dim=1, descending=True,
+                           stable=True).indices[:, :topk]
+        ok = torch.cat(valid, 1).gather(1, order)
+        top_s = torch.where(ok, cand.gather(1, order), neg)
+        top_src = torch.where(ok, torch.cat(cand_src, 1).gather(1, order),
+                              own)
+        scores[t] = top_s.view(h, w, topk)
+        src[t] = top_src.view(h, w, topk)
+    return scores, src
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL_NAME)
+    fn = lib.vfs_video_topk_affinity
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.vfs_video_topk_max_topk.argtypes = []
+    lib.vfs_video_topk_max_topk.restype = ctypes.c_int
+    lib.vfs_video_topk_max_offset.argtypes = []
+    lib.vfs_video_topk_max_offset.restype = ctypes.c_int
+    return lib
+
+
+def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
+                             temperature: float, topk: int,
+                             precede_frames: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on ``feats``' device and current stream.
+    ``video_topk_affinity_cuda.launches`` counts the launches."""
+    if feats.device.type != 'cuda':
+        raise ValueError(f'expected a CUDA tensor, got {feats.device}')
+    if feats.dtype != torch.float32:
+        raise TypeError(f'expected float32 features, got {feats.dtype}')
+    if feats.dim() != 4 or not feats.is_contiguous():
+        raise ValueError('expected contiguous (T, h, w, C) features, got '
+                         f'shape {tuple(feats.shape)} strides '
+                         f'{feats.stride()}')
+    t_total, h, w, c = feats.shape
+    if c % 4 or feats.data_ptr() % 16:
+        raise ValueError('the kernel reads float4 vectors: C must be a '
+                         'multiple of 4 and the data 16-byte aligned')
+    if precede_frames < 1:
+        raise ValueError('precede_frames must be >= 1')
+    lib = _library()
+    r = int(math.ceil(radius - 1))
+    if not 0 <= r <= lib.vfs_video_topk_max_offset():
+        raise ValueError(f'radius {radius} is outside what the kernel was '
+                         f'compiled for (r <= '
+                         f'{lib.vfs_video_topk_max_offset()})')
+    if not 1 <= topk <= lib.vfs_video_topk_max_topk():
+        raise ValueError(f'topk {topk} is outside 1..'
+                         f'{lib.vfs_video_topk_max_topk()}')
+    scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
+                         device=feats.device)
+    src = torch.empty((t_total, h, w, topk), dtype=torch.int64,
+                      device=feats.device)
+    scores[0] = 0
+    src[0] = 0
+    if t_total < 2:
+        return scores, src
+    with torch.cuda.device(feats.device):
+        err = lib.vfs_video_topk_affinity(
+            feats.data_ptr(), scores.data_ptr(), src.data_ptr(), t_total, h,
+            w, c, r, radius * radius, 1.0 / temperature, topk,
+            precede_frames, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    video_topk_affinity_cuda.launches += 1
+    return scores, src
+
+
+video_topk_affinity_cuda.launches = 0
+
+
+def video_topk_affinity(feats: torch.Tensor, radius: float,
+                        temperature: float, topk: int,
+                        precede_frames: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k video affinity (module docstring). CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    if feats.device.type == 'cpu':
+        return video_topk_affinity_reference(feats, radius, temperature,
+                                             topk, precede_frames)
+    return video_topk_affinity_cuda(feats, radius, temperature, topk,
+                                    precede_frames)
