@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Compare the r50 eval throughput of checkouts of this repo on one card.
+
+    python3 ab_eval.py DIR_A DIR_B [--repeats N]
+
+Writes ``chip_smoke.py``'s eval inputs once (two synthetic 48x480x854
+DAVIS-layout videos and a seeded r50 torchvision-layout checkpoint), then
+runs ``python -m vfs_tpu_torch.tools.test`` on
+configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py with
+``test_cfg.backend=pallas`` in each checkout's own package, one process per
+run, in the order A, B, B, A. Each process first runs the eval once (the
+kernel build and the first call), then times ``single_process_test``
+``N`` times (default 3). Prints one JSON line per run with the checkout,
+its ``eval_fps`` per repeat and their median, then the card's name and
+power limit as ``nvidia-smi`` gives them. Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def child(argv, repeats):
+    """Run in a checkout: the eval once, then ``repeats`` timed evals;
+    print the wall seconds of each."""
+    import chip_smoke  # the timers of this script's tree
+    sys.path[0] = os.getcwd()  # the package of the checkout
+    import vfs_tpu_torch.apis as apis
+    from vfs_tpu_torch.tools import test as tools_test
+    walls = []
+    with chip_smoke.patched(apis, 'single_process_test',
+                            chip_smoke.wall_timer(walls)):
+        for _ in range(repeats + 1):
+            tools_test.main(argv)
+    print(json.dumps({'first_call_s': walls[0], 'walls': walls[1:]}))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('checkouts', nargs=2)
+    parser.add_argument('--repeats', type=int, default=3)
+    parser.add_argument('--child', default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.child is not None:
+        return child(json.loads(args.child), args.repeats)
+
+    import chip_smoke
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        (img_root, ann_root, (list_all, _), shape,
+         ckpt) = chip_smoke.write_eval_inputs(root)
+        frames = 2 * shape[0]  # write_davis's two videos
+        argv = chip_smoke.eval_argv(root, img_root, ann_root, list_all, ckpt,
+                                    'pallas', os.path.join(root, 'out.npz'))
+        a, b = (os.path.abspath(c) for c in args.checkouts)
+        for checkout in (a, b, b, a):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), a, b,
+                 '--repeats', str(args.repeats), '--child', json.dumps(argv)],
+                cwd=checkout, capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr[-4000:])
+                raise RuntimeError(f'the eval failed in {checkout}')
+            run = json.loads(proc.stdout.strip().splitlines()[-1])
+            fps = [frames / secs for secs in run['walls']]
+            print(json.dumps({'checkout': os.path.relpath(checkout, ROOT),
+                              'first_call_s': run['first_call_s'],
+                              'eval_fps': fps,
+                              'median_fps': statistics.median(fps)}),
+                  flush=True)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -14,6 +14,7 @@ import torch
 
 import vfs_tpu_torch
 from vfs_tpu_torch.ops import _build
+from vfs_tpu_torch.ops.local_attention import local_topk_attend_cuda
 from vfs_tpu_torch.ops.video_affinity import video_topk_affinity_cuda
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -35,8 +36,14 @@ names = [m.name for m in pkgutil.walk_packages(vfs_tpu_torch.__path__,
                                                 'vfs_tpu_torch.')]
 for name in names:
     __import__(name)
-import chip_smoke
-assert callable(chip_smoke.main)
+# the slices' modules, the eval CLI among them, are all walked
+for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
+             'vfs_tpu_torch.datasets.davis_dataset',
+             'vfs_tpu_torch.datasets.pipelines.loading',
+             'vfs_tpu_torch.utils.config', 'vfs_tpu_torch.ops.local_attention'):
+    assert name in names, name
+import ab_eval, chip_smoke
+assert callable(chip_smoke.main) and callable(ab_eval.main)
 from vfs_tpu_torch.ops import _build
 assert not _build._LIBS, 'a kernel was built at import'
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
@@ -50,7 +57,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 41
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -74,4 +81,19 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
     with pytest.raises(ValueError, match='CUDA tensor'):
         video_topk_affinity_cuda(feats, 3.0, 0.07, 4, 2)
     assert video_topk_affinity_cuda.launches == 0
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        local_topk_attend_cuda(feats[0], feats, torch.zeros(3, 4, 5, 2),
+                               torch.ones(3, dtype=torch.bool), 3.0, 0.07, 4)
+    assert local_topk_attend_cuda.launches == 0
     assert not _build._LIBS
+
+
+def test_eval_loop_raises_for_later_slices():
+    from vfs_tpu_torch.apis import multi_process_test, single_process_test
+    with pytest.raises(NotImplementedError):
+        single_process_test(None, [], devices=['cuda:0', 'cuda:1'])
+    with pytest.raises(NotImplementedError):
+        multi_process_test(None, [])
+    from vfs_tpu_torch.datasets.pipelines import RawFrameDecode
+    with pytest.raises(NotImplementedError):
+        RawFrameDecode(decoding_backend='native')

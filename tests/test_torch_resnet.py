@@ -93,6 +93,46 @@ def test_resnet_matches_jax(depth, blockwise):
         assert out.shape == (1, 8, 8, model.stage_channels(2))
 
 
+def _full_forward(model, x, blockwise):
+    """Every stage run, layer4 included; the outputs at ``out_indices``."""
+    x = model._stem(x)
+    outs = []
+    for i, name in enumerate(model.stage_names):
+        for block in getattr(model, name):
+            x = block(x)
+            if blockwise and i in model.out_indices:
+                outs.append(model._nhwc(x))
+        if not blockwise and i in model.out_indices:
+            outs.append(model._nhwc(x))
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+@pytest.mark.parametrize('blockwise', [False, True])
+def test_resnet_skips_stages_past_last_output(blockwise):
+    """With out_indices=(2,) layer4 feeds no output: it receives no call,
+    and the features are bit-equal to those of a forward through every
+    stage."""
+    cls = ResNetBlockwise if blockwise else ResNet
+    model = cls(depth=18, strides=(1, 2, 1, 1), out_indices=(2,),
+                zero_init_residual=False)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.eval()
+    calls = []
+    for m in model.layer4.modules():
+        m.register_forward_hook(lambda *args: calls.append(1))
+    x = torch.randn(2, 48, 40, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = model(x)
+        assert calls == []
+        full = _full_forward(model, x, blockwise)
+    assert calls  # the hooks do fire when layer4 runs
+    out = out if isinstance(out, tuple) else (out,)
+    full = full if isinstance(full, tuple) else (full,)
+    assert len(out) == len(full)
+    for a, b in zip(out, full):
+        assert torch.equal(a, b)
+
+
 def _torchvision_reference():
     path = osp.join(osp.dirname(__file__), 'test_models', 'test_resnet.py')
     spec = importlib.util.spec_from_file_location('_tv_resnet_reference',

@@ -195,7 +195,9 @@ def test_propagate_video_short_videos():
 
 
 @pytest.mark.parametrize('kw', [
-    dict(backend='pallas'), dict(backend='dense'), dict(with_first=False),
+    dict(backend='pallas', pallas_extract='packed'),
+    dict(backend='pallas', pallas_scores='bfloat16'), dict(backend='dense'),
+    dict(with_first=False),
     dict(pallas_precision='bfloat16'), dict(neighbor_range=None),
     dict(with_first_neighbor=False)])
 def test_propagate_video_later_slices_raise(kw):

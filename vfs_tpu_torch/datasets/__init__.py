@@ -1,0 +1,15 @@
+"""Eval datasets (counterpart of ``vfs_tpu/datasets``). Importing the
+package registers every dataset class and pipeline transform, so a
+config's ``build_dataset`` resolves without further imports."""
+
+from . import pipelines  # noqa: F401  (register)
+from .base import BaseDataset
+from .builder import build_dataset
+from .davis_dataset import DavisDataset
+from .rawframe_dataset import RawframeDataset
+from .registry import DATASETS, PIPELINES
+
+__all__ = [
+    'BaseDataset', 'build_dataset', 'DavisDataset', 'RawframeDataset',
+    'DATASETS', 'PIPELINES'
+]

@@ -183,12 +183,18 @@ class ResNet(nn.Module):
     def _nhwc(x):
         return x.permute(0, 2, 3, 1).contiguous()
 
+    def _live_stages(self):
+        """Stage names up to the last one in ``out_indices``: later stages
+        feed no output, so they do not run (their weights stay, so state
+        dicts and checkpoints are unchanged)."""
+        return self.stage_names[:max(self.out_indices) + 1]
+
     def forward(self, x):
         """``x`` (N, H, W, C) -> the stage outputs at ``out_indices`` as
         (N, h, w, c); a single map when there is one index."""
         x = self._stem(x)
         outs = []
-        for i, name in enumerate(self.stage_names):
+        for i, name in enumerate(self._live_stages()):
             x = getattr(self, name)(x)
             if i in self.out_indices:
                 outs.append(self._nhwc(x))
@@ -222,7 +228,7 @@ class ResNetBlockwise(ResNet):
     def forward(self, x):
         x = self._stem(x)
         outs = []
-        for i, name in enumerate(self.stage_names):
+        for i, name in enumerate(self._live_stages()):
             for block in getattr(self, name):
                 x = block(x)
                 if i in self.out_indices:

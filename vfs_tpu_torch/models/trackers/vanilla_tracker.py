@@ -13,6 +13,7 @@ they only served the TPU host link or XLA's compile buckets:
 ``pack_preds``, ``input_format='rgb'``, ``extract_bulk_step``, and the T
 padding of ``preload`` (frames only look backwards, so results on real
 frames do not depend on it; eager PyTorch has no buckets to fill).
+``preload`` copies a video to the card ahead of ``forward_test``.
 ``input_format='yuv420'`` and ``distribute`` raise ``NotImplementedError``
 until a later slice.
 """
@@ -184,28 +185,40 @@ class VanillaTracker(nn.Module):
                     seg_logits)
 
     # -- orchestration ----------------------------------------------------
+    def preload(self, imgs, device: DeviceLike = None) -> torch.Tensor:
+        """Copy a video's frames ((T, H, W, 3) numpy or tensor) to
+        ``device`` (CUDA unless the caller says otherwise) and return them;
+        ``forward_test`` takes the result in place of the frames. The copy
+        is synchronous, so a prefetch thread that calls this hands over
+        frames that are already on the device."""
+        host = imgs if torch.is_tensor(imgs) else torch.as_tensor(
+            np.ascontiguousarray(imgs))
+        return host.to(resolve_device(device))
+
     def forward_test(self, imgs, ref_seg_map: np.ndarray,
                      img_meta: List[Dict[str, Any]],
                      defer_fetch: bool = False, device: DeviceLike = None):
         """Propagate ``ref_seg_map`` (H0, W0 int labels, or (H0, W0, K) soft
         labels) through ``imgs`` ((T, H, W, 3) normalised float RGB, or
-        uint8 with ``img_norm_cfg`` in the meta). Runs on CUDA unless
-        ``device`` says otherwise. Returns the per-feature list of
-        (T, H0, W0) uint8 predictions with frame 0 = the input labels (soft
-        labels: (T, K, H0, W0) heatmaps); ``defer_fetch`` returns a thunk
-        that gives the same list."""
-        dev = resolve_device(device)
+        uint8 with ``img_norm_cfg`` in the meta; numpy or a tensor, as
+        ``preload`` returns). Runs on CUDA unless ``device`` says
+        otherwise. Returns the per-feature list of (T, H0, W0) uint8
+        predictions with frame 0 = the input labels (soft labels:
+        (T, K, H0, W0) heatmaps); ``defer_fetch`` returns a thunk that
+        gives the same list."""
         test_cfg = self.test_cfg
         if test_cfg.get('input_format', 'rgb') == 'yuv420':
             raise NotImplementedError(
                 "input_format='yuv420' is ported in a later slice")
+        imgs = torch.as_tensor(
+            np.asarray(imgs) if not torch.is_tensor(imgs) else imgs).to(
+                resolve_device(device))
+        dev = imgs.device
         batch_step = int(test_cfg.get('batch_step', 20))
         self.to(dev).eval()
         if dev.type == 'cuda':
             self.backbone.to(memory_format=torch.channels_last)
 
-        imgs = torch.as_tensor(np.asarray(imgs) if not torch.is_tensor(imgs)
-                               else imgs).to(dev)
         norm_mean = norm_std = None
         if imgs.dtype == torch.uint8:
             norm_cfg = img_meta[0].get('img_norm_cfg',

@@ -1,0 +1,194 @@
+"""Masked top-k local attention of one query frame: the per-step attention
+of the scan-tier propagation (``backend='pallas'``).
+
+PyTorch counterpart of ``vfs_tpu/ops/pallas_attention.py``
+(``pallas_local_topk_attend``) and of its XLA twin
+``vfs_tpu/ops/local_attention_tiled.py`` (``local_masked_topk_attend``).
+The TPU kernel's padded layout (``pad_for_pallas``), tiles, 128-lane
+padding and copy modes are not part of the contract; the results are:
+
+- ``query`` (h, w, C) and ``bank_feats`` (F, h, w, C) fp32, L2-normalised;
+  ``bank_vals`` (F, h, w, K) fp32; ``bank_valid`` (F,) bool or int.
+- For every query cell, the exact top-k of ``dot(q, key) *
+  float32(1 / temperature)`` over the valid slots and the keys inside the
+  circle ``float(dy^2 + dx^2) < radius^2`` and inside the map. Ties go to
+  the lowest ``(slot, ky, kx)``.
+- Returns ``out`` (h, w, K), the softmax-weighted sum of the selected
+  values, and for the checks ``scores`` (h, w, k) fp32 and ``src``
+  (h, w, k) int64, ``src = slot*h*w + ky*w + kx``. Where a query has fewer
+  than ``k`` valid keys the rest are filler: score ``NEG_INF`` (softmax
+  weight 0) and ``src`` = the query's own cell in slot 0.
+
+A CPU tensor takes the plain version, ``local_topk_attend_reference``; a
+CUDA tensor launches the hand-written kernel
+(``vfs_tpu_torch/csrc/local_topk_attend.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .affinity import NEG_INF
+from .video_affinity import circle_offsets
+
+KERNEL_NAME = 'local_topk_attend'
+
+Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
+                                bank_vals: torch.Tensor,
+                                bank_valid: torch.Tensor, radius: float,
+                                temperature: float, topk: int) -> Result:
+    """Plain PyTorch version of the kernel: dense per-slot score matrices
+    (fp32; on CUDA call it under ``exact_fp32``), the window gathered in
+    ``(slot, dy, dx)`` order, selection by a stable descending sort
+    (``torch.topk``'s tie order is unspecified), softmax and the weighted
+    sum of the gathered values."""
+    f_total, h, w, c = bank_feats.shape
+    k_classes = bank_vals.shape[-1]
+    dev = query.device
+    hw = h * w
+    _, dy, dx = circle_offsets(radius, dev)
+    ky = torch.arange(h, device=dev).view(h, 1, 1) + dy
+    kx = torch.arange(w, device=dev).view(1, w, 1) + dx
+    inb = ((ky >= 0) & (ky < h) & (kx >= 0) & (kx < w)).reshape(hw, -1)
+    key_pos = (ky.clamp(0, h - 1) * w + kx.clamp(0, w - 1)).reshape(hw, -1)
+    own = torch.arange(hw, device=dev)[:, None]
+    inv_tau = torch.tensor(1.0 / temperature, dtype=torch.float32,
+                           device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(bank_valid, device=dev).to(torch.bool)
+
+    q = query.reshape(hw, c)
+    cand, cand_src, ok = [], [], []
+    for f in range(f_total):
+        s = (q @ bank_feats[f].reshape(hw, c).T) * inv_tau
+        cand.append(s.gather(1, key_pos))
+        cand_src.append(f * hw + key_pos)
+        ok.append(inb & valid[f])
+    ok = torch.cat(ok, 1)
+    cand = torch.where(ok, torch.cat(cand, 1), neg)
+    order = torch.sort(cand, dim=1, descending=True,
+                       stable=True).indices[:, :topk]
+    sel_ok = ok.gather(1, order)
+    top_s = torch.where(sel_ok, cand.gather(1, order), neg)
+    top_src = torch.where(sel_ok, torch.cat(cand_src, 1).gather(1, order),
+                          own)
+    weights = torch.softmax(top_s, dim=-1)
+    vals = bank_vals.reshape(f_total * hw, k_classes)[top_src]
+    out = (weights[..., None] * vals).sum(1)
+    return (out.view(h, w, k_classes), top_s.view(h, w, topk),
+            top_src.view(h, w, topk))
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL_NAME)
+    fn = lib.vfs_local_topk_attend
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.vfs_local_topk_max_topk.argtypes = []
+    lib.vfs_local_topk_max_topk.restype = ctypes.c_int
+    lib.vfs_local_topk_max_offset.argtypes = []
+    lib.vfs_local_topk_max_offset.restype = ctypes.c_int
+    return lib
+
+
+def _check_operands(query, bank_feats, bank_vals, bank_valid):
+    dev = query.device
+    if dev.type != 'cuda':
+        raise ValueError(f'expected CUDA tensors, got {dev}')
+    for name, t in (('bank_feats', bank_feats), ('bank_vals', bank_vals),
+                    ('bank_valid', bank_valid)):
+        if t.device != dev:
+            raise ValueError(f'{name} is on {t.device}, query on {dev}')
+    for name, t in (('query', query), ('bank_feats', bank_feats),
+                    ('bank_vals', bank_vals)):
+        if t.dtype != torch.float32:
+            raise TypeError(f'expected float32 {name}, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous, got strides '
+                             f'{t.stride()}')
+    if bank_feats.dim() != 4 or query.dim() != 3 \
+            or query.shape != bank_feats.shape[1:]:
+        raise ValueError('expected query (h, w, C) and bank_feats '
+                         f'(F, h, w, C), got {tuple(query.shape)} and '
+                         f'{tuple(bank_feats.shape)}')
+    if bank_vals.dim() != 4 or bank_vals.shape[:3] != bank_feats.shape[:3]:
+        raise ValueError(f'expected bank_vals (F, h, w, K), got '
+                         f'{tuple(bank_vals.shape)}')
+    if bank_valid.shape != bank_feats.shape[:1]:
+        raise ValueError(f'expected bank_valid (F,), got '
+                         f'{tuple(bank_valid.shape)}')
+    c = query.shape[-1]
+    if c % 4 or query.data_ptr() % 16 or bank_feats.data_ptr() % 16:
+        raise ValueError('the kernel reads float4 vectors: C must be a '
+                         'multiple of 4 and the data 16-byte aligned')
+
+
+def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
+                           bank_vals: torch.Tensor, bank_valid: torch.Tensor,
+                           radius: float, temperature: float,
+                           topk: int) -> Result:
+    """Launch the CUDA kernel on ``query``'s device and current stream.
+    ``local_topk_attend_cuda.launches`` counts the launches."""
+    _check_operands(query, bank_feats, bank_vals, bank_valid)
+    f_total, h, w, c = bank_feats.shape
+    k_classes = bank_vals.shape[-1]
+    lib = _library()
+    r = int(math.ceil(radius - 1))
+    if not 0 <= r <= lib.vfs_local_topk_max_offset():
+        raise ValueError(f'radius {radius} is outside what the kernel was '
+                         f'compiled for (r <= '
+                         f'{lib.vfs_local_topk_max_offset()})')
+    if not 1 <= topk <= lib.vfs_local_topk_max_topk():
+        raise ValueError(f'topk {topk} is outside 1..'
+                         f'{lib.vfs_local_topk_max_topk()}')
+    if not 1 <= f_total <= 65535:
+        raise ValueError(f'{f_total} bank slots: the kernel takes 1..65535')
+    valid = bank_valid.to(torch.int32).contiguous()
+    out = torch.empty((h, w, k_classes), dtype=torch.float32,
+                      device=query.device)
+    scores = torch.empty((h, w, topk), dtype=torch.float32,
+                         device=query.device)
+    src = torch.empty((h, w, topk), dtype=torch.int64, device=query.device)
+    # scratch: each slot's top-k lists, merged by the kernel's second stage
+    part_s = torch.empty((f_total, h, w, topk), dtype=torch.float32,
+                         device=query.device)
+    part_o = torch.empty((f_total, h, w, topk), dtype=torch.int32,
+                         device=query.device)
+    with torch.cuda.device(query.device):
+        err = lib.vfs_local_topk_attend(
+            query.data_ptr(), bank_feats.data_ptr(), bank_vals.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), scores.data_ptr(),
+            src.data_ptr(), part_s.data_ptr(), part_o.data_ptr(), f_total, h,
+            w, c, k_classes, r,
+            radius * radius, 1.0 / temperature, topk,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    local_topk_attend_cuda.launches += 1
+    return out, scores, src
+
+
+local_topk_attend_cuda.launches = 0
+
+
+def local_topk_attend(query: torch.Tensor, bank_feats: torch.Tensor,
+                      bank_vals: torch.Tensor, bank_valid: torch.Tensor,
+                      radius: float, temperature: float, topk: int) -> Result:
+    """Masked top-k local attention (module docstring). CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    if query.device.type == 'cpu':
+        return local_topk_attend_reference(query, bank_feats, bank_vals,
+                                           bank_valid, radius, temperature,
+                                           topk)
+    return local_topk_attend_cuda(query, bank_feats, bank_vals, bank_valid,
+                                  radius, temperature, topk)

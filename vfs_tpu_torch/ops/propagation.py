@@ -1,17 +1,23 @@
 """Whole-video label propagation (PyTorch counterpart of
 ``vfs_tpu/ops/propagation.py``).
 
-This slice ports the decoupled two-phase engine, the path that every
-eval config of the repo takes (``neighbor_range`` set,
-``with_first_neighbor=True``):
+Two engines of the local configuration (``neighbor_range`` set,
+``with_first_neighbor=True``), which every eval config of the repo takes:
 
-- phase 1, ``video_topk_affinity``: for every frame at once, the top-k
-  scores and source cells over the bank (frame 0 plus the ``P`` preceding
-  frames, circle-masked). Selection depends only on features, so it needs
-  no frame loop;
-- phase 2, ``propagate_labels``: the softmax-weighted label gather, the
-  only sequential part (frame ``t`` reads labels propagated to earlier
-  frames).
+- the decoupled two-phase engine (``backend='pallas_video'`` or
+  ``'tiled'``):
+
+  - phase 1, ``video_topk_affinity``: for every frame at once, the top-k
+    scores and source cells over the bank (frame 0 plus the ``P``
+    preceding frames, circle-masked). Selection depends only on features,
+    so it needs no frame loop;
+  - phase 2, ``propagate_labels``: the softmax-weighted label gather, the
+    only sequential part (frame ``t`` reads labels propagated to earlier
+    frames);
+
+- the per-step scan (``backend='pallas'``): a frame loop over a bank of
+  ``P + 1`` slots, each step one ``local_topk_attend`` (selection, softmax
+  and gather fused).
 
 Results match the JAX package's scan tiers, including the reference's
 frame-0 duplication while ``t <= precede_frames`` and its tie order.
@@ -24,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .affinity import l2_normalize
+from .local_attention import local_topk_attend
 from .video_affinity import video_topk_affinity
 
 
@@ -31,11 +38,12 @@ class PropagationConfig(NamedTuple):
     """The JAX package's fields and defaults, so one ``test_cfg`` drives
     both packages. ``backend`` ``'pallas_video'`` and ``'tiled'`` both run
     the decoupled engine (their results are identical in the JAX
-    package); the TPU layout keys (``pallas_tile``, ``pallas_scores``,
-    ``pallas_fetch``, ``pallas_store``, ``pallas_matmul``,
-    ``pallas_group_frames``, ``pallas_extract``, ``pallas_interpret``,
-    ``tile``, ``query_chunk`` and every ``video_*`` key) are accepted and
-    have no effect here."""
+    package); ``'pallas'`` runs the per-step scan. The TPU layout keys
+    (``pallas_tile``, ``pallas_fetch``, ``pallas_store``,
+    ``pallas_matmul``, ``pallas_group_frames``, ``pallas_extract``
+    ``'mask'`` and ``'descent'``, ``pallas_interpret``, ``tile``,
+    ``query_chunk`` and every ``video_*`` key) are exact either way in the
+    JAX package; they are accepted and have no effect here."""
     precede_frames: int = 20
     topk: int = 10
     temperature: float = 0.07
@@ -68,10 +76,10 @@ class PropagationConfig(NamedTuple):
 def _check_supported(cfg: PropagationConfig) -> None:
     """Raise ``NotImplementedError`` for the configurations a later slice
     of the port brings (see ROADMAP.md)."""
-    if cfg.backend not in ('pallas_video', 'tiled'):
+    if cfg.backend not in ('pallas', 'pallas_video', 'tiled'):
         raise NotImplementedError(
-            f"backend={cfg.backend!r} (the per-step scan kernel or the dense "
-            "path) is ported in a later slice; use 'pallas_video' or 'tiled'")
+            f"backend={cfg.backend!r} (the dense path) is ported in a later "
+            "slice; use 'pallas', 'pallas_video' or 'tiled'")
     if not (cfg.neighbor_range is not None and cfg.with_first_neighbor
             and cfg.with_norm and cfg.with_first):
         raise NotImplementedError(
@@ -82,6 +90,11 @@ def _check_supported(cfg: PropagationConfig) -> None:
         raise NotImplementedError(
             "pallas_precision='bfloat16' (bf16 features) is ported in a "
             'later slice')
+    if cfg.backend == 'pallas' and (cfg.pallas_extract == 'packed'
+                                    or cfg.pallas_scores != 'float32'):
+        raise NotImplementedError(
+            "pallas_extract='packed' and pallas_scores='bfloat16' (inexact "
+            'selection) are ported in a later slice')
 
 
 def propagate_labels(scores: torch.Tensor, src: torch.Tensor,
@@ -124,8 +137,44 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
     if feats.shape[0] < 2:
         return seg_first[None][:feats.shape[0]]
     feats = l2_normalize(feats.to(torch.float32), dim=-1).contiguous()
+    if cfg.backend == 'pallas':
+        return _propagate_video_scan(feats, seg_first, cfg)
     scores, src = video_topk_affinity(
         feats, radius=float(cfg.neighbor_range // 2),
         temperature=cfg.temperature, topk=cfg.topk,
         precede_frames=cfg.precede_frames)
     return propagate_labels(scores, src, seg_first)
+
+
+def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
+                          cfg: PropagationConfig) -> torch.Tensor:
+    """The per-step scan over normalised ``feats`` (``backend='pallas'``),
+    in the JAX package's bank layout: slot 0 holds frame 0; slots 1..P are
+    the ring, frame ``f`` in slot ``1 + f % P`` (slot 1 starts as frame 0,
+    so frame 0 is a key twice while ``t <= P``); slot ``1 + j`` is valid
+    iff ``j < t``. Each step attends, then its slot takes the query's
+    features and logits. The bank is updated in place."""
+    t_total, h, w, _ = feats.shape
+    p = cfg.precede_frames
+    dev = feats.device
+    bank_feats = feats.new_zeros((p + 1,) + tuple(feats.shape[1:]))
+    bank_feats[0] = bank_feats[1] = feats[0]
+    bank_vals = seg_first.new_zeros((p + 1,) + tuple(seg_first.shape))
+    bank_vals[0] = bank_vals[1] = seg_first
+    # row t: the slots live for query frame t
+    steps = torch.arange(t_total, device=dev)[:, None]
+    valid = torch.cat([torch.ones((t_total, 1), dtype=torch.bool,
+                                  device=dev),
+                       torch.arange(p, device=dev)[None] < steps], 1)
+    valid = valid.to(torch.int32)
+    out = seg_first.new_empty((t_total,) + tuple(seg_first.shape))
+    out[0] = seg_first
+    radius = float(cfg.neighbor_range // 2)
+    for t in range(1, t_total):
+        seg = local_topk_attend(feats[t], bank_feats, bank_vals, valid[t],
+                                radius, cfg.temperature, cfg.topk)[0]
+        slot = 1 + t % p
+        bank_feats[slot] = feats[t]
+        bank_vals[slot] = seg
+        out[t] = seg
+    return out
