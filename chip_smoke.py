@@ -7,19 +7,28 @@ its plain PyTorch version.
 Phases, one JSON line each on stdout:
 
 1. build: compile the package's CUDA sources (``nvcc``, sm_90a), one
-   ``nvcc`` per source, all started together; each one's ``ptxas``
+   ``nvcc`` per source, all started together; each kernel's ``ptxas``
    registers and spills. Then the card's name and power limit as
    ``nvidia-smi`` gives them.
 2. small: each kernel vs its plain version over a small-shape matrix:
    ``video_topk_affinity`` over the CPU tests' cases plus a
    duplicated-frame tie case; ``local_topk_attend`` over odd maps,
    invalid slots, top-k up to its maximum, K = 4 and 16, filler entries
-   and a duplicated-frame tie case.
-3. full: both kernels at the r18 (C=256, radius 12) and r50 (C=1024,
+   and a duplicated-frame tie case. ``video_topk_affinity_v1`` over the
+   same cases, two wider radii and temporally smooth features, under
+   every ``video_extract`` and ``early_exit``; ``local_topk_attend_v2``
+   over ``local_topk_attend``'s cases and a wider radius.
+3. full: every kernel at the r18 (C=256, radius 12) and r50 (C=1024,
    radius 18) DAVIS-480p shapes (60x107 cells, P=20, top-10) with
    CUDA-event timings (median of 5 after a warm-up), the work and the
-   bound. ``video_topk_affinity`` at T=24 and T=48; ``local_topk_attend``
-   for one step against a full bank (F=21 slots, K=4).
+   bound. ``video_topk_affinity`` and ``video_topk_affinity_v1`` at T=24
+   and T=48, v1 with the tau exit on and off, on random and on smooth
+   features, with the passes it ran; ``local_topk_attend`` and
+   ``local_topk_attend_v2`` for one step against a full bank (F=21
+   slots, K=4). ``local_topk_attend_v2``'s path is its op entry point,
+   called once per model with its count set to 0 before; it is also held
+   against ``local_topk_attend``'s kernel, which computes the same
+   function.
 4. main: slice 1's path, DAVIS label-propagation eval of the r18 model of
    configs/r18_nc_sgd_cos_100e_r2_1xNx8_k400.py at full width with seeded
    random weights, on a synthetic 48x480x854 two-object video, through
@@ -37,7 +46,22 @@ Phases, one JSON line each on stdout:
    one video, with a run whose per-step attention is the plain version.
    The counted run's stage times come from CUDA events around
    ``VanillaTracker._extract_feats`` and ``propagate_video``.
-6. kernels: every kernel with its launches on its path, times and bound.
+6. pose: slice 3's JHMDB path, pose-keypoint propagation with PCK of the
+   r18 model (full width, seeded random weights as a ``.pth``) through
+   ``python -m vfs_tpu_torch.tools.test --eval pck`` in-process, with
+   ``test_cfg.video_engine=v1 video_extract=perframe``, on a synthetic
+   JHMDB-layout dataset of two 40-frame 240x320 videos with 15 moving
+   joints. ``video_topk_affinity_v1`` must launch once per video; the
+   heatmaps must agree with the same command under ``video_engine=v2``
+   within 1e-5 (PCK equal) and, on one video, with a run whose phase 1
+   is the plain version.
+7. vip: slice 3's VIP path, part segmentation with mIoU of the r50 model
+   (``--eval mIoU``, ``video_engine=v1``, the default
+   ``video_extract='sweep'``) on two synthetic 48-frame 480x854 videos
+   with 19 moving parts; one launch per video, masks on >= 99.9% of
+   pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
+   video, to a plain-phase-1 run.
+8. kernels: every kernel with its launches on its path, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -50,7 +74,13 @@ atol 1e-5. Two candidates whose scores lie that close may swap places,
 so sources must agree on >= 99.99% of entries (exactly on the tie cases,
 where the equal scores are bit-identical in both versions). The per-step
 logits are checked at rtol 1e-5 / atol 1e-5 on the cells whose sources
-agree; masks of the paths on >= 99.9% of pixels.
+agree; masks of the paths on >= 99.9% of pixels. ``video_topk_affinity_v1``
+and ``local_topk_attend_v2`` sum in the order of the other two kernels, so
+at the full shapes their scores and sources must equal those kernels'
+exactly, and the pose heatmaps of the v1 and v2 engines agree within 1e-5;
+against the plain version (cuBLAS order) a near tie may swap one selected
+key, so the plain-phase-1 heatmaps must agree within 1e-5 on >= 99.9% of
+their values.
 """
 
 from __future__ import annotations
@@ -91,6 +121,20 @@ LOCAL_INFO = dict(
     name='local_topk_attend', route='cuda',
     source='vfs_tpu_torch/csrc/local_topk_attend.cu',
     replaces='vfs_tpu/ops/pallas_attention.py:357')
+V1_INFO = dict(
+    name='video_topk_affinity_v1', route='cuda',
+    source='vfs_tpu_torch/csrc/video_topk_affinity_v1.cu',
+    replaces='vfs_tpu/ops/pallas_affinity_video.py:531')
+V2_INFO = dict(
+    name='local_topk_attend_v2', route='cuda',
+    source='vfs_tpu_torch/csrc/local_topk_attend_v2.cu',
+    replaces='vfs_tpu/ops/pallas_attention_v2.py:130')
+# the v1 kernel's (video_extract, early_exit) settings
+V1_MODES = [('sweep', False), ('sweep', True), ('perframe', False),
+            ('perframe', True)]
+# wider windows for the per-frame kernels' larger tiles: radius 18 and 30
+WIDE_CASES = [(6, 9, 10, 36, 3, 5), (5, 12, 13, 60, 2, 6)]
+MODELS = (('r18', 256, 12.0), ('r50', 1024, 18.0))
 # local_topk_attend's small matrix: (h, w, C, radius, slot validity, topk,
 # K); the kernel keeps at most 32 entries per query
 LOCAL_CASES = [(7, 9, 8, 3.0, (1, 1, 1, 0, 0), 5, 4),
@@ -98,6 +142,7 @@ LOCAL_CASES = [(7, 9, 8, 3.0, (1, 1, 1, 0, 0), 5, 4),
                (9, 40, 12, 5.0, (0, 1, 1, 1), 10, 4),
                (5, 6, 8, 18.0, (1, 1, 0), 10, 16),
                (2, 3, 8, 2.0, (1, 0, 1), 12, 4)]  # the last has fillers
+WIDE_LOCAL_CASE = (6, 7, 8, 30.0, (1, 0, 1), 10, 4)
 
 
 def emit(obj):
@@ -212,14 +257,16 @@ def compare_local(kernel, plain, exact_src, what):
 def phase_build():
     """Build every kernel, one nvcc per source, all started together."""
     from vfs_tpu_torch.ops import _build
-    names = [KERNEL_INFO['name'], LOCAL_INFO['name']]
+    names = [info['name']
+             for info in (KERNEL_INFO, V1_INFO, LOCAL_INFO, V2_INFO)]
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
     secs = time.time() - t0
+    keep = ('Compiling entry function', 'registers', 'spill')
     ptxas = {name: [ln.strip()
                     for ln in lib.with_suffix('.log').read_text().splitlines()
-                    if 'registers' in ln or 'spill' in ln]
+                    if any(k in ln for k in keep)]
              for name, lib in libs.items()}
     emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas})
     smi = subprocess.run(
@@ -241,16 +288,53 @@ def run_case(feats, radius, topk, p, exact_src, what):
                    exact_src, what)
 
 
-def run_local(query, bank, vals, valid, radius, topk, exact_src, what):
-    """local_topk_attend's kernel vs its plain version (TF32 off); returns
+def run_v1_case(feats, radius, topk, p, exact_src, what):
+    """video_topk_affinity_v1's kernel under every (video_extract,
+    early_exit) vs the plain version; returns the worst max_abs_err and
+    source mismatch count, and the passes each setting ran."""
+    import torch
+    from vfs_tpu_torch.ops import (video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda)
+    plain = video_topk_affinity_reference(feats, radius, 0.07, topk, p)
+    errs, mismatches, passes = [], [], {}
+    for extract, early_exit in V1_MODES:
+        count = torch.zeros(1, dtype=torch.int64, device=feats.device)
+        out = video_topk_affinity_v1_cuda(feats, radius, 0.07, topk, p,
+                                          early_exit=early_exit,
+                                          extract=extract, pass_count=count)
+        torch.cuda.synchronize()
+        err, mismatch, _ = compare(
+            (out[0][1:], out[1][1:]), (plain[0][1:], plain[1][1:]),
+            exact_src, f'{what} {extract} early_exit={early_exit}')
+        errs.append(err)
+        mismatches.append(mismatch)
+        passes[f'{extract}/early_exit={early_exit}'] = int(count)
+    return max(errs), max(mismatches), passes
+
+
+def smooth_features(shape, dev, generator):
+    """L2-normalised (T, h, w, C) features that drift slowly over time (a
+    base map plus a cumulative 0.1-scale random walk): the regime of real
+    video, where the tau exit skips most passes."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize
+    base = torch.randn(shape[1:], device=dev, generator=generator)
+    drift = torch.randn(shape, device=dev, generator=generator) * 0.1
+    return l2_normalize(base + torch.cumsum(drift, 0)).contiguous()
+
+
+def run_local(query, bank, vals, valid, radius, topk, exact_src, what,
+              kernel=None):
+    """A per-step kernel (``local_topk_attend``'s unless ``kernel`` names
+    another wrapper) vs its plain version (TF32 off); returns
     compare_local's numbers and the kernel's outputs."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
     from vfs_tpu_torch.ops import (local_topk_attend_cuda,
                                    local_topk_attend_reference)
+    kernel = kernel or local_topk_attend_cuda
     with exact_fp32():
-        out_k = local_topk_attend_cuda(query, bank, vals, valid, radius, 0.07,
-                                       topk)
+        out_k = kernel(query, bank, vals, valid, radius, 0.07, topk)
         out_p = local_topk_attend_reference(query, bank, vals, valid, radius,
                                             0.07, topk)
     torch.cuda.synchronize()
@@ -319,6 +403,82 @@ def phase_small(dev):
           'cases': results, 'filler_entries': fillers,
           'tie_case': {'max_abs_err': err, 'max_logit_err': logit_err,
                        'src_mismatch': mismatch}})
+    phase_small_perframe(dev, tensor)
+
+
+def phase_small_perframe(dev, tensor):
+    """The small matrix of the per-frame kernels: video_topk_affinity_v1
+    over row 1's cases, the wide radii, the tie case and smooth features
+    (where the tau exit must skip passes), local_topk_attend_v2 over
+    local_topk_attend's cases, a wide radius and its tie case."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize, local_topk_attend_v2_cuda
+    results = []
+    for t_total, h, w, nr, p, topk in SMALL_CASES + WIDE_CASES:
+        rng = np.random.RandomState(t_total * 100 + h)
+        feats = l2_normalize(tensor(rng.randn(t_total, h, w, 8))).contiguous()
+        err, mismatch, _ = run_v1_case(feats, float(nr // 2), topk, p, False,
+                                       f'small v1 {t_total}x{h}x{w} P={p}')
+        results.append([t_total, h, w, nr, p, topk, err, mismatch])
+    rng = np.random.RandomState(17)
+    feats = rng.randn(10, 8, 9, 8)
+    feats[3] = feats[1]
+    feats[7] = feats[5]
+    feats = l2_normalize(tensor(feats)).contiguous()
+    tie_err, tie_mismatch, _ = run_v1_case(feats, 3.0, 5, 4, True,
+                                           'v1 tie case')
+    rng = np.random.RandomState(3)
+    smooth = rng.randn(8, 9, 8)[None] + np.cumsum(
+        rng.randn(10, 8, 9, 8) * 0.1, 0)
+    smooth = l2_normalize(tensor(smooth)).contiguous()
+    smooth_err, smooth_mismatch, passes = run_v1_case(smooth, 3.0, 5, 4,
+                                                      False, 'v1 smooth')
+    full = passes['perframe/early_exit=False']
+    if not (passes['perframe/early_exit=True'] < full
+            and passes['sweep/early_exit=True'] == full):
+        raise AssertionError(f'the tau exit did not skip passes: {passes}')
+    emit({'phase': 'small', 'kernel': V1_INFO['name'],
+          'modes': [f'{e}/early_exit={x}' for e, x in V1_MODES],
+          'columns': ['T', 'h', 'w', 'neighbor_range', 'P', 'topk',
+                      'max_abs_err', 'src_mismatch'],
+          'cases': results,
+          'tie_case': {'max_abs_err': tie_err, 'src_mismatch': tie_mismatch},
+          'smooth_case': {'max_abs_err': smooth_err,
+                          'src_mismatch': smooth_mismatch,
+                          'passes': passes}})
+
+    results = []
+    fillers = 0
+    for h, w, c, radius, valid, topk, k in LOCAL_CASES + [WIDE_LOCAL_CASE]:
+        rng = np.random.RandomState(h * 100 + w)
+        f = len(valid)
+        query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
+        bank = l2_normalize(tensor(rng.randn(f, h, w, c))).contiguous()
+        vals = tensor(rng.rand(f, h, w, k))
+        (err, logit_err, mismatch, _), out = run_local(
+            query, bank, vals, tensor(valid, torch.int32), radius, topk,
+            False, f'small v2 {h}x{w} F={f} k={topk} K={k}',
+            local_topk_attend_v2_cuda)
+        fillers += int((out[1] <= -1e29).sum())
+        results.append([h, w, c, radius, f, sum(valid), topk, k, err,
+                        logit_err, mismatch])
+    if not fillers:
+        raise AssertionError('the filler case produced no filler entries')
+    rng = np.random.RandomState(23)
+    bank = rng.randn(4, 8, 9, 8)
+    bank[2], bank[3] = bank[0], bank[1]
+    bank = l2_normalize(tensor(bank)).contiguous()
+    query = l2_normalize(tensor(rng.randn(8, 9, 8))).contiguous()
+    (err, logit_err, mismatch, _), _ = run_local(
+        query, bank, tensor(rng.rand(4, 8, 9, 4)),
+        tensor([1, 1, 1, 1], torch.int32), 3.0, 5, True, 'v2 tie case',
+        local_topk_attend_v2_cuda)
+    emit({'phase': 'small', 'kernel': V2_INFO['name'],
+          'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
+                      'max_abs_err', 'max_logit_err', 'src_mismatch'],
+          'cases': results, 'filler_entries': fillers,
+          'tie_case': {'max_abs_err': err, 'max_logit_err': logit_err,
+                       'src_mismatch': mismatch}})
 
 
 def phase_full(dev, smi_name):
@@ -327,16 +487,17 @@ def phase_full(dev, smi_name):
     time(24)) / 24 is the steady-state time per frame. local_topk_attend:
     one step against a full bank of 21 distinct random frames, the
     steady state of the scan. Returns the r50 local_topk_attend numbers,
-    the kernels line's."""
+    the kernels line's, and the plain version's times of
+    video_topk_affinity per model and T."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
     from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
                                    local_topk_attend_reference,
                                    video_topk_affinity_cuda,
                                    video_topk_affinity_reference)
-    out = {}
+    out, row1_plain = {}, {}
     h, w, p, topk = 60, 107, 20, 10
-    for model, c, radius in (('r18', 256, 12.0), ('r50', 1024, 18.0)):
+    for model, c, radius in MODELS:
         g = torch.Generator(device=dev).manual_seed(c)
         feats48 = l2_normalize(torch.randn((48, h, w, c), device=dev,
                                            generator=g)).contiguous()
@@ -353,6 +514,7 @@ def phase_full(dev, smi_name):
                         feats, radius, 0.07, topk, p)),
                     *affinity_work(t_total, h, w, c, radius, topk, p))
         (k24, p24, f24, b24), (k48, p48, f48, b48) = res[24], res[48]
+        row1_plain[model] = {24: p24, 48: p48}
         b_ms, b_by = bound_ms(f24, b24, smi_name)
         sb_ms, _ = bound_ms((f48 - f24) / 24, (b48 - b24) / 24, smi_name)
         out[model] = dict(
@@ -373,7 +535,7 @@ def phase_full(dev, smi_name):
 
     out = {}
     f, k_classes = p + 1, 4
-    for model, c, radius in (('r18', 256, 12.0), ('r50', 1024, 18.0)):
+    for model, c, radius in MODELS:
         g = torch.Generator(device=dev).manual_seed(c + 1)
         bank = l2_normalize(torch.randn((f, h, w, c), device=dev,
                                         generator=g)).contiguous()
@@ -402,7 +564,172 @@ def phase_full(dev, smi_name):
         del bank, query, vals
         torch.cuda.empty_cache()
     emit({'phase': 'full', 'kernel': LOCAL_INFO['name'], **out})
-    return out['r50']
+    return out['r50'], row1_plain
+
+
+def phase_full_v1(dev, smi_name, plain_ms):
+    """video_topk_affinity_v1 at the r18 and r50 shapes, on the random
+    features of row 1's full phase (same seeds: the plain version's times
+    ``plain_ms`` are row 1's on these inputs) and on smooth features, with
+    the tau exit on and off ('perframe'; the 'sweep' setting runs every
+    pass, as the exit off does). Checks at T=24 against the plain version
+    and, on random features, that scores and sources equal row 1's kernel
+    bit for bit. Times at T=24 and T=48 and the passes run at T=48.
+    Returns the kernels line's numbers: r50, T=48, random features, every
+    pass (the vip path's setting and shape)."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda)
+    out = {}
+    h, w, p, topk = 60, 107, 20, 10
+    for model, c, radius in MODELS:
+        g = torch.Generator(device=dev).manual_seed(c)
+        inputs = dict(random=l2_normalize(torch.randn(
+            (48, h, w, c), device=dev, generator=g)).contiguous())
+        inputs['smooth'] = smooth_features(
+            (48, h, w, c), dev, torch.Generator(device=dev).manual_seed(c + 2))
+        (f24, b24), (f48, b48) = [affinity_work(t, h, w, c, radius, topk, p)
+                                  for t in (24, 48)]
+        res = dict(shape=[48, h, w, c], radius=radius, precede_frames=p,
+                   topk=topk, plain_ms_per_frame=plain_ms[model][24] / 23,
+                   steady_plain_ms_per_frame=(plain_ms[model][48]
+                                              - plain_ms[model][24]) / 24,
+                   bound_ms_per_frame=bound_ms(f24, b24, smi_name)[0] / 23,
+                   steady_bound_ms_per_frame=bound_ms(
+                       (f48 - f24) / 24, (b48 - b24) / 24, smi_name)[0],
+                   library_ms=None, library_note=NO_LIBRARY_CALL)
+        with exact_fp32():
+            for kind, feats48 in inputs.items():
+                feats24 = feats48[:24].contiguous()
+                plain = video_topk_affinity_reference(feats24, radius, 0.07,
+                                                      topk, p)
+                row1 = video_topk_affinity_cuda(feats24, radius, 0.07, topk,
+                                                p)
+                for early_exit in (True, False):
+                    def call(feats, count=None):
+                        return video_topk_affinity_v1_cuda(
+                            feats, radius, 0.07, topk, p,
+                            early_exit=early_exit, extract='perframe',
+                            pass_count=count)
+                    got = call(feats24)
+                    torch.cuda.synchronize()
+                    what = f'full v1 {model} {kind} early_exit={early_exit}'
+                    err, mismatch, share = compare(
+                        (got[0][1:], got[1][1:]),
+                        (plain[0][1:], plain[1][1:]), False, what)
+                    if not (torch.equal(got[0][1:], row1[0][1:])
+                            and torch.equal(got[1][1:], row1[1][1:])):
+                        raise AssertionError(f'{what}: differs from row 1')
+                    count = torch.zeros(1, dtype=torch.int64, device=dev)
+                    call(feats48, count)
+                    k24 = cuda_ms(lambda: call(feats24))
+                    k48 = cuda_ms(lambda: call(feats48))
+                    res[f'{kind}/early_exit={early_exit}'] = dict(
+                        max_abs_err=err, src_mismatch=mismatch,
+                        src_mismatch_share=share, equal_to_row1=True,
+                        kernel_ms=k48, kernel_ms_per_frame=k24 / 23,
+                        steady_kernel_ms_per_frame=(k48 - k24) / 24,
+                        passes_T48=int(count))
+        out[model] = res
+        del inputs
+        torch.cuda.empty_cache()
+    emit({'phase': 'full', 'kernel': V1_INFO['name'], **out})
+    r50 = out['r50']['random/early_exit=False']
+    b_ms, b_by = bound_ms(*affinity_work(48, h, w, 1024, 18.0, topk, p),
+                          smi_name)
+    return dict(max_abs_err=r50['max_abs_err'],
+                src_mismatch=r50['src_mismatch'], ms=r50['kernel_ms'],
+                plain_ms=plain_ms['r50'][48], bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_full_v2(dev, smi_name):
+    """local_topk_attend_v2 for one step against a full bank at the r18
+    and r50 shapes, on the inputs of row 3's full phase. Its path is the
+    op entry point ``local_topk_attend_v2``, called once per model with
+    the launch count set to 0 before the first call and read after the
+    last. Held against the plain version and against row 3's kernel (the
+    same function, the same arithmetic: scores and sources equal). Returns
+    the kernels line's entry (r50)."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   local_topk_attend_reference,
+                                   local_topk_attend_v2,
+                                   local_topk_attend_v2_cuda)
+    h, w, p, topk, k_classes = 60, 107, 20, 10, 4
+    f = p + 1
+    inputs = {}
+    for model, c, radius in MODELS:
+        g = torch.Generator(device=dev).manual_seed(c + 1)
+        bank = l2_normalize(torch.randn((f, h, w, c), device=dev,
+                                        generator=g)).contiguous()
+        query = l2_normalize(torch.randn((h, w, c), device=dev,
+                                         generator=g)).contiguous()
+        vals = torch.rand((f, h, w, k_classes), device=dev, generator=g)
+        valid = torch.ones(f, dtype=torch.int32, device=dev)
+        inputs[model] = (query, bank, vals, valid, radius)
+
+    # the path: the op entry point, counted
+    local_topk_attend_v2_cuda.launches = 0
+    with exact_fp32():
+        got = {model: local_topk_attend_v2(q, b, v, ok, radius, 0.07, topk)
+               for model, (q, b, v, ok, radius) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = local_topk_attend_v2_cuda.launches
+    if launches != len(MODELS):
+        raise AssertionError(f'{launches} launches of local_topk_attend_v2 '
+                             f'for {len(MODELS)} calls')
+
+    out = {}
+    for model, c, radius in MODELS:
+        query, bank, vals, valid, _ = inputs.pop(model)
+
+        def call(fn, count=None):
+            if count is None:
+                return fn(query, bank, vals, valid, radius, 0.07, topk)
+            return fn(query, bank, vals, valid, radius, 0.07, topk,
+                      pass_count=count)
+
+        with exact_fp32():
+            plain = call(local_topk_attend_reference)
+            row3 = call(local_topk_attend_cuda)
+            torch.cuda.synchronize()
+            err, logit_err, mismatch, share = compare_local(
+                got[model], plain, False, f'full v2 {model}')
+            _, row3_logit_err, row3_mismatch, _ = compare_local(
+                got[model], row3, True, f'full v2 {model} vs row 3')
+            if not torch.equal(got[model][1], row3[1]):
+                raise AssertionError(f'full v2 {model}: scores differ from '
+                                     'row 3')
+            count = torch.zeros(1, dtype=torch.int64, device=dev)
+            call(local_topk_attend_v2_cuda, count)
+            kernel_ms = cuda_ms(lambda: call(local_topk_attend_v2_cuda))
+            plain_ms = cuda_ms(lambda: call(local_topk_attend_reference))
+            row3_ms = cuda_ms(lambda: call(local_topk_attend_cuda))
+        flops, nbytes = step_work(h, w, c, radius, topk, k_classes, f, f)
+        b_ms, b_by = bound_ms(flops, nbytes, smi_name)
+        out[model] = dict(
+            h=h, w=w, C=c, radius=radius, F=f, topk=topk, K=k_classes,
+            max_abs_err=err, max_logit_err=logit_err, src_mismatch=mismatch,
+            src_mismatch_share=share, src_mismatch_vs_row3=row3_mismatch,
+            max_logit_err_vs_row3=row3_logit_err,
+            kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
+            row3_kernel_ms_per_step=row3_ms, passes=int(count),
+            gflop_per_step=flops / 1e9, bound_ms_per_step=b_ms,
+            bound_by=b_by, library_ms=None, library_note=NO_LIBRARY_CALL)
+        del query, bank, vals
+        torch.cuda.empty_cache()
+    emit({'phase': 'full', 'kernel': V2_INFO['name'], 'launches': launches,
+          **out})
+    r50 = out['r50']
+    return dict(**V2_INFO, launches=launches, max_abs_err=r50['max_abs_err'],
+                src_mismatch=r50['src_mismatch'],
+                ms=r50['kernel_ms_per_step'],
+                plain_ms=r50['plain_ms_per_step'],
+                bound_ms=r50['bound_ms_per_step'], bound_by=r50['bound_by'],
+                library_ms=None, library_note=NO_LIBRARY_CALL)
 
 
 def synthetic_video(t_total=48, h=480, w=854, seed=0):
@@ -633,17 +960,22 @@ def write_eval_inputs(root):
     the r50 backbone of CONFIG_R50 with seeded random weights, saved as a
     torchvision-layout ``.pth``. Returns ``write_davis``'s values and the
     checkpoint's path."""
+    data = write_davis(root)
+    return (*data, write_backbone(CONFIG_R50, os.path.join(root, 'r50.pth')))
+
+
+def write_backbone(config, path):
+    """The backbone of ``config`` with seeded random weights (seed 0),
+    saved at ``path`` as a torchvision-layout ``.pth``; returns ``path``."""
     import runpy
     import torch
     from vfs_tpu_torch.models.backbones import ResNet
-    data = write_davis(root)
-    backbone_cfg = dict(runpy.run_path(CONFIG_R50)['model']['backbone'])
+    backbone_cfg = dict(runpy.run_path(config)['model']['backbone'])
     backbone_cfg.pop('type')
     backbone = ResNet(**backbone_cfg)
     backbone.init_weights(torch.Generator().manual_seed(0))
-    ckpt = os.path.join(root, 'r50.pth')
-    torch.save(backbone.state_dict(), ckpt)
-    return (*data, ckpt)
+    torch.save(backbone.state_dict(), path)
+    return path
 
 
 def eval_argv(root, img_root, ann_root, ann_file, ckpt, backend, out):
@@ -738,6 +1070,307 @@ def phase_eval(local_full):
                 library_note=NO_LIBRARY_CALL)
 
 
+def blocky_background(h, w, rng):
+    """uint8 (h, w, 3) background of random 8x8 blocks in 0..89."""
+    base = rng.randint(0, 90, (-(-h // 8), -(-w // 8), 3)).astype(np.uint8)
+    return np.repeat(np.repeat(base, 8, 0), 8, 1)[:h, :w]
+
+
+def class_colors(n):
+    """n distinct bright RGB colours."""
+    c = np.arange(n)
+    return np.stack([(67 * c) % 200 + 40, (131 * c + 60) % 200 + 40,
+                     (29 * c + 100) % 200 + 40], 1).astype(np.uint8)
+
+
+# a standing figure's 15 joints (x, y) around its centre: head, neck,
+# shoulders, elbows, wrists, belly, hips, knees, ankles
+JOINTS = np.array([[0, -60], [0, -45], [-18, -42], [18, -42], [-26, -20],
+                   [26, -20], [-30, 0], [30, 0], [0, -10], [-12, 10],
+                   [12, 10], [-14, 35], [14, 35], [-15, 60], [15, 60]],
+                  np.float64)
+SWINGING = np.array([4, 5, 6, 7, 11, 12, 13, 14])  # limbs: elbows .. ankles
+
+
+def synthetic_pose_video(t_total=40, h=240, w=320, seed=0):
+    """uint8 (T, h, w, 3) frames of a figure of 15 coloured joint discs
+    walking across a blocky background (limbs swinging), and the joints
+    (2, 15, T) as 0-indexed (x, y)."""
+    rng = np.random.RandomState(100 + seed)
+    base = blocky_background(h, w, rng)
+    colors = class_colors(len(JOINTS) + 1)[1:]
+    yy, xx = np.mgrid[:h, :w]
+    imgs = np.empty((t_total, h, w, 3), np.uint8)
+    pos = np.empty((2, len(JOINTS), t_total))
+    for t in range(t_total):
+        cx = 80 + 4 * t if seed % 2 == 0 else w - 80 - 4 * t
+        cy = 120 + 6 * np.sin(t / 5)
+        joints = JOINTS + [cx, cy]
+        joints[SWINGING, 0] += 6 * np.sin(t / 4) * np.where(
+            SWINGING % 2, 1, -1)
+        img = base.copy()
+        for j, (x, y) in enumerate(joints):
+            img[(yy - y)**2 + (xx - x)**2 < 36] = colors[j]
+        imgs[t] = img
+        pos[:, :, t] = joints.T
+    return imgs, pos
+
+
+def write_lists(root, lines):
+    """Two list files under ``root``: every video, and the first alone."""
+    lists = []
+    for fname, chosen in (('val_list.txt', lines), ('val_one.txt', lines[:1])):
+        lists.append(os.path.join(root, fname))
+        with open(lists[-1], 'w') as f:
+            f.writelines(chosen)
+    return lists
+
+
+def write_jhmdb(root, n_videos=2, t_total=40):
+    """A JHMDB-layout dataset under ``root``: PNG frames
+    Frames/<class>/<video>/{t+1:05}.png, the joints in
+    anno/joint_positions/<class>/<video>/joint_positions.mat ('pos_img'
+    (2, 15, T), 1-indexed) and two list files. Returns the frame and
+    annotation prefixes, the lists and a video's heatmap shape (T, 15,
+    H, W)."""
+    import scipy.io as sio
+    from PIL import Image
+    img_root = os.path.join(root, 'Frames')
+    lines = []
+    for v in range(n_videos):
+        imgs, pos = synthetic_pose_video(t_total, seed=v)
+        name = f'walk/video{v}'
+        os.makedirs(os.path.join(img_root, name))
+        pose_dir = os.path.join(root, 'anno', 'joint_positions', name)
+        os.makedirs(pose_dir)
+        for t in range(t_total):
+            Image.fromarray(imgs[t]).save(
+                os.path.join(img_root, name, f'{t + 1:05}.png'))
+        sio.savemat(os.path.join(pose_dir, 'joint_positions.mat'),
+                    {'pos_img': pos + 1})
+        lines.append(f'{name} {t_total} 0\n')
+    return (img_root, os.path.join(root, 'anno', 'Frames'),
+            write_lists(root, lines), (t_total, len(JOINTS)) + imgs.shape[1:3])
+
+
+def synthetic_parts_video(t_total=48, h=480, w=854, seed=0):
+    """uint8 (T, h, w, 3) frames of a figure of 19 coloured part boxes (a
+    4x5 grid less one cell, classes 1..19) moving across a blocky
+    background, and their (T, h, w) label maps."""
+    rng = np.random.RandomState(200 + seed)
+    base = blocky_background(h, w, rng)
+    colors = class_colors(20)
+    cells = [(r, c) for r in range(5) for c in range(4)][1:]
+    imgs = np.empty((t_total, h, w, 3), np.uint8)
+    labels = np.zeros((t_total, h, w), np.uint8)
+    for t in range(t_total):
+        x0, y0 = 150 + 6 * t, 120 + 2 * t
+        img, label = base.copy(), np.zeros((h, w), np.uint8)
+        for cls, (r, c) in enumerate(cells, start=1):
+            box = (slice(y0 + 36 * r, y0 + 36 * r + 34),
+                   slice(x0 + 40 * c, x0 + 40 * c + 38))
+            img[box] = colors[cls]
+            label[box] = cls
+        if seed % 2:  # the mirror image: the figure moves the other way
+            img, label = img[:, ::-1], label[:, ::-1]
+        imgs[t], labels[t] = img, label
+    return imgs, labels
+
+
+def write_vip(root, n_videos=2, t_total=48):
+    """A VIP-layout dataset under ``root``: JPEG frames
+    Images/<video>/{t:012}.jpg, palette-PNG part annotations
+    Annotations/<video>/{t:012}.png and two list files. Returns the frame
+    and annotation prefixes, the lists and a label map's shape."""
+    from PIL import Image
+    from vfs_tpu_torch.datasets.davis_dataset import PALETTE
+    img_root = os.path.join(root, 'Images')
+    ann_root = os.path.join(root, 'Annotations')
+    palette = np.asarray(PALETTE, np.uint8).ravel()
+    lines = []
+    for v in range(n_videos):
+        imgs, labels = synthetic_parts_video(t_total, seed=v)
+        name = f'videos{v}'
+        os.makedirs(os.path.join(img_root, name))
+        os.makedirs(os.path.join(ann_root, name))
+        for t in range(t_total):
+            Image.fromarray(np.ascontiguousarray(imgs[t])).save(
+                os.path.join(img_root, name, f'{t:012}.jpg'), quality=95)
+            ann = Image.fromarray(np.ascontiguousarray(labels[t]))
+            ann.putpalette(palette)
+            ann.save(os.path.join(ann_root, name, f'{t:012}.png'))
+        lines.append(f'{name} {t_total} 0\n')
+    return img_root, ann_root, write_lists(root, lines), labels.shape
+
+
+def run_slice3_eval(config, ckpt, metric, dataset, out, options):
+    """``python -m vfs_tpu_torch.tools.test`` in-process on a slice-3
+    dataset (``dataset``: type and the ``data.test`` paths); returns the
+    metrics and the per-video results saved with ``--out``."""
+    from vfs_tpu_torch.tools import test as tools_test
+    argv = [config, ckpt, '--eval', metric, '--out', out, '--options',
+            *[f'data.test.{k}={v}' for k, v in dataset.items()], *options]
+    metrics = tools_test.main(argv)
+    with np.load(out) as saved:
+        results = [saved[f'arr_{i}'] for i in range(len(saved.files))]
+    return metrics, results
+
+
+def counted_eval(run, options, ann_file, extract_spans, propagate_spans):
+    """One counted, timed run of slice 3's path: ``video_topk_affinity_v1``'s
+    count set to 0 just before and read just after, CUDA events around
+    ``_extract_feats`` and ``propagate_video``. Returns ``run``'s value and
+    the launches."""
+    from vfs_tpu_torch.models.trackers import vanilla_tracker
+    from vfs_tpu_torch.ops import video_topk_affinity_v1_cuda
+    video_topk_affinity_v1_cuda.launches = 0
+    with patched(vanilla_tracker.VanillaTracker, '_extract_feats',
+                 span_timer(extract_spans)), \
+            patched(vanilla_tracker, 'propagate_video',
+                    span_timer(propagate_spans)):
+        got = run(options, ann_file, 'counted')
+    return got, video_topk_affinity_v1_cuda.launches
+
+
+def plain_phase1(_):
+    """``patched`` maker: the v1 engine's phase 1 replaced by the plain
+    version."""
+    from vfs_tpu_torch.ops import video_topk_affinity_reference
+
+    def plain(feats, radius, temperature, topk, precede_frames, **_):
+        return video_topk_affinity_reference(feats, radius, temperature,
+                                             topk, precede_frames)
+    return plain
+
+
+def phase_pose():
+    """Slice 3's JHMDB path (module docstring, phase 6). Returns the
+    launches of video_topk_affinity_v1 on it."""
+    import vfs_tpu_torch.apis as apis
+    from vfs_tpu_torch.ops import propagation
+
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        img_root, ann_root, (list_all, list_one), shape = write_jhmdb(root)
+        ckpt = write_backbone(CONFIG, os.path.join(root, 'r18.pth'))
+
+        def run(options, ann_file, name):
+            dataset = dict(type='JHMDBDataset', ann_file=ann_file,
+                           data_prefix=img_root, anno_prefix=ann_root,
+                           data_root=root)
+            return run_slice3_eval(CONFIG, ckpt, 'pck', dataset,
+                                   os.path.join(root, f'{name}.npz'),
+                                   options)
+
+        v1 = ['test_cfg.video_engine=v1', 'test_cfg.video_extract=perframe']
+        walls, extract_spans, propagate_spans = [], [], []
+        with patched(apis, 'single_process_test', wall_timer(walls)):
+            run(v1, list_all, 'cold')
+            first_s = walls[-1]
+            (pck, heat), launches = counted_eval(
+                run, v1, list_all, extract_spans, propagate_spans)
+            eval_s = walls[-1]
+            extract_ms = spans_ms(extract_spans)
+            propagate_ms = spans_ms(propagate_spans)
+            pck_v2, heat_v2 = run(['test_cfg.video_engine=v2'], list_all,
+                                  'v2')
+            with patched(propagation, 'video_topk_affinity_v1',
+                         plain_phase1):
+                _, heat_plain = run(v1, list_one, 'plain')
+
+    frames = sum(x.shape[0] for x in heat)
+    if launches != len(heat):
+        raise AssertionError(f'{launches} v1 launches for {len(heat)} '
+                             'videos')
+    for x in heat:
+        if x.shape != shape or not np.isfinite(x).all():
+            raise AssertionError(f'bad heatmaps {x.shape}')
+    diff_v2 = max(float(np.abs(a - b).max()) for a, b in zip(heat, heat_v2))
+    plain_diff = np.abs(heat[0] - heat_plain[0])
+    within = float((plain_diff <= 1e-5).mean())
+    if diff_v2 > 1e-5 or pck != pck_v2:
+        raise AssertionError(f'v1 vs v2: heatmaps differ by {diff_v2}, PCK '
+                             f'{pck} vs {pck_v2}')
+    if within < 0.999:
+        raise AssertionError(f'v1 vs plain phase 1: {within} of the heatmap '
+                             'values within 1e-5 (< 0.999)')
+    if not all(0.0 <= v <= 100.0 for v in pck.values()):
+        raise AssertionError(f'PCK out of range: {pck}')
+    emit({'phase': 'pose', 'config': os.path.relpath(CONFIG, ROOT),
+          'dataset': 'JHMDBDataset', 'engine': 'v1', 'extract': 'perframe',
+          'videos': len(heat), 'frames': frames, 'first_call_s': first_s,
+          'eval_s': eval_s, 'eval_fps': frames / eval_s,
+          'extract_ms_per_frame': extract_ms / frames,
+          'propagate_ms_per_frame': propagate_ms / frames,
+          'heatmap_max_abs_diff_v2': diff_v2,
+          'heatmap_max_abs_diff_plain': float(plain_diff.max()),
+          'heatmap_share_within_1e-5_plain': within,
+          'kernel_launches': launches, **pck})
+    return launches
+
+
+def phase_vip():
+    """Slice 3's VIP path (module docstring, phase 7). Returns the
+    launches of video_topk_affinity_v1 on it."""
+    import vfs_tpu_torch.apis as apis
+    from vfs_tpu_torch.ops import propagation
+
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        img_root, ann_root, (list_all, list_one), shape = write_vip(root)
+        ckpt = write_backbone(CONFIG_R50, os.path.join(root, 'r50.pth'))
+
+        def run(options, ann_file, name):
+            dataset = dict(type='VIPDataset', ann_file=ann_file,
+                           data_prefix=img_root, anno_prefix=ann_root,
+                           data_root=root)
+            return run_slice3_eval(CONFIG_R50, ckpt, 'mIoU', dataset,
+                                   os.path.join(root, f'{name}.npz'),
+                                   options)
+
+        v1 = ['test_cfg.video_engine=v1']
+        walls, extract_spans, propagate_spans = [], [], []
+        with patched(apis, 'single_process_test', wall_timer(walls)):
+            run(v1, list_all, 'cold')
+            first_s = walls[-1]
+            (miou, masks), launches = counted_eval(
+                run, v1, list_all, extract_spans, propagate_spans)
+            eval_s = walls[-1]
+            extract_ms = spans_ms(extract_spans)
+            propagate_ms = spans_ms(propagate_spans)
+            miou_v2, masks_v2 = run(['test_cfg.video_engine=v2'], list_all,
+                                    'v2')
+            with patched(propagation, 'video_topk_affinity_v1',
+                         plain_phase1):
+                _, masks_plain = run(v1, list_one, 'plain')
+
+    frames = sum(m.shape[0] for m in masks)
+    if launches != len(masks):
+        raise AssertionError(f'{launches} v1 launches for {len(masks)} '
+                             'videos')
+    for m in masks:
+        if m.shape != shape or m.dtype != np.uint8 or m.max() > 19:
+            raise AssertionError(f'bad masks {m.shape} {m.dtype}')
+    agree_v2 = float(np.mean([(a == b).mean()
+                              for a, b in zip(masks, masks_v2)]))
+    agree_plain = float((masks[0] == masks_plain[0]).mean())
+    if agree_v2 < 0.999 or agree_plain < 0.999 or miou != miou_v2:
+        raise AssertionError(
+            f'masks agree on {agree_v2} (v2) and {agree_plain} (plain phase '
+            f'1), mIoU {miou} vs {miou_v2}')
+    if not 0.0 <= miou['mIoU'] <= 1.0:
+        raise AssertionError(f'mIoU {miou} out of range')
+    emit({'phase': 'vip', 'config': os.path.relpath(CONFIG_R50, ROOT),
+          'dataset': 'VIPDataset', 'engine': 'v1', 'extract': 'sweep',
+          'videos': len(masks), 'frames': frames, 'first_call_s': first_s,
+          'eval_s': eval_s, 'eval_fps': frames / eval_s,
+          'extract_ms_per_frame': extract_ms / frames,
+          'propagate_ms_per_frame': propagate_ms / frames,
+          'mask_agree_v2': agree_v2, 'mask_agree_plain_phase1': agree_plain,
+          'kernel_launches': launches, **miou})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -748,10 +1381,15 @@ def main():
     torch.cuda.set_device(dev)
     smi_line = phase_build()
     phase_small(dev)
-    local_full = phase_full(dev, smi_line)
-    kernels = phase_main(dev, smi_line)
-    kernels.append(phase_eval(local_full))
-    emit({'kernels': kernels})
+    local_full, plain_ms = phase_full(dev, smi_line)
+    v1_full = phase_full_v1(dev, smi_line, plain_ms)
+    v2_entry = phase_full_v2(dev, smi_line)
+    row1 = phase_main(dev, smi_line)
+    row3 = phase_eval(local_full)
+    v1_launches = phase_pose() + phase_vip()
+    row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
+                library_note=NO_LIBRARY_CALL)
+    emit({'kernels': [*row1, row2, row3, v2_entry]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

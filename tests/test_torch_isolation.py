@@ -15,7 +15,9 @@ import torch
 import vfs_tpu_torch
 from vfs_tpu_torch.ops import _build
 from vfs_tpu_torch.ops.local_attention import local_topk_attend_cuda
+from vfs_tpu_torch.ops.local_attention_v2 import local_topk_attend_v2_cuda
 from vfs_tpu_torch.ops.video_affinity import video_topk_affinity_cuda
+from vfs_tpu_torch.ops.video_affinity_v1 import video_topk_affinity_v1_cuda
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -40,7 +42,12 @@ for name in names:
 for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.datasets.davis_dataset',
              'vfs_tpu_torch.datasets.pipelines.loading',
-             'vfs_tpu_torch.utils.config', 'vfs_tpu_torch.ops.local_attention'):
+             'vfs_tpu_torch.utils.config', 'vfs_tpu_torch.ops.local_attention',
+             'vfs_tpu_torch.ops.video_affinity_v1',
+             'vfs_tpu_torch.ops.local_attention_v2',
+             'vfs_tpu_torch.datasets.jhmdb_dataset',
+             'vfs_tpu_torch.datasets.vip_dataset',
+             'vfs_tpu_torch.core.evaluation.accuracy'):
     assert name in names, name
 import ab_eval, chip_smoke
 assert callable(chip_smoke.main) and callable(ab_eval.main)
@@ -57,7 +64,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 41
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 46
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -85,6 +92,15 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
         local_topk_attend_cuda(feats[0], feats, torch.zeros(3, 4, 5, 2),
                                torch.ones(3, dtype=torch.bool), 3.0, 0.07, 4)
     assert local_topk_attend_cuda.launches == 0
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        video_topk_affinity_v1_cuda(feats, 3.0, 0.07, 4, 2,
+                                    extract='perframe')
+    assert video_topk_affinity_v1_cuda.launches == 0
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        local_topk_attend_v2_cuda(feats[0], feats, torch.zeros(3, 4, 5, 2),
+                                  torch.ones(3, dtype=torch.bool), 3.0, 0.07,
+                                  4)
+    assert local_topk_attend_v2_cuda.launches == 0
     assert not _build._LIBS
 
 

@@ -6,10 +6,12 @@ from . import pipelines  # noqa: F401  (register)
 from .base import BaseDataset
 from .builder import build_dataset
 from .davis_dataset import DavisDataset
+from .jhmdb_dataset import JHMDBDataset
 from .rawframe_dataset import RawframeDataset
 from .registry import DATASETS, PIPELINES
+from .vip_dataset import VIPDataset
 
 __all__ = [
-    'BaseDataset', 'build_dataset', 'DavisDataset', 'RawframeDataset',
-    'DATASETS', 'PIPELINES'
+    'BaseDataset', 'build_dataset', 'DavisDataset', 'JHMDBDataset',
+    'RawframeDataset', 'VIPDataset', 'DATASETS', 'PIPELINES'
 ]

@@ -33,12 +33,14 @@ class SequentialSampleFrames:
 @PIPELINES.register_module()
 class RawFrameDecode:
     """Load frames from a directory of JPEGs with cv2; also loads the
-    first-frame annotation (a palette PNG, read with PIL) into
-    ``ref_seg_map`` (reference loading.py:977-1069).
+    first-frame annotation into ``ref_seg_map`` (reference
+    loading.py:977-1069): a palette PNG (``seg_map``, read with PIL), or,
+    for JHMDB, ``(H, W, num_joints)`` float32 gaussian label maps drawn at
+    the joints ``pose_coord`` ``(2, num_joints)`` with ``sigma``.
 
-    ``decoding_backend='native'`` (the JAX package's C++ libjpeg pool) and
-    the JHMDB pose maps (``pose_coord``) come with later slices of the
-    port and raise ``NotImplementedError``."""
+    ``decoding_backend='native'`` (the JAX package's C++ libjpeg pool)
+    comes with a later slice of the port and raises
+    ``NotImplementedError``."""
 
     def __init__(self, io_backend='disk', decoding_backend='cv2', **kwargs):
         assert io_backend == 'disk'
@@ -49,9 +51,6 @@ class RawFrameDecode:
 
     def __call__(self, results):
         import cv2
-        if 'pose_coord' in results:
-            raise NotImplementedError(
-                'pose maps (JHMDB) are ported in a later slice')
         directory = results['frame_dir']
         filename_tmpl = results['filename_tmpl']
         offset = results.get('offset', 0)
@@ -81,4 +80,41 @@ class RawFrameDecode:
             seg = np.asarray(Image.open(results['seg_map']))
             results['ref_seg_map'] = seg
             assert seg.shape[:2] == results['img_shape']
+        if 'pose_coord' in results:
+            pose_coord = results['pose_coord']
+            num_poses = pose_coord.shape[1]
+            height, width = imgs[0].shape[:2]
+            pose_map = np.zeros((height, width, num_poses), np.float32)
+            sigma = results['sigma']
+            for j in range(num_poses):
+                if sigma > 0:
+                    draw_label_map(pose_map[:, :, j], pose_coord[:, j], sigma)
+                else:
+                    tx, ty = int(pose_coord[0, j]), int(pose_coord[1, j])
+                    if 0 <= tx < width and 0 <= ty < height:
+                        pose_map[ty, tx, j] = 1.0
+            results['ref_seg_map'] = pose_map
         return results
+
+
+def draw_label_map(img, pt, sigma):
+    """Draw an unnormalised 2-D gaussian centred at ``pt`` (x, y) into
+    ``img`` in place (reference loading.py:1077-1103, JHMDB pose
+    propagation)."""
+    ul = [int(pt[0] - 3 * sigma), int(pt[1] - 3 * sigma)]
+    br = [int(pt[0] + 3 * sigma + 1), int(pt[1] + 3 * sigma + 1)]
+    if (ul[0] >= img.shape[1] or ul[1] >= img.shape[0] or br[0] < 0
+            or br[1] < 0):
+        return img
+    size = 6 * sigma + 1
+    x = np.arange(0, size, 1, float)
+    y = x[:, np.newaxis]
+    x0 = y0 = size // 2
+    g = np.exp(-((x - x0)**2 + (y - y0)**2) / (2 * sigma**2))
+    g_x = max(0, -ul[0]), min(br[0], img.shape[1]) - ul[0]
+    g_y = max(0, -ul[1]), min(br[1], img.shape[0]) - ul[1]
+    img_x = max(0, ul[0]), min(br[0], img.shape[1])
+    img_y = max(0, ul[1]), min(br[1], img.shape[0])
+    img[img_y[0]:img_y[1], img_x[0]:img_x[1]] = \
+        g[g_y[0]:g_y[1], g_x[0]:g_x[1]]
+    return img

@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface. The library lands in the
-checkout's ``build/`` directory (listed in ``.gitignore``) under a name
-keyed by the hash of the source and the flags, so a changed source builds
+into a shared library with a plain C interface; sources may include the
+shared headers ``csrc/*.cuh``. The library lands in the checkout's
+``build/`` directory (listed in ``.gitignore``) under a name keyed by the
+hash of the source, the headers and the flags, so a changed source builds
 anew and an unchanged one loads at once. Nothing here runs at import:
 the CPU tests import every module on machines without ``nvcc``.
 """
@@ -17,7 +18,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'vfs_tpu_torch'
@@ -39,9 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC_DIR / f'{name}.cu').read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob('*.cuh'))]
     digest = hashlib.sha256(
-        src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b''.join(parts) + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'{name}-{digest}.so'
 
 
@@ -73,3 +79,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def counter_ptr(count: Optional[torch.Tensor],
+                device: torch.device) -> Optional[int]:
+    """The address of an optional counter a kernel adds to: a one-element
+    int64 tensor on ``device``, or None (no counting)."""
+    if count is None:
+        return None
+    if (count.device != device or count.dtype != torch.int64
+            or count.numel() != 1):
+        raise ValueError(f'a counter is one int64 on {device}, got '
+                         f'{count.dtype} {tuple(count.shape)} on '
+                         f'{count.device}')
+    return count.data_ptr()

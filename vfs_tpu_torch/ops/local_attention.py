@@ -100,7 +100,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(query, bank_feats, bank_vals, bank_valid):
+def check_operands(query, bank_feats, bank_vals, bank_valid):
+    """Raise on operands the CUDA kernels of this contract do not take."""
     dev = query.device
     if dev.type != 'cuda':
         raise ValueError(f'expected CUDA tensors, got {dev}')
@@ -138,7 +139,7 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                            topk: int) -> Result:
     """Launch the CUDA kernel on ``query``'s device and current stream.
     ``local_topk_attend_cuda.launches`` counts the launches."""
-    _check_operands(query, bank_feats, bank_vals, bank_valid)
+    check_operands(query, bank_feats, bank_vals, bank_valid)
     f_total, h, w, c = bank_feats.shape
     k_classes = bank_vals.shape[-1]
     lib = _library()

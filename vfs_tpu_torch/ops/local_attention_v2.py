@@ -1,0 +1,110 @@
+"""Masked top-k local attention of one query frame, v2: per-frame
+extraction with a running merge.
+
+PyTorch counterpart of ``vfs_tpu/ops/pallas_attention_v2.py``
+(``pallas_local_topk_attend_v2``, a drop-in replacement for
+``pallas_local_topk_attend``). It computes the function of
+``local_attention.local_topk_attend``, with the same signature, contract
+and ``(out, scores, src)`` result, so its plain version is
+``local_attention.local_topk_attend_reference``. The kernel
+(``vfs_tpu_torch/csrc/local_topk_attend_v2.cu``) selects by per-slot
+extraction and a running merge; the epilogue (gather, softmax, weighted
+sum) is plain PyTorch after it, as the JAX package leaves it to XLA. No
+propagation backend calls it, as in the JAX package.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+from .local_attention import (Result, check_operands,
+                              local_topk_attend_reference)
+
+KERNEL_NAME = 'local_topk_attend_v2'
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL_NAME)
+    fn = lib.vfs_local_topk_attend_v2
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name in ('vfs_local_v2_max_topk', 'vfs_local_v2_max_offset'):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def attend_epilogue(scores: torch.Tensor, src: torch.Tensor,
+                    bank_vals: torch.Tensor) -> torch.Tensor:
+    """Softmax over each list and the weighted sum of the gathered value
+    rows: ``(h, w, k)`` scores and sources -> ``(h, w, K)``."""
+    k_classes = bank_vals.shape[-1]
+    weights = torch.softmax(scores, dim=-1)
+    vals = bank_vals.reshape(-1, k_classes)[src]
+    return (weights[..., None] * vals).sum(-2)
+
+
+def local_topk_attend_v2_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
+                              bank_vals: torch.Tensor,
+                              bank_valid: torch.Tensor, radius: float,
+                              temperature: float, topk: int,
+                              pass_count: Optional[torch.Tensor] = None
+                              ) -> Result:
+    """Launch the CUDA kernel on ``query``'s device and current stream,
+    then the epilogue. ``local_topk_attend_v2_cuda.launches`` counts the
+    launches; ``pass_count``, a one-element int64 tensor on the same
+    device, adds the extraction passes the kernel ran."""
+    check_operands(query, bank_feats, bank_vals, bank_valid)
+    f_total, h, w, c = bank_feats.shape
+    count = _build.counter_ptr(pass_count, query.device)
+    lib = _library()
+    r = int(math.ceil(radius - 1))
+    if not 0 <= r <= lib.vfs_local_v2_max_offset():
+        raise ValueError(f'radius {radius} is outside what the kernel was '
+                         f'compiled for (r <= '
+                         f'{lib.vfs_local_v2_max_offset()})')
+    if not 1 <= topk <= lib.vfs_local_v2_max_topk():
+        raise ValueError(f'topk {topk} is outside 1..'
+                         f'{lib.vfs_local_v2_max_topk()}')
+    valid = bank_valid.to(torch.int32).contiguous()
+    scores = torch.empty((h, w, topk), dtype=torch.float32,
+                         device=query.device)
+    src = torch.empty((h, w, topk), dtype=torch.int64, device=query.device)
+    with torch.cuda.device(query.device):
+        err = lib.vfs_local_topk_attend_v2(
+            query.data_ptr(), bank_feats.data_ptr(), valid.data_ptr(),
+            scores.data_ptr(), src.data_ptr(), f_total, h, w, c, r,
+            radius * radius, 1.0 / temperature, topk, count,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    local_topk_attend_v2_cuda.launches += 1
+    return attend_epilogue(scores, src, bank_vals), scores, src
+
+
+local_topk_attend_v2_cuda.launches = 0
+
+
+def local_topk_attend_v2(query: torch.Tensor, bank_feats: torch.Tensor,
+                         bank_vals: torch.Tensor, bank_valid: torch.Tensor,
+                         radius: float, temperature: float,
+                         topk: int) -> Result:
+    """Masked top-k local attention, v2 (module docstring). CPU tensors
+    take the plain version; CUDA tensors the kernel."""
+    if query.device.type == 'cpu':
+        return local_topk_attend_reference(query, bank_feats, bank_vals,
+                                           bank_valid, radius, temperature,
+                                           topk)
+    return local_topk_attend_v2_cuda(query, bank_feats, bank_vals,
+                                     bank_valid, radius, temperature, topk)

@@ -10,7 +10,10 @@ Two engines of the local configuration (``neighbor_range`` set,
   - phase 1, ``video_topk_affinity``: for every frame at once, the top-k
     scores and source cells over the bank (frame 0 plus the ``P``
     preceding frames, circle-masked). Selection depends only on features,
-    so it needs no frame loop;
+    so it needs no frame loop. ``backend='pallas_video'`` with
+    ``video_engine`` other than ``'v2'`` runs it through the v1 engine,
+    ``video_topk_affinity_v1`` (the same function), as the JAX package
+    does;
   - phase 2, ``propagate_labels``: the softmax-weighted label gather, the
     only sequential part (frame ``t`` reads labels propagated to earlier
     frames);
@@ -32,18 +35,27 @@ import torch
 from .affinity import l2_normalize
 from .local_attention import local_topk_attend
 from .video_affinity import video_topk_affinity
+from .video_affinity_v1 import video_topk_affinity_v1
 
 
 class PropagationConfig(NamedTuple):
     """The JAX package's fields and defaults, so one ``test_cfg`` drives
     both packages. ``backend`` ``'pallas_video'`` and ``'tiled'`` both run
     the decoupled engine (their results are identical in the JAX
-    package); ``'pallas'`` runs the per-step scan. The TPU layout keys
-    (``pallas_tile``, ``pallas_fetch``, ``pallas_store``,
-    ``pallas_matmul``, ``pallas_group_frames``, ``pallas_extract``
-    ``'mask'`` and ``'descent'``, ``pallas_interpret``, ``tile``,
-    ``query_chunk`` and every ``video_*`` key) are exact either way in the
-    JAX package; they are accepted and have no effect here."""
+    package); ``'pallas'`` runs the per-step scan.
+
+    With ``backend='pallas_video'``, ``video_engine`` picks phase 1's
+    kernel: ``'v2'`` the v2 engine, any other value the v1 engine, whose
+    ``video_extract`` (``'sweep'`` or ``'perframe'``, else ``ValueError``)
+    and ``video_early_exit`` reach its kernel; an explicit
+    ``video_bank_splits > 1`` with ``'perframe'`` raises ``ValueError``,
+    as in the JAX package. The rest are TPU layout keys, exact either way
+    in the JAX package, accepted here with no effect: ``pallas_tile``,
+    ``pallas_fetch``, ``pallas_store``, ``pallas_matmul``,
+    ``pallas_group_frames``, ``pallas_extract`` ``'mask'`` and
+    ``'descent'``, ``pallas_interpret``, ``tile``, ``query_chunk``,
+    ``video_bank_splits``, ``video_sweep_rows``, ``video_pass_mode``,
+    ``video_qpair`` and ``video_compact``."""
     precede_frames: int = 20
     topk: int = 10
     temperature: float = 0.07
@@ -139,10 +151,15 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
     feats = l2_normalize(feats.to(torch.float32), dim=-1).contiguous()
     if cfg.backend == 'pallas':
         return _propagate_video_scan(feats, seg_first, cfg)
-    scores, src = video_topk_affinity(
-        feats, radius=float(cfg.neighbor_range // 2),
-        temperature=cfg.temperature, topk=cfg.topk,
-        precede_frames=cfg.precede_frames)
+    radius = float(cfg.neighbor_range // 2)
+    if cfg.backend == 'pallas_video' and cfg.video_engine != 'v2':
+        scores, src = video_topk_affinity_v1(
+            feats, radius, cfg.temperature, cfg.topk, cfg.precede_frames,
+            early_exit=cfg.video_early_exit, extract=cfg.video_extract,
+            bank_splits=cfg.video_bank_splits)
+    else:
+        scores, src = video_topk_affinity(feats, radius, cfg.temperature,
+                                          cfg.topk, cfg.precede_frames)
     return propagate_labels(scores, src, seg_first)
 
 

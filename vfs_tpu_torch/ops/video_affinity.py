@@ -127,12 +127,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
-                             temperature: float, topk: int,
-                             precede_frames: int
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``feats``' device and current stream.
-    ``video_topk_affinity_cuda.launches`` counts the launches."""
+def check_features(feats: torch.Tensor, precede_frames: int) -> None:
+    """Raise on features the CUDA kernels of this contract do not take."""
     if feats.device.type != 'cuda':
         raise ValueError(f'expected a CUDA tensor, got {feats.device}')
     if feats.dtype != torch.float32:
@@ -141,12 +137,21 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
         raise ValueError('expected contiguous (T, h, w, C) features, got '
                          f'shape {tuple(feats.shape)} strides '
                          f'{feats.stride()}')
-    t_total, h, w, c = feats.shape
-    if c % 4 or feats.data_ptr() % 16:
+    if feats.shape[-1] % 4 or feats.data_ptr() % 16:
         raise ValueError('the kernel reads float4 vectors: C must be a '
                          'multiple of 4 and the data 16-byte aligned')
     if precede_frames < 1:
         raise ValueError('precede_frames must be >= 1')
+
+
+def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
+                             temperature: float, topk: int,
+                             precede_frames: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on ``feats``' device and current stream.
+    ``video_topk_affinity_cuda.launches`` counts the launches."""
+    check_features(feats, precede_frames)
+    t_total, h, w, c = feats.shape
     lib = _library()
     r = int(math.ceil(radius - 1))
     if not 0 <= r <= lib.vfs_video_topk_max_offset():

@@ -3,11 +3,16 @@ tools/test.py:17-166).
 
 Rebuilds the model as a VanillaTracker from ``cfg.model.backbone`` with
 the test_cfg strides/out_indices and a torchvision-layout checkpoint, runs
-the dataset, and calls ``dataset.evaluate``.
+the dataset, and calls ``dataset.evaluate``. The metric follows the
+dataset: ``davis`` (J&F, ``DavisDataset``), ``pck`` (JHMDB pose
+propagation, ``JHMDBDataset``) or ``mIoU`` (VIP part segmentation,
+``VIPDataset``); ``--options data.test.type=...`` and the ``data.test``
+paths pick the dataset.
 
 Usage:
-    python -m vfs_tpu_torch.tools.test CONFIG CHECKPOINT --eval davis \\
-        [--options k=v ...] [--output-dir D] [--out F] [--device cpu]
+    python -m vfs_tpu_torch.tools.test CONFIG CHECKPOINT \\
+        --eval davis|pck|mIoU [--options k=v ...] [--output-dir D] \\
+        [--out F] [--device cpu]
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument('checkpoint',
                         help='checkpoint (.pth, torchvision layout)')
     parser.add_argument('--eval', nargs='+', default=['davis'],
-                        help='metrics, e.g. davis')
+                        help="metrics: 'davis' (DavisDataset), 'pck' "
+                             "(JHMDBDataset) or 'mIoU' (VIPDataset)")
     parser.add_argument('--options', nargs='+', default=None,
                         help='dotted-key config overrides k=v')
     parser.add_argument('--output-dir', default=None,
