@@ -14,7 +14,11 @@ Phases, one JSON line each on stdout:
    ``video_topk_affinity`` over the CPU tests' cases plus a
    duplicated-frame tie case; ``local_topk_attend`` over odd maps,
    invalid slots, top-k up to its maximum, K = 4 and 16, filler entries
-   and a duplicated-frame tie case. ``video_topk_affinity_v1`` over the
+   and a duplicated-frame tie case. Both also at the edges of their 8 x 32
+   query tiles and 32-channel chunks (a map smaller than a tile, h and w
+   not multiples of it, C = 4 and 260, top-k 32, radius 32), and
+   ``video_topk_affinity`` on a t <= P case where frame 0's two bank
+   entries both enter the lists. ``video_topk_affinity_v1`` over the
    same cases, two wider radii and temporally smooth features, under
    every ``video_extract`` and ``early_exit``; ``local_topk_attend_v2``
    over ``local_topk_attend``'s cases and a wider radius.
@@ -61,7 +65,9 @@ Phases, one JSON line each on stdout:
    with 19 moving parts; one launch per video, masks on >= 99.9% of
    pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
    video, to a plain-phase-1 run.
-8. kernels: every kernel with its launches on its path, times and bound.
+8. kernels: every kernel with its launches on its path, times and bound;
+   rows 1 and 3 also with their share of the bound and their time before
+   their redesign around ``window_topk.cuh`` (``prev_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -113,6 +119,12 @@ SMALL_CASES = [(9, 6, 7, 6, 4, 5), (12, 8, 8, 6, 4, 3), (6, 5, 9, 8, 3, 4),
                (4, 2, 3, 4, 2, 12)]  # the last has filler entries
 NO_LIBRARY_CALL = ('no single PyTorch call computes a masked windowed '
                    'top-k over a frame bank')
+# the kernels line's ms of rows 1 and 3 before their redesign around
+# window_topk.cuh (this script at commit 5c4f173, NVIDIA H100 80GB HBM3,
+# 700.00 W): row 1 on the main path's r18 48-frame video, row 3 for one
+# r50 step
+PREV_MS = {'video_topk_affinity': 167.32025146484375,
+           'local_topk_attend': 40.844032287597656}
 KERNEL_INFO = dict(
     name='video_topk_affinity', route='cuda',
     source='vfs_tpu_torch/csrc/video_topk_affinity.cu',
@@ -143,6 +155,16 @@ LOCAL_CASES = [(7, 9, 8, 3.0, (1, 1, 1, 0, 0), 5, 4),
                (5, 6, 8, 18.0, (1, 1, 0), 10, 16),
                (2, 3, 8, 2.0, (1, 0, 1), 12, 4)]  # the last has fillers
 WIDE_LOCAL_CASE = (6, 7, 8, 30.0, (1, 0, 1), 10, 4)
+# rows 1 and 3 at the edges of their 8 x 32 tiles and 32-channel chunks:
+# a map smaller than a tile, h and w not multiples of it, C = 4 and 260,
+# topk = 32, radius 32 (r = 31). Row 1: (T, h, w, C, radius, P, topk);
+# row 3: (h, w, C, radius, slot validity, topk, K)
+EDGE_CASES = [(5, 3, 5, 8, 3.0, 4, 5), (6, 13, 45, 4, 5.0, 3, 10),
+              (4, 10, 37, 260, 12.0, 2, 32), (3, 9, 40, 8, 32.0, 2, 32)]
+EDGE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
+                    (13, 45, 4, 5.0, (1, 0, 1), 10, 4),
+                    (10, 37, 260, 12.0, (1, 1), 32, 4),
+                    (9, 40, 8, 32.0, (0, 1, 1), 32, 16)]
 
 
 def emit(obj):
@@ -193,6 +215,14 @@ def window_pairs(h, w, radius):
     ys, xs = np.arange(h)[:, None, None], np.arange(w)[None, :, None]
     ky, kx = ys + dy.numpy(), xs + dx.numpy()
     return int(((ky >= 0) & (ky < h) & (kx >= 0) & (kx < w)).sum())
+
+
+def pairs_needed_share(h, w, radius):
+    """Of the (query, key) pairs rows 1 and 3 compute for a frame pair, the
+    share the function needs (window_geometry.pair_counts)."""
+    from vfs_tpu_torch.ops.window_geometry import pair_counts
+    needed, computed = pair_counts(h, w, radius)
+    return needed / computed
 
 
 def step_work(h, w, c, radius, topk, k_classes, n_slots, distinct):
@@ -403,7 +433,59 @@ def phase_small(dev):
           'cases': results, 'filler_entries': fillers,
           'tie_case': {'max_abs_err': err, 'max_logit_err': logit_err,
                        'src_mismatch': mismatch}})
+    phase_small_edges(dev, tensor)
     phase_small_perframe(dev, tensor)
+
+
+def phase_small_edges(dev, tensor):
+    """Rows 1 and 3 at the edges of their 8 x 32 query tiles and 32-channel
+    chunks (EDGE_CASES, EDGE_LOCAL_CASES), and row 1's t <= P case in which
+    frame 0's two bank entries (j = 0 and ring slot 0) both enter the
+    lists."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize, video_topk_affinity_cuda
+    results = []
+    for t_total, h, w, c, radius, p, topk in EDGE_CASES:
+        rng = np.random.RandomState(t_total * 1000 + h * 10 + c)
+        feats = l2_normalize(tensor(rng.randn(t_total, h, w, c))).contiguous()
+        err, mismatch, _ = run_case(feats, radius, topk, p, False,
+                                    f'edge {t_total}x{h}x{w}x{c} r={radius}')
+        results.append([t_total, h, w, c, radius, p, topk, err, mismatch])
+    # frame 1 repeats frame 0: its queries meet themselves at j = 0 and at
+    # ring slot 0 (j = 1), two equal top scores
+    rng = np.random.RandomState(29)
+    feats = rng.randn(4, 9, 11, 8)
+    feats[1] = feats[0]
+    feats = l2_normalize(tensor(feats)).contiguous()
+    err, mismatch, _ = run_case(feats, 3.0, 6, 4, True, 'edge frame-0 tie')
+    scores, src = video_topk_affinity_cuda(feats, 3.0, 0.07, 6, 4)
+    own = torch.arange(9 * 11, device=dev).view(9, 11)
+    both = ((src[1, ..., 0] == own) & (src[1, ..., 1] == own)
+            & (scores[1, ..., 0] == scores[1, ..., 1]))
+    if not bool(both.all()):
+        raise AssertionError('frame 0 did not enter the lists twice')
+    emit({'phase': 'small', 'kernel': KERNEL_INFO['name'], 'edges': True,
+          'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk',
+                      'max_abs_err', 'src_mismatch'],
+          'cases': results,
+          'frame0_tie_case': {'max_abs_err': err, 'src_mismatch': mismatch}})
+
+    results = []
+    for h, w, c, radius, valid, topk, k in EDGE_LOCAL_CASES:
+        rng = np.random.RandomState(h * 1000 + w * 10 + c)
+        f = len(valid)
+        query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
+        bank = l2_normalize(tensor(rng.randn(f, h, w, c))).contiguous()
+        vals = tensor(rng.rand(f, h, w, k))
+        (err, logit_err, mismatch, _), _ = run_local(
+            query, bank, vals, tensor(valid, torch.int32), radius, topk,
+            False, f'edge local {h}x{w}x{c} r={radius} k={topk}')
+        results.append([h, w, c, radius, f, sum(valid), topk, k, err,
+                        logit_err, mismatch])
+    emit({'phase': 'small', 'kernel': LOCAL_INFO['name'], 'edges': True,
+          'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
+                      'max_abs_err', 'max_logit_err', 'src_mismatch'],
+          'cases': results})
 
 
 def phase_small_perframe(dev, tensor):
@@ -528,6 +610,9 @@ def phase_full(dev, smi_name):
             steady_plain_ms_per_frame=(p48 - p24) / 24,
             steady_gflop_per_frame=(f48 - f24) / 24 / 1e9,
             steady_bound_ms_per_frame=sb_ms,
+            bound_share=b_ms / k24,
+            steady_bound_share=sb_ms / ((k48 - k24) / 24),
+            pairs_needed_share=pairs_needed_share(h, w, radius),
             library_ms=None, library_note=NO_LIBRARY_CALL)
         del feats48, feats24
         torch.cuda.empty_cache()
@@ -559,8 +644,10 @@ def phase_full(dev, smi_name):
             max_abs_err=err, max_logit_err=logit_err, src_mismatch=mismatch,
             src_mismatch_share=share, kernel_ms_per_step=kernel_ms,
             plain_ms_per_step=plain_ms, gflop_per_step=flops / 1e9,
-            bound_ms_per_step=b_ms, bound_by=b_by, library_ms=None,
-            library_note=NO_LIBRARY_CALL)
+            bound_ms_per_step=b_ms, bound_by=b_by,
+            bound_share=b_ms / kernel_ms,
+            pairs_needed_share=pairs_needed_share(h, w, radius),
+            library_ms=None, library_note=NO_LIBRARY_CALL)
         del bank, query, vals
         torch.cuda.empty_cache()
     emit({'phase': 'full', 'kernel': LOCAL_INFO['name'], **out})
@@ -867,7 +954,9 @@ def phase_main(dev, smi_name):
     return [dict(
         **KERNEL_INFO, launches=launches, max_abs_err=err,
         src_mismatch=mismatch, ms=affinity_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_note=NO_LIBRARY_CALL)]
+        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / affinity_ms,
+        prev_ms=PREV_MS[KERNEL_INFO['name']], library_ms=None,
+        library_note=NO_LIBRARY_CALL)]
 
 
 def write_davis(root, n_videos=2, t_total=48):
@@ -1066,7 +1155,9 @@ def phase_eval(local_full):
                 ms=local_full['kernel_ms_per_step'],
                 plain_ms=local_full['plain_ms_per_step'],
                 bound_ms=local_full['bound_ms_per_step'],
-                bound_by=local_full['bound_by'], library_ms=None,
+                bound_by=local_full['bound_by'],
+                bound_share=local_full['bound_share'],
+                prev_ms=PREV_MS[LOCAL_INFO['name']], library_ms=None,
                 library_note=NO_LIBRARY_CALL)
 
 

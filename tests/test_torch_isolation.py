@@ -45,12 +45,14 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.utils.config', 'vfs_tpu_torch.ops.local_attention',
              'vfs_tpu_torch.ops.video_affinity_v1',
              'vfs_tpu_torch.ops.local_attention_v2',
+             'vfs_tpu_torch.ops.window_geometry',
              'vfs_tpu_torch.datasets.jhmdb_dataset',
              'vfs_tpu_torch.datasets.vip_dataset',
              'vfs_tpu_torch.core.evaluation.accuracy'):
     assert name in names, name
-import ab_eval, chip_smoke
+import ab_eval, ab_kernels, chip_smoke
 assert callable(chip_smoke.main) and callable(ab_eval.main)
+assert callable(ab_kernels.main)
 from vfs_tpu_torch.ops import _build
 assert not _build._LIBS, 'a kernel was built at import'
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
@@ -64,7 +66,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 46
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 47
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

@@ -27,7 +27,6 @@ CUDA tensor launches the hand-written kernel
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Tuple
 
 import torch
@@ -35,6 +34,7 @@ import torch
 from . import _build
 from .affinity import NEG_INF
 from .video_affinity import circle_offsets
+from .window_geometry import plan_args, window_plan
 
 KERNEL_NAME = 'local_topk_attend'
 
@@ -91,12 +91,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_local_topk_attend
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.vfs_local_topk_max_topk.argtypes = []
-    lib.vfs_local_topk_max_topk.restype = ctypes.c_int
-    lib.vfs_local_topk_max_offset.argtypes = []
-    lib.vfs_local_topk_max_offset.restype = ctypes.c_int
     return lib
 
 
@@ -138,19 +135,12 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                            radius: float, temperature: float,
                            topk: int) -> Result:
     """Launch the CUDA kernel on ``query``'s device and current stream.
-    ``local_topk_attend_cuda.launches`` counts the launches."""
+    ``local_topk_attend_cuda.launches`` counts the launches. Raises on a
+    radius or top-k the kernel does not take before anything else."""
+    plan = window_plan(radius, topk)
     check_operands(query, bank_feats, bank_vals, bank_valid)
     f_total, h, w, c = bank_feats.shape
     k_classes = bank_vals.shape[-1]
-    lib = _library()
-    r = int(math.ceil(radius - 1))
-    if not 0 <= r <= lib.vfs_local_topk_max_offset():
-        raise ValueError(f'radius {radius} is outside what the kernel was '
-                         f'compiled for (r <= '
-                         f'{lib.vfs_local_topk_max_offset()})')
-    if not 1 <= topk <= lib.vfs_local_topk_max_topk():
-        raise ValueError(f'topk {topk} is outside 1..'
-                         f'{lib.vfs_local_topk_max_topk()}')
     if not 1 <= f_total <= 65535:
         raise ValueError(f'{f_total} bank slots: the kernel takes 1..65535')
     valid = bank_valid.to(torch.int32).contiguous()
@@ -164,13 +154,13 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                          device=query.device)
     part_o = torch.empty((f_total, h, w, topk), dtype=torch.int32,
                          device=query.device)
+    lib = _library()
     with torch.cuda.device(query.device):
         err = lib.vfs_local_topk_attend(
             query.data_ptr(), bank_feats.data_ptr(), bank_vals.data_ptr(),
             valid.data_ptr(), out.data_ptr(), scores.data_ptr(),
             src.data_ptr(), part_s.data_ptr(), part_o.data_ptr(), f_total, h,
-            w, c, k_classes, r,
-            radius * radius, 1.0 / temperature, topk,
+            w, c, k_classes, *plan_args(plan), 1.0 / temperature, topk,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '

@@ -35,6 +35,7 @@ import torch
 
 from . import _build
 from .affinity import NEG_INF
+from .window_geometry import plan_args, window_plan
 
 KERNEL_NAME = 'video_topk_affinity'
 
@@ -115,15 +116,10 @@ def video_topk_affinity_reference(feats: torch.Tensor, radius: float,
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_video_topk_affinity
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.vfs_video_topk_max_topk.argtypes = []
-    lib.vfs_video_topk_max_topk.restype = ctypes.c_int
-    lib.vfs_video_topk_max_offset.argtypes = []
-    lib.vfs_video_topk_max_offset.restype = ctypes.c_int
     return lib
 
 
@@ -149,18 +145,11 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
                              precede_frames: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on ``feats``' device and current stream.
-    ``video_topk_affinity_cuda.launches`` counts the launches."""
+    ``video_topk_affinity_cuda.launches`` counts the launches. Raises on a
+    radius or top-k the kernel does not take before anything else."""
+    plan = window_plan(radius, topk)
     check_features(feats, precede_frames)
     t_total, h, w, c = feats.shape
-    lib = _library()
-    r = int(math.ceil(radius - 1))
-    if not 0 <= r <= lib.vfs_video_topk_max_offset():
-        raise ValueError(f'radius {radius} is outside what the kernel was '
-                         f'compiled for (r <= '
-                         f'{lib.vfs_video_topk_max_offset()})')
-    if not 1 <= topk <= lib.vfs_video_topk_max_topk():
-        raise ValueError(f'topk {topk} is outside 1..'
-                         f'{lib.vfs_video_topk_max_topk()}')
     scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
                          device=feats.device)
     src = torch.empty((t_total, h, w, topk), dtype=torch.int64,
@@ -169,10 +158,11 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
     src[0] = 0
     if t_total < 2:
         return scores, src
+    lib = _library()
     with torch.cuda.device(feats.device):
         err = lib.vfs_video_topk_affinity(
             feats.data_ptr(), scores.data_ptr(), src.data_ptr(), t_total, h,
-            w, c, r, radius * radius, 1.0 / temperature, topk,
+            w, c, *plan_args(plan), 1.0 / temperature, topk,
             precede_frames, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
