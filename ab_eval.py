@@ -28,6 +28,20 @@ import tempfile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+def run_ab(a, b, argv, what):
+    """Run ``python3 argv...`` with checkout A, B, B and A in turn as its
+    working directory, each in its own process; yield each checkout and
+    the JSON object on the last line of its output. Raises with the end
+    of its errors if a run fails."""
+    for checkout in (a, b, b, a):
+        proc = subprocess.run([sys.executable, *argv], cwd=checkout,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise RuntimeError(f'{what} failed in {checkout}')
+        yield checkout, json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def child(argv, repeats):
     """Run in a checkout: the eval once, then ``repeats`` timed evals;
     print the wall seconds of each."""
@@ -61,25 +75,16 @@ def main():
         argv = chip_smoke.eval_argv(root, img_root, ann_root, list_all, ckpt,
                                     'pallas', os.path.join(root, 'out.npz'))
         a, b = (os.path.abspath(c) for c in args.checkouts)
-        for checkout in (a, b, b, a):
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), a, b,
-                 '--repeats', str(args.repeats), '--child', json.dumps(argv)],
-                cwd=checkout, capture_output=True, text=True)
-            if proc.returncode != 0:
-                sys.stderr.write(proc.stderr[-4000:])
-                raise RuntimeError(f'the eval failed in {checkout}')
-            run = json.loads(proc.stdout.strip().splitlines()[-1])
+        child_argv = [os.path.abspath(__file__), a, b, '--repeats',
+                      str(args.repeats), '--child', json.dumps(argv)]
+        for checkout, run in run_ab(a, b, child_argv, 'the eval'):
             fps = [frames / secs for secs in run['walls']]
             print(json.dumps({'checkout': os.path.relpath(checkout, ROOT),
                               'first_call_s': run['first_call_s'],
                               'eval_fps': fps,
                               'median_fps': statistics.median(fps)}),
                   flush=True)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(chip_smoke.card_line())
 
 
 if __name__ == '__main__':

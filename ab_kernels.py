@@ -1,36 +1,57 @@
 #!/usr/bin/env python3
-"""Compare the windowed top-k kernels of two checkouts of this repo on one
-card: rows 1 (``video_topk_affinity``) and 3 (``local_topk_attend``).
+"""Time the windowed top-k kernels, rows 1 (``video_topk_affinity``) and 3
+(``local_topk_attend``), on one card: two checkouts against each other, or
+this checkout's kernels against their ablations.
 
     python3 ab_kernels.py DIR_A DIR_B
+    python3 ab_kernels.py --ablate
 
-Runs each checkout's own package in its own process, in the order A, B, B,
-A. Each process builds its kernels, then, at the DAVIS-480p shapes of
-``chip_smoke.py``'s full phase (60x107 cells, P=20, top-10; the r18 and r50
-widths, seeded random L2-normalised features made on the card):
+Both modes use the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
+(60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
+L2-normalised features made on the card) and time, with
+``chip_smoke.cuda_ms`` (median of 5 CUDA-event timings after a warm-up):
 
-- row 1 at T=24 and T=48, milliseconds per launch (median of 5 CUDA-event
-  timings after a warm-up, ``chip_smoke.cuda_ms``);
+- row 1 at T=24 and T=48, milliseconds per launch;
 - row 3 for one step against a full bank of 21 slots (K=4).
 
-Prints one JSON line per run with the checkout, the times and a SHA-256 of
-each output (scores and sources, T=48 for row 1; logits, scores and
-sources for row 3), then one line saying whether the two checkouts'
-outputs are bit-identical, then the card's name and power limit as
-``nvidia-smi`` gives them. Needs one card.
+``DIR_A DIR_B`` runs each checkout's own package in its own process, in
+the order A, B, B, A (``ab_eval.run_ab``). It prints one JSON line per run
+with the checkout, the times and a SHA-256 of each output (scores and
+sources, T=48 for row 1; logits, scores and sources for row 3), then one
+line saying whether the two checkouts' outputs are bit-identical.
+
+``--ablate`` builds this checkout's rows 1 and 3 once as the package does
+and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
+(``ABLATIONS``), then times them in the order full, each ablation, full.
+An ablated kernel's outputs are wrong; only its time is read. It prints
+one JSON line per variant.
+
+Both modes end with the card's name and power limit as ``nvidia-smi``
+gives them. Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import hashlib
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, P, TOPK, K_CLASSES, SLOTS = 60, 107, 20, 10, 4, 21
+KERNELS = ('video_topk_affinity', 'local_topk_attend')
+# window_topk.cuh's WTK_ABLATE bits: what each variant leaves out (1 inner
+# loop, 2 merges, 4 stage copies, 8 chunk barrier). The inner loop, the
+# copies and the barrier are also left out on top of no_merge: without the
+# loop or the copies the scores change, and with them the merges' work.
+ABLATIONS = {'no_inner_loop': 1, 'no_merge': 2,
+             'no_merge_no_inner_loop': 2 | 1,
+             'no_merge_no_stage_copies': 2 | 4,
+             'no_merge_no_chunk_barrier': 2 | 8,
+             'no_merge_loop_copies': 2 | 1 | 4}
 
 
 def digest(tensors):
@@ -40,80 +61,158 @@ def digest(tensors):
     return h.hexdigest()
 
 
+def make_inputs(dev, c):
+    """Row 1's 48 frames, row 3's query, bank, values and validity."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize
+    g = torch.Generator(device=dev).manual_seed(c)
+    feats48 = l2_normalize(torch.randn((48, H, W, c), device=dev,
+                                       generator=g)).contiguous()
+    g = torch.Generator(device=dev).manual_seed(c + 1)
+    bank = l2_normalize(torch.randn((SLOTS, H, W, c), device=dev,
+                                    generator=g)).contiguous()
+    query = l2_normalize(torch.randn((H, W, c), device=dev,
+                                     generator=g)).contiguous()
+    vals = torch.rand((SLOTS, H, W, K_CLASSES), device=dev, generator=g)
+    valid = torch.ones(SLOTS, dtype=torch.int32, device=dev)
+    return dict(feats48=feats48, feats24=feats48[:24].contiguous(),
+                step=(query, bank, vals, valid))
+
+
+def time_kernels(inputs, radius, cuda_ms, hashes=False):
+    """Rows 1 and 3 on ``inputs``: times, and with ``hashes`` the outputs'
+    SHA-256."""
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
+                                   video_topk_affinity_cuda)
+
+    def row1(t):
+        return video_topk_affinity_cuda(inputs[f'feats{t}'], radius, 0.07,
+                                        TOPK, P)
+
+    def step():
+        return local_topk_attend_cuda(*inputs['step'], radius, 0.07, TOPK)
+
+    t24, t48 = cuda_ms(lambda: row1(24)), cuda_ms(lambda: row1(48))
+    out = dict(row1_ms_T24=t24, row1_ms_T48=t48,
+               row1_ms_per_frame_T24=t24 / 23,
+               row1_steady_ms_per_frame=(t48 - t24) / 24,
+               row3_ms_per_step=cuda_ms(step))
+    if hashes:
+        out.update(row1_sha256=digest(row1(48)), row3_sha256=digest(step()))
+    return out
+
+
 def child():
     """Run in a checkout: time and hash both kernels at both widths."""
     import chip_smoke  # the timers and model widths of this script's tree
     sys.path[0] = os.getcwd()  # the package of the checkout
     import torch
     from vfs_tpu_torch.device import exact_fp32
-    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
-                                   video_topk_affinity_cuda)
     dev = torch.device('cuda', 0)
     out = {}
     with exact_fp32():
         for model, c, radius in chip_smoke.MODELS:
-            g = torch.Generator(device=dev).manual_seed(c)
-            feats48 = l2_normalize(torch.randn(
-                (48, H, W, c), device=dev, generator=g)).contiguous()
-            feats24 = feats48[:24].contiguous()
-            row1 = {t: chip_smoke.cuda_ms(lambda: video_topk_affinity_cuda(
-                feats, radius, 0.07, TOPK, P))
-                for t, feats in ((24, feats24), (48, feats48))}
-            hash1 = digest(video_topk_affinity_cuda(feats48, radius, 0.07,
-                                                    TOPK, P))
-            del feats48, feats24
-            g = torch.Generator(device=dev).manual_seed(c + 1)
-            bank = l2_normalize(torch.randn(
-                (SLOTS, H, W, c), device=dev, generator=g)).contiguous()
-            query = l2_normalize(torch.randn(
-                (H, W, c), device=dev, generator=g)).contiguous()
-            vals = torch.rand((SLOTS, H, W, K_CLASSES), device=dev,
-                              generator=g)
-            valid = torch.ones(SLOTS, dtype=torch.int32, device=dev)
-
-            def step():
-                return local_topk_attend_cuda(query, bank, vals, valid,
-                                              radius, 0.07, TOPK)
-
-            row3 = chip_smoke.cuda_ms(step)
-            hash3 = digest(step())
-            del bank, query, vals
+            out[model] = time_kernels(make_inputs(dev, c), radius,
+                                      chip_smoke.cuda_ms, hashes=True)
             torch.cuda.empty_cache()
-            out[model] = dict(
-                row1_ms_T24=row1[24], row1_ms_T48=row1[48],
-                row1_ms_per_frame_T24=row1[24] / 23,
-                row1_steady_ms_per_frame=(row1[48] - row1[24]) / 24,
-                row3_ms_per_step=row3, row1_sha256=hash1, row3_sha256=hash3)
     print(json.dumps(out))
+
+
+def ablate():
+    """This checkout's rows 1 and 3 and their ablations, in the order
+    full, each ablation, full."""
+    import chip_smoke
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import _build
+    variants = {'full': (), **{name: (f'WTK_ABLATE={bit}',)
+                               for name, bit in ABLATIONS.items()}}
+    jobs = [(name, v) for name in KERNELS for v in variants.values()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = dict(zip(jobs, pool.map(lambda j: _build.build(*j), jobs)))
+    dev = torch.device('cuda', 0)
+    smi_line = chip_smoke.card_line()
+    with exact_fp32():
+        for model, c, radius in chip_smoke.MODELS:
+            inputs = make_inputs(dev, c)
+            runs = {}
+            for variant in ['full', *ABLATIONS, 'full']:
+                for name in KERNELS:  # what the wrappers' _library() loads
+                    _build._LIBS[name] = ctypes.CDLL(
+                        str(paths[name, variants[variant]]))
+                run = time_kernels(inputs, radius, chip_smoke.cuda_ms)
+                runs.setdefault(variant, []).append(run)
+                print(json.dumps({'model': model, 'variant': variant, **run}),
+                      flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+            print(json.dumps({'model': model, **split(runs, c, radius,
+                                                      smi_line)}))
+    print(smi_line)
+
+
+def split(runs, c, radius, smi_line):
+    """Each part's milliseconds (the difference of two variants) and share
+    of the full kernel's time (the mean of its two runs), for row 1 per
+    frame (T=24 and steady) and row 3 per step; and the rate of the inner
+    loop's FFMAs: the time they would take at the fp32 peak (every pair
+    the warps compute, ``chip_smoke.pairs_needed_share``) over the inner
+    loop's time."""
+    import chip_smoke
+    keys = ('row1_ms_per_frame_T24', 'row1_steady_ms_per_frame',
+            'row3_ms_per_step')
+    ms = {v: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+          for v, rs in runs.items()}
+    parts = {'merges': ('full', 'no_merge'),
+             'inner_loop': ('no_merge', 'no_merge_no_inner_loop'),
+             'stage_copies': ('no_merge', 'no_merge_no_stage_copies'),
+             'chunk_barrier': ('no_merge', 'no_merge_no_chunk_barrier'),
+             'copies_without_loop': ('no_merge_no_inner_loop',
+                                     'no_merge_loop_copies')}
+    out = {}
+    for k in keys:
+        part_ms = {p: ms[a][k] - ms[b][k] for p, (a, b) in parts.items()}
+        part_ms['rest'] = ms['no_merge_loop_copies'][k]
+        out[k] = {'full_ms': ms['full'][k], 'ms': part_ms,
+                  'share': {p: v / ms['full'][k]
+                            for p, v in part_ms.items()}}
+    # FLOPs of every computed pair, per frame (row 1) or step (row 3)
+    needed = chip_smoke.pairs_needed_share(H, W, radius)
+    f24 = chip_smoke.affinity_work(24, H, W, c, radius, TOPK, P)[0]
+    f48 = chip_smoke.affinity_work(48, H, W, c, radius, TOPK, P)[0]
+    step = 2.0 * c * chip_smoke.window_pairs(H, W, radius) * SLOTS
+    for k, flops in zip(keys, (f24 / 23, (f48 - f24) / 24, step)):
+        peak_ms = chip_smoke.bound_ms(flops / needed, 0.0, smi_line)[0]
+        out[k]['inner_loop_ffma_peak_share'] = (
+            peak_ms / out[k]['ms']['inner_loop'])
+    return out
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('checkouts', nargs=2)
+    parser.add_argument('checkouts', nargs='*')
+    parser.add_argument('--ablate', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
         return child()
+    if args.ablate:
+        return ablate()
+    if len(args.checkouts) != 2:
+        parser.error('give two checkouts, or --ablate')
+    import ab_eval
+    import chip_smoke
     a, b = (os.path.abspath(c) for c in args.checkouts)
     hashes = {}
-    for checkout in (a, b, b, a):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), a, b, '--child'],
-            cwd=checkout, capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr[-4000:])
-            raise RuntimeError(f'the kernels failed in {checkout}')
-        run = json.loads(proc.stdout.strip().splitlines()[-1])
+    for checkout, run in ab_eval.run_ab(
+            a, b, [os.path.abspath(__file__), '--child'], 'the kernels'):
         hashes.setdefault(checkout, set()).update(
             v for model in run.values() for k, v in model.items()
             if k.endswith('sha256'))
         print(json.dumps({'checkout': os.path.relpath(checkout, ROOT),
                           **run}), flush=True)
     print(json.dumps({'outputs_bit_identical': hashes[a] == hashes[b]}))
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(chip_smoke.card_line())
 
 
 if __name__ == '__main__':

@@ -66,8 +66,9 @@ Phases, one JSON line each on stdout:
    pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
    video, to a plain-phase-1 run.
 8. kernels: every kernel with its launches on its path, times and bound;
-   rows 1 and 3 also with their share of the bound and their time before
-   their redesign around ``window_topk.cuh`` (``prev_ms``).
+   rows 1 and 3 also with their share of the bound. (Their times before
+   the redesign around ``window_topk.cuh`` come from ``ab_kernels.py``,
+   which runs both checkouts in one call.)
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -119,12 +120,6 @@ SMALL_CASES = [(9, 6, 7, 6, 4, 5), (12, 8, 8, 6, 4, 3), (6, 5, 9, 8, 3, 4),
                (4, 2, 3, 4, 2, 12)]  # the last has filler entries
 NO_LIBRARY_CALL = ('no single PyTorch call computes a masked windowed '
                    'top-k over a frame bank')
-# the kernels line's ms of rows 1 and 3 before their redesign around
-# window_topk.cuh (this script at commit 5c4f173, NVIDIA H100 80GB HBM3,
-# 700.00 W): row 1 on the main path's r18 48-frame video, row 3 for one
-# r50 step
-PREV_MS = {'video_topk_affinity': 167.32025146484375,
-           'local_topk_attend': 40.844032287597656}
 KERNEL_INFO = dict(
     name='video_topk_affinity', route='cuda',
     source='vfs_tpu_torch/csrc/video_topk_affinity.cu',
@@ -299,12 +294,17 @@ def phase_build():
                     if any(k in ln for k in keep)]
              for name, lib in libs.items()}
     emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas})
+    smi_line = card_line()
+    print(smi_line, flush=True)
+    return smi_line
+
+
+def card_line():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
-    print(smi_line, flush=True)
-    return smi_line
+    return smi.stdout.strip().splitlines()[0]
 
 
 def run_case(feats, radius, topk, p, exact_src, what):
@@ -955,8 +955,7 @@ def phase_main(dev, smi_name):
         **KERNEL_INFO, launches=launches, max_abs_err=err,
         src_mismatch=mismatch, ms=affinity_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / affinity_ms,
-        prev_ms=PREV_MS[KERNEL_INFO['name']], library_ms=None,
-        library_note=NO_LIBRARY_CALL)]
+        library_ms=None, library_note=NO_LIBRARY_CALL)]
 
 
 def write_davis(root, n_videos=2, t_total=48):
@@ -1156,8 +1155,7 @@ def phase_eval(local_full):
                 plain_ms=local_full['plain_ms_per_step'],
                 bound_ms=local_full['bound_ms_per_step'],
                 bound_by=local_full['bound_by'],
-                bound_share=local_full['bound_share'],
-                prev_ms=PREV_MS[LOCAL_INFO['name']], library_ms=None,
+                bound_share=local_full['bound_share'], library_ms=None,
                 library_note=NO_LIBRARY_CALL)
 
 

@@ -11,13 +11,12 @@ from vfs_tpu_torch.ops.video_affinity import (circle_offsets,
                                               video_topk_affinity_cuda)
 from vfs_tpu_torch.ops.window_geometry import (MAX_OFFSET, PASS_DX,
                                                circle_band, pair_counts,
-                                               pass_starts, window_plan)
+                                               pass_starts, plan_args,
+                                               window_plan)
 
 torch.set_num_threads(1)
 
 RADII = [3.0, 5.0, 12.0, 18.0, 18.5, 32.0]
-SMEM_PER_SM = 232448  # bytes a block can use on an H100
-STATIC_SMEM = 256  # the kernels' own: the band table and a few ints
 
 
 @pytest.mark.parametrize('radius', RADII)
@@ -56,17 +55,21 @@ def test_passes_cover_each_row_band(radius):
 @pytest.mark.parametrize('radius', RADII + [16.0, 24.0])
 @pytest.mark.parametrize('topk', [1, 10, 32])
 def test_plan_fits_the_card(radius, topk):
-    """The staged key row holds every cell the kernel reads, each query has
-    an owner thread, a block has at most 512 threads and fits shared
-    memory (the lists are the owners', not shared memory's)."""
+    """The plan is one the CUDA core takes (its check_band): r fits the
+    core's 32-entry band table, the band starts at r and never widens, and
+    the C interface gets r and the band as given. The core derives the
+    launch (passes, threads, shared memory) from r; chip_smoke.py launches
+    it at its largest, r = 31 and top-32. The plan is cached: the scan
+    tier asks for it once per step."""
     plan = window_plan(radius, topk)
-    widest_read = 2 * plan.r + 46  # by a thread with no valid dx
-    assert plan.key_cells == 32 + 2 * plan.r  # every column a key can sit in
-    assert plan.key_cells + 256 > widest_read  # the read stays in the stage
-    assert plan.score_width >= plan.passes * PASS_DX
-    assert 8 * 32 <= plan.threads <= 512  # an owner lane per query
-    assert plan.threads % (2 * 32 * plan.passes) == 0
-    assert plan.smem_bytes + STATIC_SMEM <= SMEM_PER_SM
+    assert 0 <= plan.r <= MAX_OFFSET and len(plan.band) == plan.r + 1
+    assert plan.band[0] == plan.r
+    assert all(0 <= b <= a for a, b in zip(plan.band, plan.band[1:]))
+    assert ((plan.passes - 1) * PASS_DX < 2 * plan.r + 1
+            <= plan.passes * PASS_DX)
+    r, band = plan_args(plan)
+    assert r == plan.r and list(band) == list(plan.band)
+    assert window_plan(radius, topk) is plan
 
 
 @pytest.mark.parametrize('h,w,radius', [(3, 5, 3.0), (13, 45, 5.0),

@@ -215,25 +215,23 @@ cudaError_t launch_slots(const float* query, const float* bank,
 extern "C" {
 
 // part_s (F*h*w*topk floats) and part_o (as many ints) are scratch for the
-// per-slot lists. band, passes, key_cells, score_width: the wrapper's plan
+// per-slot lists. r and band: the wrapper's plan
 // (vfs_tpu_torch/ops/window_geometry.py::window_plan); band holds r + 1
-// host ints.
+// host ints. The core derives the rest of the launch from r.
 int vfs_local_topk_attend(const void* query, const void* bank,
                           const void* vals, const void* valid, void* out,
                           void* scores, void* src, void* part_s,
                           void* part_o, int F, int h, int w, int C, int K,
-                          int r, const int* band, int passes, int key_cells,
-                          int score_width, float inv_tau, int topk,
+                          int r, const int* band, float inv_tau, int topk,
                           void* stream) {
   if (F < 1 || F > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
       K < 1 ||
-      !wtk::check_plan(r, band, passes, key_cells, score_width, topk) ||
+      !wtk::check_band(r, band, topk) ||
       (long long)F * h * w >= INT_MAX ||
       (long long)F * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   const Geometry g =
-      wtk::make_geometry(h, w, C, r, band, key_cells, score_width, inv_tau,
-                         topk);
+      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
   const float* q = static_cast<const float*>(query);
   const float* b = static_cast<const float*>(bank);
   const int* ok = static_cast<const int*>(valid);
@@ -241,7 +239,7 @@ int vfs_local_topk_attend(const void* query, const void* bank,
   int* po = static_cast<int*>(part_o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (passes) {
+  switch (wtk::passes(r)) {
     case 1: err = launch_slots<1>(q, b, ok, ps, po, F, g, st); break;
     case 2: err = launch_slots<2>(q, b, ok, ps, po, F, g, st); break;
     case 3: err = launch_slots<3>(q, b, ok, ps, po, F, g, st); break;

@@ -129,27 +129,25 @@ cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
 
 extern "C" {
 
-// band, passes, key_cells, score_width: the wrapper's plan
+// r and band: the wrapper's plan
 // (vfs_tpu_torch/ops/window_geometry.py::window_plan); band holds r + 1
-// host ints.
+// host ints. The core derives the rest of the launch from r.
 int vfs_video_topk_affinity(const void* feats, void* scores, void* src,
                             int T, int h, int w, int C, int r,
-                            const int* band, int passes, int key_cells,
-                            int score_width, float inv_tau, int topk, int P,
+                            const int* band, float inv_tau, int topk, int P,
                             void* stream) {
   if (T < 2 || T - 1 > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
       P < 1 ||
-      !wtk::check_plan(r, band, passes, key_cells, score_width, topk) ||
+      !wtk::check_band(r, band, topk) ||
       (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   const Geometry g =
-      wtk::make_geometry(h, w, C, r, band, key_cells, score_width, inv_tau,
-                         topk);
+      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
   const float* f = static_cast<const float*>(feats);
   float* s = static_cast<float*>(scores);
   long long* i = static_cast<long long*>(src);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (passes) {
+  switch (wtk::passes(r)) {
     case 1: return (int)launch<1>(f, s, i, T, P, g, st);
     case 2: return (int)launch<2>(f, s, i, T, P, g, st);
     case 3: return (int)launch<3>(f, s, i, T, P, g, st);

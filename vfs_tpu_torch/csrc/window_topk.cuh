@@ -73,6 +73,15 @@
 //
 // Interface for the kernels that include it: run() leaves the tile's lists
 // in shared memory (lists()); the caller reads them after __syncthreads().
+//
+// Ablation switches, all off in the package's build. `python3
+// ab_kernels.py --ablate` builds rows 1 and 3 with one of them on
+// (nvcc -DWTK_ABLATE=bit) and times them; their outputs are then wrong,
+// only the time is read. The bits:
+//   1   drop the inner loop (the shared-memory loads and the FFMAs);
+//   2   drop the list merges (the scores still go to the score buffer);
+//   4   drop the stage copies (cp.async is not issued);
+//   8   drop the barrier of each chunk.
 
 #pragma once
 
@@ -80,6 +89,10 @@
 
 #include <climits>
 #include <cmath>
+
+#ifndef WTK_ABLATE
+#define WTK_ABLATE 0
+#endif
 
 namespace wtk {
 
@@ -98,8 +111,14 @@ struct Band {
   int e[MAX_OFFSET + 1];  // largest |dx| in the circle for |dy| = 0..r
 };
 
-// What a launch shares with all its blocks. The host fills it from the
-// wrapper's plan (vfs_tpu_torch/ops/window_geometry.py) after check_plan.
+// Warp passes of PASS_DX dx that cover the window's 2r + 1 dx.
+__host__ __device__ constexpr int passes(int r) {
+  return (2 * r + 1 + PASS_DX - 1) / PASS_DX;
+}
+
+// What a launch shares with all its blocks: the shapes, r and the host's
+// band table (vfs_tpu_torch/ops/window_geometry.py::circle_band), and
+// what the core derives from r.
 struct Geometry {
   int h, w, C;
   int r, span;      // largest offset, 2r + 1
@@ -132,14 +151,11 @@ inline size_t smem_bytes(const Geometry& g, int nkr) {
                           (size_t)QN * (g.score_width + 2 * g.topk));
 }
 
-// The host's plan must be the one the kernels were written for; returns
-// false otherwise (the wrapper then gets cudaErrorInvalidValue).
-inline bool check_plan(int r, const int* band, int passes, int key_cells,
-                       int score_width, int topk) {
+// The kernels take 0 <= r <= MAX_OFFSET, 1 <= topk <= KMAX and a band
+// (r + 1 host ints) that starts at r and never widens; false otherwise
+// (the wrapper then gets cudaErrorInvalidValue).
+inline bool check_band(int r, const int* band, int topk) {
   if (r < 0 || r > MAX_OFFSET || topk < 1 || topk > KMAX) return false;
-  if (passes != (2 * r + 1 + PASS_DX - 1) / PASS_DX) return false;
-  if (key_cells != TW + 2 * r) return false;
-  if (score_width != PASS_DX * passes + 4) return false;
   if (band[0] != r) return false;
   for (int dy = 1; dy <= r; ++dy)
     if (band[dy] < 0 || band[dy] > band[dy - 1]) return false;
@@ -147,16 +163,19 @@ inline bool check_plan(int r, const int* band, int passes, int key_cells,
 }
 
 inline Geometry make_geometry(int h, int w, int C, int r, const int* band,
-                              int key_cells, int score_width, float inv_tau,
-                              int topk) {
+                              float inv_tau, int topk) {
   Geometry g;
   g.h = h;
   g.w = w;
   g.C = C;
   g.r = r;
   g.span = 2 * r + 1;
-  g.key_cells = key_cells;
-  g.score_width = score_width;
+  // A lane whose pairs all lie outside the band or the map may read up to
+  // cell 2r + 46 of its key row (a pass starts at most at r, and a lane
+  // reads 4 x 7 + 12 + 6 cells past it): that lies in the next key row or
+  // the queries of the same stage.
+  g.key_cells = TW + 2 * r;
+  g.score_width = PASS_DX * passes(r) + 4;
   g.topk = topk;
   g.tiles_x = (w + TW - 1) / TW;
   g.inv_tau = inv_tau;
@@ -407,7 +426,7 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
   // zero-filled.
   const int quad = tid & 7;
   auto issue = [&](int s) {
-    if (s < steps) {
+    if (!(WTK_ABLATE & 4) && s < steps) {
       const int chunk = s % n_chunks;
       const int rest = s / n_chunks;
       const int ky0 = ky_begin + (rest % n_kyg) * NKR;
@@ -457,7 +476,8 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
   int ksw = 0;    // K mod 8: that cell's swizzle
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step s landed; step s - 1's stage is free
+    if (!(WTK_ABLATE & 8))
+      __syncthreads();  // step s landed; step s - 1's stage is free
     issue(s + STAGES - 1);
 
     const int chunk = s % n_chunks;
@@ -489,7 +509,7 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
           for (int d = 0; d < 4; ++d) acc[m][i][d] = 0.f;
     }
 
-    if (active) {  // warp-uniform
+    if (!(WTK_ABLATE & 1) && active) {  // warp-uniform
       const float4* kst =
           reinterpret_cast<const float4*>(smem + (s % STAGES) * stage);
       const float4* qst = kst + NKR * g.key_cells * (CC / 4);
@@ -543,7 +563,7 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
           }
       }
       __syncthreads();
-      if (ky0 + k < ky_end)
+      if (!(WTK_ABLATE & 2) && ky0 + k < ky_end)
         merge_row(ky0 + k, oj, twice, y0, x0, band, sbuf, L, g, NT / 32);
     }
   }

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -41,27 +41,33 @@ def _nvcc() -> str:
                        'build at first use and need the CUDA toolkit')
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> List[str]:
+    return NVCC_FLAGS + [f'-D{d}' for d in defines]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """The library's path, keyed by the source, the shared headers
     (``csrc/*.cuh``) and the flags."""
     parts = [(CSRC_DIR / f'{name}.cu').read_bytes()]
     parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob('*.cuh'))]
     digest = hashlib.sha256(
-        b''.join(parts) + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b''.join(parts) + ' '.join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f'{name}-{digest}.so'
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists. The compiler
-    output (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside the library as ``.log``."""
-    out = library_path(name)
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; ``defines``
+    are extra ``-D`` macros (the package's own build has none). The
+    compiler output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside the library as ``.log``."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC_DIR / f'{name}.cu')]
+    cmd = [_nvcc(), *_flags(defines), '-o', tmp,
+           str(CSRC_DIR / f'{name}.cu')]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -117,8 +117,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_video_topk_affinity
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 

@@ -1,28 +1,24 @@
 """Host-side geometry of the windowed top-k kernels.
 
 ``csrc/window_topk.cuh`` is the device core of ``video_topk_affinity.cu``
-and ``local_topk_attend.cu``. The wrappers compute here, once per call,
-what the kernels are given: the circle's dx half-extent for each ``|dy|``
-(the band), and the launch plan (warp passes over dx, key rows staged
-together, staged cells of a key row, the score buffer's width, threads,
-shared memory). The CUDA
-side checks the plan against its own arithmetic and refuses a launch whose
-plan disagrees, so these numbers are the ones the card runs.
+and ``local_topk_attend.cu``. The wrappers compute here, once per
+(radius, topk), what the kernels are given: the largest window offset r
+and the circle's dx half-extent for each ``|dy|`` (the band). The core
+derives the rest of the launch (passes, staged cells, threads, shared
+memory) from r, and refuses a band that does not start at r or widens.
 
 The tile: a block owns ``TILE_H x TILE_W`` query cells. A warp computes
 4 query rows x 32 query columns x ``PASS_DX`` consecutive dx of one key
 row: its pass. ``passes`` warps cover the window's ``2r + 1`` dx for each
-group of 4 query rows and each of the ``key_rows`` key rows staged
-together, which share each staged chunk of queries. Channels are staged
-``CHUNK`` at a time (one 128-byte cell) through a ring of ``STAGES``
-shared-memory stages; after each key row the warps leave their scores in
-a score buffer of ``score_width`` floats per query, from which the warps
-merge them into the tile's lists.
+group of 4 query rows. ``pass_starts`` and ``pair_counts`` follow the
+core's pass rule so that the CPU tests and ``chip_smoke.py`` can count
+the pairs the kernels compute.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -32,9 +28,6 @@ import numpy as np
 TILE_H, TILE_W = 8, 32
 ROW_GROUPS = TILE_H // 4
 PASS_DX = 16
-CHUNK = 32
-STAGES = 2
-QUERIES = TILE_H * TILE_W
 KMAX = 32
 MAX_OFFSET = 31
 
@@ -63,56 +56,32 @@ class WindowPlan:
     """What a launch of the windowed top-k core is given."""
     r: int
     band: Tuple[int, ...]
-    passes: int       # warps over dx per group of 4 query rows
-    key_cells: int    # staged cells of a key row
-    score_width: int  # floats per query in the score buffer
-    topk: int
 
     @property
-    def key_rows(self) -> int:
-        """Key rows staged together: as many as keep a block within 512
-        threads and its shared memory within 227 KB at topk = 32."""
-        return {1: 4, 2: 4, 3: 2}.get(self.passes, 1)
-
-    @property
-    def threads(self) -> int:
-        return 32 * ROW_GROUPS * self.passes * self.key_rows
-
-    @property
-    def smem_bytes(self) -> int:
-        """Dynamic shared memory of a block: the stage ring (key rows and
-        queries, ``CHUNK`` channels a cell), the score buffer and the
-        tile's lists (score, order key)."""
-        stage = (self.key_rows * self.key_cells + QUERIES) * CHUNK
-        return 4 * (STAGES * stage + QUERIES * self.score_width
-                    + 2 * QUERIES * self.topk)
+    def passes(self) -> int:
+        """Warp passes over dx per group of 4 query rows (the core's
+        ``passes(r)``)."""
+        return -(-(2 * self.r + 1) // PASS_DX)
 
 
+@functools.lru_cache(maxsize=None)
 def window_plan(radius: float, topk: int) -> WindowPlan:
     """The launch plan for ``radius`` and ``topk``; raises ValueError for
     what the kernels do not take (``r > 31`` or ``topk`` outside
-    ``1..32``)."""
+    ``1..32``). Cached: the scan tier asks once per step."""
     r = window_offset(radius)
     if not 0 <= r <= MAX_OFFSET:
         raise ValueError(f'radius {radius} gives window offset r = {r}; the '
                          f'kernels take 0 <= r <= {MAX_OFFSET}')
     if not 1 <= topk <= KMAX:
         raise ValueError(f'topk {topk} is outside 1..{KMAX}')
-    passes = -(-(2 * r + 1) // PASS_DX)
-    # a key row stages its TW + 2r columns; a lane whose pairs all lie
-    # outside the band or the map may read up to cell 2r + 46 (a pass
-    # starts at most at r, and a lane reads 4 x 7 + 12 + 6 cells past it),
-    # which lies in the next key row or the queries of the same stage
-    return WindowPlan(r=r, band=circle_band(radius), passes=passes,
-                      key_cells=TILE_W + 2 * r,
-                      score_width=PASS_DX * passes + 4, topk=topk)
+    return WindowPlan(r=r, band=circle_band(radius))
 
 
 def plan_args(plan: WindowPlan) -> tuple:
-    """The plan as the C interfaces of rows 1 and 3 take it: r, the band
-    (r + 1 host ints), passes, key cells, score width."""
-    band = (ctypes.c_int * len(plan.band))(*plan.band)
-    return plan.r, band, plan.passes, plan.key_cells, plan.score_width
+    """The plan as the C interfaces of rows 1 and 3 take it: r and the
+    band (r + 1 host ints)."""
+    return plan.r, (ctypes.c_int * len(plan.band))(*plan.band)
 
 
 def pass_starts(plan: WindowPlan, e: int) -> Tuple[int, ...]:
