@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
-"""Compare the r50 eval throughput of checkouts of this repo on one card.
+"""Compare the eval throughput of checkouts of this repo on one card.
 
-    python3 ab_eval.py DIR_A DIR_B [--repeats N]
+    python3 ab_eval.py DIR_A DIR_B [--path davis|pose|vip] [--repeats N]
+                       [--option KEY=VALUE ...]
 
-Writes ``chip_smoke.py``'s eval inputs once (two synthetic 48x480x854
-DAVIS-layout videos and a seeded r50 torchvision-layout checkpoint), then
-runs ``python -m vfs_tpu_torch.tools.test`` on
-configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py with
-``test_cfg.backend=pallas`` in each checkout's own package, one process per
-run, in the order A, B, B, A. Each process first runs the eval once (the
-kernel build and the first call), then times ``single_process_test``
-``N`` times (default 3). Prints one JSON line per run with the checkout,
-its ``eval_fps`` per repeat and their median, then the card's name and
-power limit as ``nvidia-smi`` gives them. Needs one card.
+Writes the inputs of one of ``chip_smoke.py``'s eval paths once, then runs
+``python -m vfs_tpu_torch.tools.test`` on them in each checkout's own
+package, one process per run, in the order A, B, B, A:
+
+- ``davis`` (the default): the r50 DAVIS eval, two synthetic 48x480x854
+  videos, configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py with
+  ``test_cfg.backend=pallas`` (the scan tier, row 3);
+- ``pose``: the r18 JHMDB eval, two synthetic 40-frame 240x320 videos,
+  configs/r18_nc_sgd_cos_100e_r2_1xNx8_k400.py with ``--eval pck
+  test_cfg.video_engine=v1 test_cfg.video_extract=perframe`` (row 2);
+- ``vip``: the r50 VIP eval, two synthetic 48x480x854 videos, ``--eval
+  mIoU test_cfg.video_engine=v1`` (row 2).
+
+Each ``--option`` is appended to the path's ``--options`` (a later key
+wins), e.g. ``--option test_cfg.video_engine=v2``. The checkpoints are
+seeded random torchvision-layout weights. Each process first runs the
+eval once (the kernel build and the first call), then times
+``single_process_test`` ``N`` times (default 3). Prints one JSON line per
+run with the checkout, its ``eval_fps`` per repeat and their median, then
+the card's name and power limit as ``nvidia-smi`` gives them. Needs one
+card.
 """
 
 from __future__ import annotations
@@ -57,10 +69,44 @@ def child(argv, repeats):
     print(json.dumps({'first_call_s': walls[0], 'walls': walls[1:]}))
 
 
+def write_inputs(path, root, options):
+    """Write ``path``'s inputs under ``root``; return ``tools.test``'s
+    arguments and the frames one eval runs."""
+    import chip_smoke
+    if path == 'davis':
+        (img_root, ann_root, (list_all, _), shape,
+         ckpt) = chip_smoke.write_eval_inputs(root)
+        argv = chip_smoke.eval_argv(root, img_root, ann_root, list_all, ckpt,
+                                    'pallas', os.path.join(root, 'out.npz'))
+        return argv + list(options), 2 * shape[0]
+    if path == 'pose':
+        img_root, ann_root, (list_all, _), shape = chip_smoke.write_jhmdb(
+            root)
+        config, metric, dataset_type = chip_smoke.CONFIG, 'pck', 'JHMDBDataset'
+        engine = ['test_cfg.video_engine=v1',
+                  'test_cfg.video_extract=perframe']
+    else:
+        img_root, ann_root, (list_all, _), shape = chip_smoke.write_vip(root)
+        config, metric, dataset_type = (chip_smoke.CONFIG_R50, 'mIoU',
+                                        'VIPDataset')
+        engine = ['test_cfg.video_engine=v1']
+    ckpt = chip_smoke.write_backbone(config, os.path.join(root, 'w.pth'))
+    dataset = dict(type=dataset_type, ann_file=list_all,
+                   data_prefix=img_root, anno_prefix=ann_root,
+                   data_root=root)
+    argv = chip_smoke.slice3_argv(config, ckpt, metric, dataset,
+                                  os.path.join(root, 'out.npz'),
+                                  engine + list(options))
+    return argv, 2 * shape[0]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('checkouts', nargs=2)
+    parser.add_argument('--path', choices=('davis', 'pose', 'vip'),
+                        default='davis')
     parser.add_argument('--repeats', type=int, default=3)
+    parser.add_argument('--option', action='append', default=[])
     parser.add_argument('--child', default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child is not None:
@@ -69,17 +115,14 @@ def main():
     import chip_smoke
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
-        (img_root, ann_root, (list_all, _), shape,
-         ckpt) = chip_smoke.write_eval_inputs(root)
-        frames = 2 * shape[0]  # write_davis's two videos
-        argv = chip_smoke.eval_argv(root, img_root, ann_root, list_all, ckpt,
-                                    'pallas', os.path.join(root, 'out.npz'))
+        argv, frames = write_inputs(args.path, root, args.option)
         a, b = (os.path.abspath(c) for c in args.checkouts)
         child_argv = [os.path.abspath(__file__), a, b, '--repeats',
                       str(args.repeats), '--child', json.dumps(argv)]
         for checkout, run in run_ab(a, b, child_argv, 'the eval'):
             fps = [frames / secs for secs in run['walls']]
             print(json.dumps({'checkout': os.path.relpath(checkout, ROOT),
+                              'path': args.path, 'options': args.option,
                               'first_call_s': run['first_call_s'],
                               'eval_fps': fps,
                               'median_fps': statistics.median(fps)}),

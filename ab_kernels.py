@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time the windowed top-k kernels, rows 1 (``video_topk_affinity``) and 3
-(``local_topk_attend``), on one card: two checkouts against each other, or
-this checkout's kernels against their ablations.
+"""Time the four windowed top-k kernels on one card: two checkouts against
+each other, this checkout's rows 1 and 3 against their ablations, or row
+4 at several slot-group counts.
 
     python3 ab_kernels.py DIR_A DIR_B
     python3 ab_kernels.py --ablate
+    python3 ab_kernels.py --groups
 
-Both modes use the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
+Every mode uses the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
 (60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
-L2-normalised features made on the card) and time, with
+L2-normalised features made on the card) and times, with
 ``chip_smoke.cuda_ms`` (median of 5 CUDA-event timings after a warm-up):
 
-- row 1 at T=24 and T=48, milliseconds per launch;
-- row 3 for one step against a full bank of 21 slots (K=4).
+- rows 1 (``video_topk_affinity``) and 2 (``video_topk_affinity_v1``,
+  with the tau exit on, ``'perframe'``, and off, ``'sweep'``) at T=24 and
+  T=48, milliseconds per launch;
+- rows 3 (``local_topk_attend``) and 4 (``local_topk_attend_v2``) for one
+  step against a full bank of 21 slots (K=4).
 
 ``DIR_A DIR_B`` runs each checkout's own package in its own process, in
-the order A, B, B, A (``ab_eval.run_ab``). It prints one JSON line per run
-with the checkout, the times and a SHA-256 of each output (scores and
-sources, T=48 for row 1; logits, scores and sources for row 3), then one
-line saying whether the two checkouts' outputs are bit-identical.
+the order A, B, B, A (``ab_eval.run_ab``). The child calls each row with
+arguments that older checkouts accept too (no counters). It prints one
+JSON line per run with the checkout, the times and a SHA-256 of each
+row's outputs (scores and sources, T=48, for rows 1 and 2, both row 2
+settings; logits, scores and sources for rows 3 and 4), then one line
+saying, row by row, whether the two checkouts' outputs are bit-identical.
 
 ``--ablate`` builds this checkout's rows 1 and 3 once as the package does
 and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
@@ -26,7 +32,12 @@ and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
 An ablated kernel's outputs are wrong; only its time is read. It prints
 one JSON line per variant.
 
-Both modes end with the card's name and power limit as ``nvidia-smi``
+``--groups`` times row 4 with its slot-group count G set to each of
+``GROUPS`` in turn (``window_geometry.slot_groups`` replaced for the
+call), the package's own G first and last, and checks that every G gives
+the same outputs. It prints one JSON line per model.
+
+Every mode ends with the card's name and power limit as ``nvidia-smi``
 gives them. Needs one card.
 """
 
@@ -42,6 +53,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, P, TOPK, K_CLASSES, SLOTS = 60, 107, 20, 10, 4, 21
+ROWS = (1, 2, 3, 4)
+# the ablation builds: rows 1 and 3
 KERNELS = ('video_topk_affinity', 'local_topk_attend')
 # window_topk.cuh's WTK_ABLATE bits: what each variant leaves out (1 inner
 # loop, 2 merges, 4 stage copies, 8 chunk barrier). The inner loop, the
@@ -52,6 +65,9 @@ ABLATIONS = {'no_inner_loop': 1, 'no_merge': 2,
              'no_merge_no_stage_copies': 2 | 4,
              'no_merge_no_chunk_barrier': 2 | 8,
              'no_merge_loop_copies': 2 | 1 | 4}
+# row 4's slot-group counts for --groups, from one group (32 blocks at the
+# DAVIS shapes) to one slot a group (21, row 3's grid)
+GROUPS = (1, 2, 3, 4, 7, 11, 21)
 
 
 def digest(tensors):
@@ -62,7 +78,8 @@ def digest(tensors):
 
 
 def make_inputs(dev, c):
-    """Row 1's 48 frames, row 3's query, bank, values and validity."""
+    """Rows 1 and 2's 48 frames, rows 3 and 4's query, bank, values and
+    validity."""
     import torch
     from vfs_tpu_torch.ops import l2_normalize
     g = torch.Generator(device=dev).manual_seed(c)
@@ -79,31 +96,48 @@ def make_inputs(dev, c):
                 step=(query, bank, vals, valid))
 
 
-def time_kernels(inputs, radius, cuda_ms, hashes=False):
-    """Rows 1 and 3 on ``inputs``: times, and with ``hashes`` the outputs'
-    SHA-256."""
-    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
-                                   video_topk_affinity_cuda)
+def time_kernels(inputs, radius, cuda_ms, rows=ROWS, hashes=False):
+    """Rows ``rows`` on ``inputs``: times, and with ``hashes`` the
+    outputs' SHA-256."""
+    from vfs_tpu_torch import ops
 
     def row1(t):
-        return video_topk_affinity_cuda(inputs[f'feats{t}'], radius, 0.07,
-                                        TOPK, P)
+        return ops.video_topk_affinity_cuda(inputs[f'feats{t}'], radius,
+                                            0.07, TOPK, P)
 
-    def step():
-        return local_topk_attend_cuda(*inputs['step'], radius, 0.07, TOPK)
+    def row2(extract, early_exit):
+        return lambda t: ops.video_topk_affinity_v1_cuda(
+            inputs[f'feats{t}'], radius, 0.07, TOPK, P,
+            early_exit=early_exit, extract=extract)
 
-    t24, t48 = cuda_ms(lambda: row1(24)), cuda_ms(lambda: row1(48))
-    out = dict(row1_ms_T24=t24, row1_ms_T48=t48,
-               row1_ms_per_frame_T24=t24 / 23,
-               row1_steady_ms_per_frame=(t48 - t24) / 24,
-               row3_ms_per_step=cuda_ms(step))
-    if hashes:
-        out.update(row1_sha256=digest(row1(48)), row3_sha256=digest(step()))
+    video = [(1, 'row1', row1),
+             (2, 'row2_exit_on', row2('perframe', True)),
+             (2, 'row2_exit_off', row2('sweep', False))]
+    step = [(3, 'row3', ops.local_topk_attend_cuda),
+            (4, 'row4', ops.local_topk_attend_v2_cuda)]
+    out = {}
+    for row, key, fn in video:
+        if row not in rows:
+            continue
+        t24, t48 = cuda_ms(lambda: fn(24)), cuda_ms(lambda: fn(48))
+        out.update({f'{key}_ms_T24': t24, f'{key}_ms_T48': t48,
+                    f'{key}_ms_per_frame_T24': t24 / 23,
+                    f'{key}_steady_ms_per_frame': (t48 - t24) / 24})
+        if hashes:
+            out[f'{key}_sha256'] = digest(fn(48))
+    for row, key, fn in step:
+        if row not in rows:
+            continue
+        out[f'{key}_ms_per_step'] = cuda_ms(
+            lambda: fn(*inputs['step'], radius, 0.07, TOPK))
+        if hashes:
+            out[f'{key}_sha256'] = digest(
+                fn(*inputs['step'], radius, 0.07, TOPK))
     return out
 
 
 def child():
-    """Run in a checkout: time and hash both kernels at both widths."""
+    """Run in a checkout: time and hash the four kernels at both widths."""
     import chip_smoke  # the timers and model widths of this script's tree
     sys.path[0] = os.getcwd()  # the package of the checkout
     import torch
@@ -140,7 +174,8 @@ def ablate():
                 for name in KERNELS:  # what the wrappers' _library() loads
                     _build._LIBS[name] = ctypes.CDLL(
                         str(paths[name, variants[variant]]))
-                run = time_kernels(inputs, radius, chip_smoke.cuda_ms)
+                run = time_kernels(inputs, radius, chip_smoke.cuda_ms,
+                                   rows=(1, 3))
                 runs.setdefault(variant, []).append(run)
                 print(json.dumps({'model': model, 'variant': variant, **run}),
                       flush=True)
@@ -188,30 +223,70 @@ def split(runs, c, radius, smi_line):
     return out
 
 
+def groups():
+    """Row 4 at each slot-group count of GROUPS, the package's own count
+    first and last; every count must give the same outputs."""
+    import chip_smoke
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import local_attention_v2, window_geometry
+    dev = torch.device('cuda', 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    own = window_geometry.slot_groups(SLOTS, window_geometry.tile_count(H, W),
+                                      sms)
+    with exact_fp32():
+        for model, c, radius in chip_smoke.MODELS:
+            step = make_inputs(dev, c)['step']
+            ms, hashes = {}, set()
+            for g in (own, *GROUPS, own):
+                with chip_smoke.patched(local_attention_v2, 'slot_groups',
+                                        lambda _, g=g: lambda *a: g):
+                    def call():
+                        return local_attention_v2.local_topk_attend_v2_cuda(
+                            *step, radius, 0.07, TOPK)
+                    ms.setdefault(g, []).append(chip_smoke.cuda_ms(call))
+                    hashes.add(digest(call()))
+            if len(hashes) != 1:
+                raise AssertionError(f'{model}: the slot-group counts give '
+                                     'different outputs')
+            print(json.dumps({'model': model, 'sms': sms, 'own_groups': own,
+                              'row4_ms_per_step': {str(g): t
+                                                   for g, t in ms.items()},
+                              'outputs_equal': True}), flush=True)
+            del step
+            torch.cuda.empty_cache()
+    print(chip_smoke.card_line())
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('checkouts', nargs='*')
     parser.add_argument('--ablate', action='store_true')
+    parser.add_argument('--groups', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
         return child()
     if args.ablate:
         return ablate()
+    if args.groups:
+        return groups()
     if len(args.checkouts) != 2:
-        parser.error('give two checkouts, or --ablate')
+        parser.error('give two checkouts, --ablate or --groups')
     import ab_eval
     import chip_smoke
     a, b = (os.path.abspath(c) for c in args.checkouts)
     hashes = {}
     for checkout, run in ab_eval.run_ab(
             a, b, [os.path.abspath(__file__), '--child'], 'the kernels'):
-        hashes.setdefault(checkout, set()).update(
-            v for model in run.values() for k, v in model.items()
-            if k.endswith('sha256'))
+        hashes.setdefault(checkout, {}).update(
+            (f'{model}/{k}', v) for model, keys in run.items()
+            for k, v in keys.items() if k.endswith('sha256'))
         print(json.dumps({'checkout': os.path.relpath(checkout, ROOT),
                           **run}), flush=True)
-    print(json.dumps({'outputs_bit_identical': hashes[a] == hashes[b]}))
+    same = {k: hashes[a][k] == hashes[b].get(k) for k in sorted(hashes[a])}
+    print(json.dumps({'outputs_bit_identical': all(same.values()),
+                      'by_row': same}))
     print(chip_smoke.card_line())
 
 

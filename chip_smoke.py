@@ -14,25 +14,29 @@ Phases, one JSON line each on stdout:
    ``video_topk_affinity`` over the CPU tests' cases plus a
    duplicated-frame tie case; ``local_topk_attend`` over odd maps,
    invalid slots, top-k up to its maximum, K = 4 and 16, filler entries
-   and a duplicated-frame tie case. Both also at the edges of their 8 x 32
-   query tiles and 32-channel chunks (a map smaller than a tile, h and w
-   not multiples of it, C = 4 and 260, top-k 32, radius 32), and
-   ``video_topk_affinity`` on a t <= P case where frame 0's two bank
-   entries both enter the lists. ``video_topk_affinity_v1`` over the
-   same cases, two wider radii and temporally smooth features, under
-   every ``video_extract`` and ``early_exit``; ``local_topk_attend_v2``
-   over ``local_topk_attend``'s cases and a wider radius.
+   and a duplicated-frame tie case. All four kernels also at the edges of
+   their 8 x 32 query tiles and 32-channel chunks (a map smaller than a
+   tile, h and w not multiples of it, C = 4 and 260, top-k 32, radius 32),
+   the video kernels on a t <= P case where frame 0's two bank entries
+   both enter the lists. ``video_topk_affinity_v1`` over row 1's cases,
+   two wider radii and temporally smooth features, under every
+   ``video_extract`` and ``early_exit``: the lists equal row 1's and each
+   other's bit for bit, and on smooth features the tau exit merges fewer
+   (query, key row) pairs. ``local_topk_attend_v2`` over
+   ``local_topk_attend``'s cases, a wider radius and slot groups with no
+   valid slot (one valid slot of 21, F below the groups the tiles would
+   take, no valid slot at all), plus groups of several slots.
 3. full: every kernel at the r18 (C=256, radius 12) and r50 (C=1024,
    radius 18) DAVIS-480p shapes (60x107 cells, P=20, top-10) with
-   CUDA-event timings (median of 5 after a warm-up), the work and the
-   bound. ``video_topk_affinity`` and ``video_topk_affinity_v1`` at T=24
-   and T=48, v1 with the tau exit on and off, on random and on smooth
-   features, with the passes it ran; ``local_topk_attend`` and
+   CUDA-event timings (median of 5 after a warm-up), the work, the bound
+   and its share. ``video_topk_affinity`` and ``video_topk_affinity_v1``
+   at T=24 and T=48, v1 with the tau exit on and off, on random and on
+   smooth features, with the merges it ran; ``local_topk_attend`` and
    ``local_topk_attend_v2`` for one step against a full bank (F=21
    slots, K=4). ``local_topk_attend_v2``'s path is its op entry point,
    called once per model with its count set to 0 before; it is also held
    against ``local_topk_attend``'s kernel, which computes the same
-   function.
+   function. Rows 2 and 4 must equal rows 1 and 3 bit for bit.
 4. main: slice 1's path, DAVIS label-propagation eval of the r18 model of
    configs/r18_nc_sgd_cos_100e_r2_1xNx8_k400.py at full width with seeded
    random weights, on a synthetic 48x480x854 two-object video, through
@@ -65,10 +69,10 @@ Phases, one JSON line each on stdout:
    with 19 moving parts; one launch per video, masks on >= 99.9% of
    pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
    video, to a plain-phase-1 run.
-8. kernels: every kernel with its launches on its path, times and bound;
-   rows 1 and 3 also with their share of the bound. (Their times before
-   the redesign around ``window_topk.cuh`` come from ``ab_kernels.py``,
-   which runs both checkouts in one call.)
+8. kernels: every kernel with its launches on its path, times, bound,
+   share of the bound and share of the computed pairs it needs. (Times
+   of an earlier checkout come from ``ab_kernels.py``, which runs both
+   checkouts in one call.)
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -150,16 +154,27 @@ LOCAL_CASES = [(7, 9, 8, 3.0, (1, 1, 1, 0, 0), 5, 4),
                (5, 6, 8, 18.0, (1, 1, 0), 10, 16),
                (2, 3, 8, 2.0, (1, 0, 1), 12, 4)]  # the last has fillers
 WIDE_LOCAL_CASE = (6, 7, 8, 30.0, (1, 0, 1), 10, 4)
-# rows 1 and 3 at the edges of their 8 x 32 tiles and 32-channel chunks:
+# the kernels at the edges of their 8 x 32 tiles and 32-channel chunks:
 # a map smaller than a tile, h and w not multiples of it, C = 4 and 260,
-# topk = 32, radius 32 (r = 31). Row 1: (T, h, w, C, radius, P, topk);
-# row 3: (h, w, C, radius, slot validity, topk, K)
+# topk = 32, radius 32 (r = 31). Rows 1 and 2: (T, h, w, C, radius, P,
+# topk); rows 3 and 4: (h, w, C, radius, slot validity, topk, K)
 EDGE_CASES = [(5, 3, 5, 8, 3.0, 4, 5), (6, 13, 45, 4, 5.0, 3, 10),
               (4, 10, 37, 260, 12.0, 2, 32), (3, 9, 40, 8, 32.0, 2, 32)]
 EDGE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
                     (13, 45, 4, 5.0, (1, 0, 1), 10, 4),
                     (10, 37, 260, 12.0, (1, 1), 32, 4),
                     (9, 40, 8, 32.0, (0, 1, 1), 32, 16)]
+# row 4's slot groups (window_geometry.slot_groups on 132 SMs): one valid
+# slot of 21 on a 2 x 4224 map, 132 tiles (5 groups, 4 of them empty); F =
+# 3 below the groups one tile would take (3 groups, 2 empty); no valid
+# slot (every group empty: fillers only); 17 valid slots of 21 in 5 groups
+# of 3 or 4
+ONE_OF_21 = tuple(int(f == 13) for f in range(21))
+SOME_OF_21 = tuple(int(f not in (2, 6, 11, 17)) for f in range(21))
+GROUP_CASES = [(2, 4224, 8, 5.0, ONE_OF_21, 10, 4),
+               (5, 6, 8, 3.0, (0, 1, 0), 5, 4),
+               (5, 6, 8, 3.0, (0, 0), 5, 4),
+               (2, 4224, 8, 5.0, SOME_OF_21, 10, 4)]
 
 
 def emit(obj):
@@ -320,26 +335,33 @@ def run_case(feats, radius, topk, p, exact_src, what):
 
 def run_v1_case(feats, radius, topk, p, exact_src, what):
     """video_topk_affinity_v1's kernel under every (video_extract,
-    early_exit) vs the plain version; returns the worst max_abs_err and
-    source mismatch count, and the passes each setting ran."""
+    early_exit) vs the plain version and, bit for bit, vs row 1's kernel;
+    returns the worst max_abs_err and source mismatch count, and the
+    (query, key row) merges each setting ran."""
     import torch
-    from vfs_tpu_torch.ops import (video_topk_affinity_reference,
+    from vfs_tpu_torch.ops import (video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
                                    video_topk_affinity_v1_cuda)
     plain = video_topk_affinity_reference(feats, radius, 0.07, topk, p)
-    errs, mismatches, passes = [], [], {}
+    row1 = video_topk_affinity_cuda(feats, radius, 0.07, topk, p)
+    errs, mismatches, merges = [], [], {}
     for extract, early_exit in V1_MODES:
         count = torch.zeros(1, dtype=torch.int64, device=feats.device)
         out = video_topk_affinity_v1_cuda(feats, radius, 0.07, topk, p,
                                           early_exit=early_exit,
-                                          extract=extract, pass_count=count)
+                                          extract=extract, merge_count=count)
         torch.cuda.synchronize()
+        mode = f'{extract}/early_exit={early_exit}'
         err, mismatch, _ = compare(
             (out[0][1:], out[1][1:]), (plain[0][1:], plain[1][1:]),
-            exact_src, f'{what} {extract} early_exit={early_exit}')
+            exact_src, f'{what} {mode}')
+        if not (torch.equal(out[0][1:], row1[0][1:])
+                and torch.equal(out[1][1:], row1[1][1:])):
+            raise AssertionError(f'{what} {mode}: differs from row 1')
         errs.append(err)
         mismatches.append(mismatch)
-        passes[f'{extract}/early_exit={early_exit}'] = int(count)
-    return max(errs), max(mismatches), passes
+        merges[mode] = int(count)
+    return max(errs), max(mismatches), merges
 
 
 def smooth_features(shape, dev, generator):
@@ -369,6 +391,21 @@ def run_local(query, bank, vals, valid, radius, topk, exact_src, what,
                                             0.07, topk)
     torch.cuda.synchronize()
     return compare_local(out_k, out_p, exact_src, what), out_k
+
+
+def run_local_v2(query, bank, vals, valid, radius, topk, exact_src, what):
+    """``run_local`` for ``local_topk_attend_v2``'s kernel, whose scores
+    and sources must also equal ``local_topk_attend``'s bit for bit."""
+    import torch
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
+                                   local_topk_attend_v2_cuda)
+    nums, out = run_local(query, bank, vals, valid, radius, topk, exact_src,
+                          what, local_topk_attend_v2_cuda)
+    row3 = local_topk_attend_cuda(query, bank, vals, valid, radius, 0.07,
+                                  topk)
+    if not (torch.equal(out[1], row3[1]) and torch.equal(out[2], row3[2])):
+        raise AssertionError(f'{what}: differs from row 3')
+    return nums, out
 
 
 def phase_small(dev):
@@ -438,63 +475,83 @@ def phase_small(dev):
 
 
 def phase_small_edges(dev, tensor):
-    """Rows 1 and 3 at the edges of their 8 x 32 query tiles and 32-channel
-    chunks (EDGE_CASES, EDGE_LOCAL_CASES), and row 1's t <= P case in which
-    frame 0's two bank entries (j = 0 and ring slot 0) both enter the
-    lists."""
+    """The four kernels at the edges of their 8 x 32 query tiles and
+    32-channel chunks (EDGE_CASES, EDGE_LOCAL_CASES); the video kernels'
+    t <= P case in which frame 0's two bank entries (j = 0 and ring slot 0)
+    both enter the lists; row 4's slot groups (GROUP_CASES)."""
     import torch
-    from vfs_tpu_torch.ops import l2_normalize, video_topk_affinity_cuda
-    results = []
+    from vfs_tpu_torch.ops import (l2_normalize, video_topk_affinity_cuda,
+                                   video_topk_affinity_v1_cuda)
+    from vfs_tpu_torch.ops.window_geometry import slot_groups, tile_count
+    video_cases = []
     for t_total, h, w, c, radius, p, topk in EDGE_CASES:
         rng = np.random.RandomState(t_total * 1000 + h * 10 + c)
         feats = l2_normalize(tensor(rng.randn(t_total, h, w, c))).contiguous()
-        err, mismatch, _ = run_case(feats, radius, topk, p, False,
-                                    f'edge {t_total}x{h}x{w}x{c} r={radius}')
-        results.append([t_total, h, w, c, radius, p, topk, err, mismatch])
+        video_cases.append((feats, radius, topk, p,
+                            f'edge {t_total}x{h}x{w}x{c} r={radius}',
+                            [t_total, h, w, c, radius, p, topk]))
     # frame 1 repeats frame 0: its queries meet themselves at j = 0 and at
     # ring slot 0 (j = 1), two equal top scores
     rng = np.random.RandomState(29)
-    feats = rng.randn(4, 9, 11, 8)
-    feats[1] = feats[0]
-    feats = l2_normalize(tensor(feats)).contiguous()
-    err, mismatch, _ = run_case(feats, 3.0, 6, 4, True, 'edge frame-0 tie')
-    scores, src = video_topk_affinity_cuda(feats, 3.0, 0.07, 6, 4)
+    tie = rng.randn(4, 9, 11, 8)
+    tie[1] = tie[0]
+    tie = l2_normalize(tensor(tie)).contiguous()
     own = torch.arange(9 * 11, device=dev).view(9, 11)
-    both = ((src[1, ..., 0] == own) & (src[1, ..., 1] == own)
-            & (scores[1, ..., 0] == scores[1, ..., 1]))
-    if not bool(both.all()):
-        raise AssertionError('frame 0 did not enter the lists twice')
-    emit({'phase': 'small', 'kernel': KERNEL_INFO['name'], 'edges': True,
-          'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk',
-                      'max_abs_err', 'src_mismatch'],
-          'cases': results,
-          'frame0_tie_case': {'max_abs_err': err, 'src_mismatch': mismatch}})
+    for info, run, kernel in (
+            (KERNEL_INFO, run_case, video_topk_affinity_cuda),
+            (V1_INFO, run_v1_case,
+             lambda *a: video_topk_affinity_v1_cuda(*a, extract='perframe'))):
+        results = [case[-1] + list(run(*case[:4], False, case[4])[:2])
+                   for case in video_cases]
+        err, mismatch = run(tie, 3.0, 6, 4, True, 'edge frame-0 tie')[:2]
+        scores, src = kernel(tie, 3.0, 0.07, 6, 4)
+        both = ((src[1, ..., 0] == own) & (src[1, ..., 1] == own)
+                & (scores[1, ..., 0] == scores[1, ..., 1]))
+        if not bool(both.all()):
+            raise AssertionError(f"{info['name']}: frame 0 did not enter "
+                                 'the lists twice')
+        emit({'phase': 'small', 'kernel': info['name'], 'edges': True,
+              'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk',
+                          'max_abs_err', 'src_mismatch'],
+              'cases': results,
+              'frame0_tie_case': {'max_abs_err': err,
+                                  'src_mismatch': mismatch}})
 
-    results = []
-    for h, w, c, radius, valid, topk, k in EDGE_LOCAL_CASES:
-        rng = np.random.RandomState(h * 1000 + w * 10 + c)
-        f = len(valid)
-        query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
-        bank = l2_normalize(tensor(rng.randn(f, h, w, c))).contiguous()
-        vals = tensor(rng.rand(f, h, w, k))
-        (err, logit_err, mismatch, _), _ = run_local(
-            query, bank, vals, tensor(valid, torch.int32), radius, topk,
-            False, f'edge local {h}x{w}x{c} r={radius} k={topk}')
-        results.append([h, w, c, radius, f, sum(valid), topk, k, err,
-                        logit_err, mismatch])
-    emit({'phase': 'small', 'kernel': LOCAL_INFO['name'], 'edges': True,
-          'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
-                      'max_abs_err', 'max_logit_err', 'src_mismatch'],
-          'cases': results})
+    columns = ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
+               'max_abs_err', 'max_logit_err', 'src_mismatch']
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for info, run, cases in ((LOCAL_INFO, run_local, EDGE_LOCAL_CASES),
+                             (V2_INFO, run_local_v2,
+                              EDGE_LOCAL_CASES + GROUP_CASES)):
+        results = []
+        for h, w, c, radius, valid, topk, k in cases:
+            rng = np.random.RandomState(h * 1000 + w * 10 + c)
+            f = len(valid)
+            query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
+            bank = l2_normalize(tensor(rng.randn(f, h, w, c))).contiguous()
+            vals = tensor(rng.rand(f, h, w, k))
+            (err, logit_err, mismatch, _), _ = run(
+                query, bank, vals, tensor(valid, torch.int32), radius, topk,
+                False, f"edge {info['name']} {h}x{w}x{c} r={radius} "
+                f'valid={sum(valid)}/{f}')
+            results.append([h, w, c, radius, f, sum(valid), topk, k, err,
+                            logit_err, mismatch])
+            if run is run_local_v2:
+                results[-1].append(slot_groups(f, tile_count(h, w), sms))
+        emit({'phase': 'small', 'kernel': info['name'], 'edges': True,
+              'columns': columns + (['groups'] if run is run_local_v2
+                                    else []),
+              'cases': results})
 
 
 def phase_small_perframe(dev, tensor):
-    """The small matrix of the per-frame kernels: video_topk_affinity_v1
-    over row 1's cases, the wide radii, the tie case and smooth features
-    (where the tau exit must skip passes), local_topk_attend_v2 over
-    local_topk_attend's cases, a wide radius and its tie case."""
+    """The small matrix of rows 2 and 4: video_topk_affinity_v1 over row
+    1's cases, the wide radii, the tie case and smooth features (where the
+    tau exit must merge fewer (query, key row) pairs than no exit, for the
+    same lists), local_topk_attend_v2 over local_topk_attend's cases, a
+    wide radius and its tie case."""
     import torch
-    from vfs_tpu_torch.ops import l2_normalize, local_topk_attend_v2_cuda
+    from vfs_tpu_torch.ops import l2_normalize
     results = []
     for t_total, h, w, nr, p, topk in SMALL_CASES + WIDE_CASES:
         rng = np.random.RandomState(t_total * 100 + h)
@@ -513,12 +570,13 @@ def phase_small_perframe(dev, tensor):
     smooth = rng.randn(8, 9, 8)[None] + np.cumsum(
         rng.randn(10, 8, 9, 8) * 0.1, 0)
     smooth = l2_normalize(tensor(smooth)).contiguous()
-    smooth_err, smooth_mismatch, passes = run_v1_case(smooth, 3.0, 5, 4,
+    smooth_err, smooth_mismatch, merges = run_v1_case(smooth, 3.0, 5, 4,
                                                       False, 'v1 smooth')
-    full = passes['perframe/early_exit=False']
-    if not (passes['perframe/early_exit=True'] < full
-            and passes['sweep/early_exit=True'] == full):
-        raise AssertionError(f'the tau exit did not skip passes: {passes}')
+    # run_v1_case held every setting's lists to row 1's, bit for bit
+    full = merges['perframe/early_exit=False']
+    if not (merges['perframe/early_exit=True'] < full
+            and merges['sweep/early_exit=True'] == full):
+        raise AssertionError(f'the tau exit did not save merges: {merges}')
     emit({'phase': 'small', 'kernel': V1_INFO['name'],
           'modes': [f'{e}/early_exit={x}' for e, x in V1_MODES],
           'columns': ['T', 'h', 'w', 'neighbor_range', 'P', 'topk',
@@ -527,7 +585,7 @@ def phase_small_perframe(dev, tensor):
           'tie_case': {'max_abs_err': tie_err, 'src_mismatch': tie_mismatch},
           'smooth_case': {'max_abs_err': smooth_err,
                           'src_mismatch': smooth_mismatch,
-                          'passes': passes}})
+                          'merges': merges}})
 
     results = []
     fillers = 0
@@ -537,10 +595,9 @@ def phase_small_perframe(dev, tensor):
         query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
         bank = l2_normalize(tensor(rng.randn(f, h, w, c))).contiguous()
         vals = tensor(rng.rand(f, h, w, k))
-        (err, logit_err, mismatch, _), out = run_local(
+        (err, logit_err, mismatch, _), out = run_local_v2(
             query, bank, vals, tensor(valid, torch.int32), radius, topk,
-            False, f'small v2 {h}x{w} F={f} k={topk} K={k}',
-            local_topk_attend_v2_cuda)
+            False, f'small v2 {h}x{w} F={f} k={topk} K={k}')
         fillers += int((out[1] <= -1e29).sum())
         results.append([h, w, c, radius, f, sum(valid), topk, k, err,
                         logit_err, mismatch])
@@ -551,10 +608,9 @@ def phase_small_perframe(dev, tensor):
     bank[2], bank[3] = bank[0], bank[1]
     bank = l2_normalize(tensor(bank)).contiguous()
     query = l2_normalize(tensor(rng.randn(8, 9, 8))).contiguous()
-    (err, logit_err, mismatch, _), _ = run_local(
+    (err, logit_err, mismatch, _), _ = run_local_v2(
         query, bank, tensor(rng.rand(4, 8, 9, 4)),
-        tensor([1, 1, 1, 1], torch.int32), 3.0, 5, True, 'v2 tie case',
-        local_topk_attend_v2_cuda)
+        tensor([1, 1, 1, 1], torch.int32), 3.0, 5, True, 'v2 tie case')
     emit({'phase': 'small', 'kernel': V2_INFO['name'],
           'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
                       'max_abs_err', 'max_logit_err', 'src_mismatch'],
@@ -658,12 +714,12 @@ def phase_full_v1(dev, smi_name, plain_ms):
     """video_topk_affinity_v1 at the r18 and r50 shapes, on the random
     features of row 1's full phase (same seeds: the plain version's times
     ``plain_ms`` are row 1's on these inputs) and on smooth features, with
-    the tau exit on and off ('perframe'; the 'sweep' setting runs every
-    pass, as the exit off does). Checks at T=24 against the plain version
-    and, on random features, that scores and sources equal row 1's kernel
-    bit for bit. Times at T=24 and T=48 and the passes run at T=48.
-    Returns the kernels line's numbers: r50, T=48, random features, every
-    pass (the vip path's setting and shape)."""
+    the tau exit on and off ('perframe'; the 'sweep' setting merges as the
+    exit off does). Checks at T=24 against the plain version and that
+    scores and sources equal row 1's kernel bit for bit. Times at T=24 and
+    T=48, the shares of the bound and the (query, key row) merges run at
+    T=48. Returns the kernels line's numbers: r50, T=48, random features,
+    exit off (the vip path's setting and shape)."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
     from vfs_tpu_torch.ops import (l2_normalize, video_topk_affinity_cuda,
@@ -686,6 +742,7 @@ def phase_full_v1(dev, smi_name, plain_ms):
                    bound_ms_per_frame=bound_ms(f24, b24, smi_name)[0] / 23,
                    steady_bound_ms_per_frame=bound_ms(
                        (f48 - f24) / 24, (b48 - b24) / 24, smi_name)[0],
+                   pairs_needed_share=pairs_needed_share(h, w, radius),
                    library_ms=None, library_note=NO_LIBRARY_CALL)
         with exact_fp32():
             for kind, feats48 in inputs.items():
@@ -699,7 +756,7 @@ def phase_full_v1(dev, smi_name, plain_ms):
                         return video_topk_affinity_v1_cuda(
                             feats, radius, 0.07, topk, p,
                             early_exit=early_exit, extract='perframe',
-                            pass_count=count)
+                            merge_count=count)
                     got = call(feats24)
                     torch.cuda.synchronize()
                     what = f'full v1 {model} {kind} early_exit={early_exit}'
@@ -718,7 +775,10 @@ def phase_full_v1(dev, smi_name, plain_ms):
                         src_mismatch_share=share, equal_to_row1=True,
                         kernel_ms=k48, kernel_ms_per_frame=k24 / 23,
                         steady_kernel_ms_per_frame=(k48 - k24) / 24,
-                        passes_T48=int(count))
+                        bound_share=res['bound_ms_per_frame'] * 23 / k24,
+                        steady_bound_share=(res['steady_bound_ms_per_frame']
+                                            * 24 / (k48 - k24)),
+                        merges_T48=int(count))
         out[model] = res
         del inputs
         torch.cuda.empty_cache()
@@ -728,7 +788,9 @@ def phase_full_v1(dev, smi_name, plain_ms):
                           smi_name)
     return dict(max_abs_err=r50['max_abs_err'],
                 src_mismatch=r50['src_mismatch'], ms=r50['kernel_ms'],
-                plain_ms=plain_ms['r50'][48], bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms['r50'][48], bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / r50['kernel_ms'],
+                pairs_needed_share=out['r50']['pairs_needed_share'])
 
 
 def phase_full_v2(dev, smi_name):
@@ -737,14 +799,16 @@ def phase_full_v2(dev, smi_name):
     op entry point ``local_topk_attend_v2``, called once per model with
     the launch count set to 0 before the first call and read after the
     last. Held against the plain version and against row 3's kernel (the
-    same function, the same arithmetic: scores and sources equal). Returns
-    the kernels line's entry (r50)."""
+    same function, the same arithmetic: scores and sources equal), with
+    its slot groups and the (query, key row) merges it ran. Returns the
+    kernels line's entry (r50)."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
     from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
                                    local_topk_attend_reference,
                                    local_topk_attend_v2,
                                    local_topk_attend_v2_cuda)
+    from vfs_tpu_torch.ops.window_geometry import slot_groups, tile_count
     h, w, p, topk, k_classes = 60, 107, 20, 10, 4
     f = p + 1
     inputs = {}
@@ -777,7 +841,7 @@ def phase_full_v2(dev, smi_name):
             if count is None:
                 return fn(query, bank, vals, valid, radius, 0.07, topk)
             return fn(query, bank, vals, valid, radius, 0.07, topk,
-                      pass_count=count)
+                      merge_count=count)
 
         with exact_fp32():
             plain = call(local_topk_attend_reference)
@@ -787,9 +851,10 @@ def phase_full_v2(dev, smi_name):
                 got[model], plain, False, f'full v2 {model}')
             _, row3_logit_err, row3_mismatch, _ = compare_local(
                 got[model], row3, True, f'full v2 {model} vs row 3')
-            if not torch.equal(got[model][1], row3[1]):
-                raise AssertionError(f'full v2 {model}: scores differ from '
-                                     'row 3')
+            if not (torch.equal(got[model][1], row3[1])
+                    and torch.equal(got[model][2], row3[2])):
+                raise AssertionError(f'full v2 {model}: scores or sources '
+                                     'differ from row 3')
             count = torch.zeros(1, dtype=torch.int64, device=dev)
             call(local_topk_attend_v2_cuda, count)
             kernel_ms = cuda_ms(lambda: call(local_topk_attend_v2_cuda))
@@ -803,9 +868,14 @@ def phase_full_v2(dev, smi_name):
             src_mismatch_share=share, src_mismatch_vs_row3=row3_mismatch,
             max_logit_err_vs_row3=row3_logit_err,
             kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
-            row3_kernel_ms_per_step=row3_ms, passes=int(count),
+            row3_kernel_ms_per_step=row3_ms, merges=int(count),
+            groups=slot_groups(f, tile_count(h, w),
+                               torch.cuda.get_device_properties(dev)
+                               .multi_processor_count),
             gflop_per_step=flops / 1e9, bound_ms_per_step=b_ms,
-            bound_by=b_by, library_ms=None, library_note=NO_LIBRARY_CALL)
+            bound_by=b_by, bound_share=b_ms / kernel_ms,
+            pairs_needed_share=pairs_needed_share(h, w, radius),
+            library_ms=None, library_note=NO_LIBRARY_CALL)
         del query, bank, vals
         torch.cuda.empty_cache()
     emit({'phase': 'full', 'kernel': V2_INFO['name'], 'launches': launches,
@@ -816,6 +886,8 @@ def phase_full_v2(dev, smi_name):
                 ms=r50['kernel_ms_per_step'],
                 plain_ms=r50['plain_ms_per_step'],
                 bound_ms=r50['bound_ms_per_step'], bound_by=r50['bound_by'],
+                bound_share=r50['bound_share'],
+                pairs_needed_share=r50['pairs_needed_share'],
                 library_ms=None, library_note=NO_LIBRARY_CALL)
 
 
@@ -955,6 +1027,7 @@ def phase_main(dev, smi_name):
         **KERNEL_INFO, launches=launches, max_abs_err=err,
         src_mismatch=mismatch, ms=affinity_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / affinity_ms,
+        pairs_needed_share=pairs_needed_share(h, w, radius),
         library_ms=None, library_note=NO_LIBRARY_CALL)]
 
 
@@ -1155,8 +1228,9 @@ def phase_eval(local_full):
                 plain_ms=local_full['plain_ms_per_step'],
                 bound_ms=local_full['bound_ms_per_step'],
                 bound_by=local_full['bound_by'],
-                bound_share=local_full['bound_share'], library_ms=None,
-                library_note=NO_LIBRARY_CALL)
+                bound_share=local_full['bound_share'],
+                pairs_needed_share=local_full['pairs_needed_share'],
+                library_ms=None, library_note=NO_LIBRARY_CALL)
 
 
 def blocky_background(h, w, rng):
@@ -1292,14 +1366,20 @@ def write_vip(root, n_videos=2, t_total=48):
     return img_root, ann_root, write_lists(root, lines), labels.shape
 
 
+def slice3_argv(config, ckpt, metric, dataset, out, options):
+    """``python -m vfs_tpu_torch.tools.test``'s arguments for a slice-3
+    dataset (``dataset``: type and the ``data.test`` paths)."""
+    return [config, ckpt, '--eval', metric, '--out', out, '--options',
+            *[f'data.test.{k}={v}' for k, v in dataset.items()], *options]
+
+
 def run_slice3_eval(config, ckpt, metric, dataset, out, options):
     """``python -m vfs_tpu_torch.tools.test`` in-process on a slice-3
-    dataset (``dataset``: type and the ``data.test`` paths); returns the
-    metrics and the per-video results saved with ``--out``."""
+    dataset; returns the metrics and the per-video results saved with
+    ``--out``."""
     from vfs_tpu_torch.tools import test as tools_test
-    argv = [config, ckpt, '--eval', metric, '--out', out, '--options',
-            *[f'data.test.{k}={v}' for k, v in dataset.items()], *options]
-    metrics = tools_test.main(argv)
+    metrics = tools_test.main(slice3_argv(config, ckpt, metric, dataset, out,
+                                          options))
     with np.load(out) as saved:
         results = [saved[f'arr_{i}'] for i in range(len(saved.files))]
     return metrics, results

@@ -62,27 +62,9 @@
 
 namespace {
 
-using wtk::better;
 using wtk::Geometry;
 using wtk::KMAX;
-using wtk::NEG_INF;
 constexpr int MT = 128;  // merge threads per block
-
-// Insert (s, o) into the sorted list (ls, lo) of length topk, dropping its
-// last entry; the caller checked that (s, o) beats that entry. Not inlined:
-// one copy serves every call site, and insertions are rare next to the
-// candidates that only meet the threshold.
-__device__ __noinline__ void insert(float* ls, int* lo, int topk, float s,
-                                    int o) {
-  int i = topk - 1;
-  while (i > 0 && better(s, o, ls[i - 1], lo[i - 1])) {
-    ls[i] = ls[i - 1];
-    lo[i] = lo[i - 1];
-    --i;
-  }
-  ls[i] = s;
-  lo[i] = o;
-}
 
 // One bank slot.
 struct SlotBank {
@@ -113,18 +95,8 @@ __global__ void __launch_bounds__(NT, 1)
   float* smem = reinterpret_cast<float*>(smem4);
   wtk::run<NP, NKR>(query, slot, y0, x0, g, smem);
   __syncthreads();
-
-  const wtk::Lists L = wtk::lists(g, smem, NKR);
-  for (int e = threadIdx.x; e < wtk::QN * g.topk; e += NT) {
-    const int q = e / g.topk;
-    const int y = y0 + q / wtk::TW;
-    const int x = x0 + q % wtk::TW;
-    if (y >= g.h || x >= g.w) continue;
-    const size_t out = (((size_t)f * g.h + y) * g.w + x) * g.topk +
-                       (e - q * g.topk);
-    part_s[out] = L.s[e];
-    part_o[out] = L.o[e];
-  }
+  wtk::store_lists<NT>(wtk::lists(g, smem, NKR), f, y0, x0, g, part_s,
+                       part_o);
 }
 
 // Stage 2: one thread per query merges the valid slots' lists and runs the
@@ -142,44 +114,14 @@ __global__ void __launch_bounds__(MT)
   if (q >= hw) return;
   const int y = q / w;
   const int x = q - y * w;
-  const int span = 2 * r + 1;
 
   float ls[KMAX];
   int lo[KMAX];
-  for (int i = 0; i < topk; ++i) {
-    ls[i] = -INFINITY;
-    lo[i] = INT_MAX;
-  }
-  for (int f = 0; f < F; ++f) {
-    if (valid[f] == 0) continue;
-    const size_t base = ((size_t)f * hw + q) * topk;
-    for (int i = 0; i < topk; ++i) {
-      const float s = part_s[base + i];
-      const int o = part_o[base + i];
-      // each list is sorted: once an entry misses, the rest miss too
-      if (!better(s, o, ls[topk - 1], lo[topk - 1])) break;
-      insert(ls, lo, topk, s, o);
-    }
-  }
-
-  // Decode the list: scores and sources out, then lo[i] becomes the cell
-  // index f*h*w + ky*w + kx of entry i and ls[i] its softmax weight.
-  const size_t base = (size_t)q * topk;
-  for (int i = 0; i < topk; ++i) {
-    if (lo[i] == INT_MAX) {  // filler: fewer than k valid keys
-      ls[i] = NEG_INF;
-      lo[i] = q;
-    } else {
-      const int o = lo[i];
-      const int f = o / (span * span);
-      const int rem = o - f * span * span;
-      const int dy = rem / span - r;
-      const int dx = rem % span - r;
-      lo[i] = f * hw + (y + dy) * w + (x + dx);
-    }
-    out_s[base + i] = ls[i];
-    out_i[base + i] = lo[i];
-  }
+  wtk::merge_parts(part_s, part_o, F, [&](int f) { return valid[f] != 0; },
+                   hw, q, topk, ls, lo);
+  // scores and sources out; lo[i] becomes entry i's cell index, ls[i] its
+  // score and then its softmax weight
+  wtk::decode_list(ls, lo, topk, q, y, x, w, hw, r, out_s, out_i);
   const float m = ls[0];  // the list is sorted: its first entry is the max
   float z = 0.f;
   for (int i = 0; i < topk; ++i) {

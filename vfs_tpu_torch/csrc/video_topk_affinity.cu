@@ -30,7 +30,8 @@
 // while t <= P: the core inserts each of its candidates under j = 0 and
 // under j = 1, so both copies stay in the candidate set as before, at
 // 1/min(t, P+1) less work for those frames. A block walks its frames in j
-// order, so its lists fill from empty only on frame 0.
+// order, so its lists fill from empty only on frame 0. The decode is the
+// core's store_video_lists, shared with row 2.
 //
 // Bound (what holds it on an H100 SXM; window_topk.cuh's note has the
 // design's figures): fp32 operations, 2*C FLOPs per (query, in-map circle
@@ -82,34 +83,8 @@ __global__ void __launch_bounds__(NT, 1)
   float* smem = reinterpret_cast<float*>(smem4);
   wtk::run<NP, NKR>(feats + (size_t)t * fs, bank, y0, x0, g, smem);
   __syncthreads();
-
-  const wtk::Lists L = wtk::lists(g, smem, NKR);
-  const long long hw = (long long)g.h * g.w;
-  const int span2 = g.span * g.span;
-  for (int e = threadIdx.x; e < wtk::QN * g.topk; e += NT) {
-    const int q = e / g.topk;
-    const int y = y0 + q / wtk::TW;
-    const int x = x0 + q % wtk::TW;
-    if (y >= g.h || x >= g.w) continue;
-    float s = L.s[e];
-    const int o = L.o[e];
-    long long idx;
-    if (o == INT_MAX) {  // filler: fewer than k valid keys
-      s = wtk::NEG_INF;
-      idx = (long long)y * g.w + x;
-    } else {
-      const int j = o / span2;
-      const int rem = o - j * span2;
-      const int dy = rem / g.span - g.r;
-      const int dx = rem % g.span - g.r;
-      const int f = j == 0 ? 0 : t - 1 - ((t - 1 - (j - 1)) % P);
-      idx = f * hw + (long long)(y + dy) * g.w + (x + dx);
-    }
-    const size_t out = (((size_t)t * g.h + y) * g.w + x) * g.topk +
-                       (e - q * g.topk);
-    out_s[out] = s;
-    out_i[out] = idx;
-  }
+  wtk::store_video_lists<NT>(wtk::lists(g, smem, NKR), t, P, y0, x0, g,
+                             out_s, out_i);
 }
 
 template <int NP>

@@ -1,5 +1,5 @@
 // Masked top-k video affinity, v1 engine (video_engine='v1'): phase 1 of
-// label propagation by per-frame extraction and merge.
+// label propagation for the JHMDB and VIP evals of the port.
 //
 // Replaces the TPU kernel video_topk_affinity (v1,
 // vfs_tpu/ops/pallas_affinity_video.py:531; bodies _make_video_kernel :121,
@@ -17,161 +17,165 @@
 // f*h*w + ky*w + kx; fillers score -1e30 with src the query's own cell in
 // frame 0. Rows t = 0 are not written.
 //
-// Design (perframe_topk.cuh holds the shared device code). One block per
-// (query tile, frame t): blocks run in parallel, so the TPU's sequential
-// grid over t with its resident key ring is not carried over. The block
-// visits the bank most-recent-first, as frames_of does (:253-269): f = t-1,
-// then frame 0 (j = 0), then t-2 .. t-P, skipping ring slots not yet live,
-// so the tau exit tightens fast. For each bank frame it scores the tile's
-// key window into shared memory (score_tile), then each query's warp runs
-// the frame's passes and merges (extract_merge). early_exit = 1 is the
-// 'perframe' extraction with the tau exit; 0 runs every pass, which is what
-// the TPU's 'sweep' extraction selects (it has no exit); both give the same
-// lists. Bank splits only bounded the TPU's VMEM ring: there are none here.
+// Design. Row 1's: a block per (t, tile of 8 x 32 query cells) runs the
+// windowed top-k core (window_topk.cuh: 4 x 4 x 4 register blocks at 8.5
+// FFMA per shared-memory wavefront, key rows sharing each staged query
+// chunk, a 2-stage cp.async ring of swizzled 32-channel cells, passes
+// outside the circle's band skipped, lists in shared memory) over the
+// live bank frames, and decodes the lists with row 1's store_video_lists.
+// What is v1's own:
+// - The bank is walked most recent first, as frames_of does (:253-269):
+//   f = t-1, then frame 0 (j = 0), then t-2 .. t-P, ring slots not yet
+//   live skipped. Each distinct frame is scored once: while t <= P frame 0
+//   is also ring slot 0 (j = 1), and the core inserts its candidates under
+//   both j (the TPU kernel and the earlier per-frame design scored it
+//   twice).
+// - early_exit = 1 ('perframe' with the tau exit) keeps the core's
+//   per-lane check of a key row's candidates against the list's last
+//   entry: the tau exit, generalised from a frame to a key row. 0 ('sweep',
+//   whose TPU extraction has no exit, or video_early_exit=False) skips it,
+//   so every query with in-band candidates is merged. The lists are the
+//   same; a counter of the (query, key row) merges shows the difference.
+// - Bank splits only bounded the TPU's VMEM ring: there are none here.
+// - The grid is 1-D with t varying fastest, so the blocks in flight are a
+//   few tiles at every t: on the card this ran faster than row 1's
+//   tiles-fastest grid at both widths, while the order in which a block
+//   walks its bank hardly mattered. The merge counter is a template
+//   switch: a count held in a register across the main loop slowed the
+//   r18 build (128 registers a thread at 512 threads).
 //
-// Bound. The work is that of row 1: 2*C multiply-adds per (query, distinct
-// live bank frame, in-map circle key). At the DAVIS-480p shapes (60x107
-// cells, P = 20, top-10) a steady frame needs 26.34 GFLOP at r18 (C = 256,
-// radius 12) and 224.84 GFLOP at r50 (C = 1024, radius 18): 0.393 ms and
-// 3.356 ms at the fp32 CUDA-core peak of 67 TFLOP/s (chip_smoke.py's
-// affinity_work and bound_ms), while the features read once are 6.6 / 26
-// MB a frame. It is bound by operations. This kernel computes the whole
-// window block S (r18: 4x8 tile, 26x30 keys, 56% of them in a query's
-// circle; r50: 4x4 tile, 38x38 keys, 70%) and reloads each bank frame's key
-// window per tile from L2 (r50: 5.9 MB per block and bank frame), with one
-// block of 8 warps per SM (S fills shared memory). Its 8x4 register blocks
-// read 24 shared-memory wavefronts per 128 FMAs of a warp, and the next
-// channel chunk's loads overlap the current chunk's FMAs. Skipping the
-// out-of-circle corners of S, TMA staging into a ring of buffers, and TF32 /
-// bf16 wgmma for S with an exact fp32 re-rank of the top candidates are the
-// ways to the bound.
+// Bound (an H100 SXM): the work is row 1's, 2*C FLOPs per (query, in-map
+// circle key, distinct live bank frame): at the DAVIS-480p shapes (60 x 107
+// cells, P = 20, top-10) 0.393 ms per steady frame at r18 (C = 256,
+// radius 12) and 3.356 ms at r50 (C = 1024, radius 18) on the fp32 CUDA
+// cores (67 TFLOP/s); the features read once are 6.6 / 26 MB a frame, so
+// operations bound it. The earlier per-frame design (the tile's whole
+// key-window score block in shared memory, key windows re-read from L2
+// per (tile, frame), per-frame extraction by passes) reached 11.9% /
+// 16.8% of that bound (steady, exit on; PERF.md). This one runs at row
+// 1's speed or a little above it with the exit on (16% / 21% steady in
+// `python3 ab_kernels.py` on an NVIDIA H100 80GB HBM3 at 700 W); with the
+// exit off its merges cost 14% (r18) and 7% (r50) more. What holds row 1
+// under its bound (the inner loop's FFMA rate and wasted pairs, 47.9% /
+// 51.5% of the computed pairs needed, the exposed stage copies) holds
+// this kernel too (PERF.md §6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (vfs_tpu_torch/ops/_build.py does this at first
-// use). Interface: extern "C" functions, launched on the caller's stream;
-// nothing is allocated here and the entry point returns the CUDA error.
+// use). Interface: one extern "C" function, launched on the caller's
+// stream; it allocates nothing and returns cudaGetLastError().
 
-#include "perframe_topk.cuh"
-
-using namespace perframe;
+#include "window_topk.cuh"
 
 namespace {
 
-template <class T>
-__global__ void __launch_bounds__(NT)
-    video_v1_kernel(const float* __restrict__ feats, float* __restrict__ out_s,
-                    long long* __restrict__ out_i, Geometry g, int topk,
-                    int P, int early_exit,
-                    unsigned long long* __restrict__ pass_count) {
-  extern __shared__ float4 smem[];
-  const Smem<T> sm(smem);
-  const int t = blockIdx.y + 1;
-  const int y0 = (blockIdx.x / g.tiles_x) * T::TQH;
-  const int x0 = (blockIdx.x % g.tiles_x) * T::TQW;
-  const size_t frame_stride = (size_t)g.h * g.w * g.C;
-  const float* qframe = feats + (size_t)t * frame_stride;
+using wtk::Geometry;
 
-  float ls[T::QPW];
-  int lo[T::QPW];
-  init_lists<T>(ls, lo);
-  int passes = 0;
-  // most recent first: f = t-1, frame 0 as j = 0, then t-2 .. t-P
-  for (int o = 0; o <= P; ++o) {
-    int f, j;
-    if (o == 0) {
-      f = t - 1;
-      j = 1 + f % P;
-    } else if (o == 1) {
-      f = 0;
-      j = 0;
-    } else {
-      f = t - o;
-      if (f < 0) break;  // that ring slot, and every later one, is not live
-      j = 1 + f % P;
-    }
-    score_tile<T>(qframe, feats + (size_t)f * frame_stride, y0, x0, g, sm);
-    __syncthreads();
-    extract_tile<T>(sm, j, g, topk, early_exit != 0, ls, lo, &passes);
+// The bank of query frame t, most recent first: frame i is f = t-1, 0,
+// t-2, t-3, ... While t <= P (dup) the walk stops at f = 1 and frame 0
+// stands at j = 0 and, by twice(), at ring slot 0 (j = 1); for t = 1 the
+// one frame, f = t-1, is frame 0.
+struct RecentBank {
+  const float* feats;
+  size_t frame_stride;
+  int t, P;
+  bool dup;  // t <= P
+  __device__ int count() const { return dup ? t : P + 1; }
+  __device__ int source(int i) const {
+    return i == 0 ? t - 1 : i == 1 ? 0 : t - i;
   }
+  __device__ int order_j(int i) const {
+    const int f = source(i);
+    return f == 0 ? 0 : 1 + f % P;
+  }
+  __device__ bool twice(int i) const { return dup && source(i) == 0; }
+  __device__ const float* frame(int i) const {
+    return feats + (size_t)source(i) * frame_stride;
+  }
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long hw = (long long)g.h * g.w;
-#pragma unroll
-  for (int qq = 0; qq < T::QPW; ++qq) {
-    const int q = warp + NWARP * qq;
-    const int y = y0 + q / T::TQW;
-    const int x = x0 + q % T::TQW;
-    if (y >= g.h || x >= g.w || lane >= topk) continue;
-    float s = ls[qq];
-    long long idx;
-    int j, dy, dx;
-    if (decode(lo[qq], g, &j, &dy, &dx)) {
-      const int f = j == 0 ? 0 : t - 1 - ((t - 1 - (j - 1)) % P);
-      idx = f * hw + (long long)(y + dy) * g.w + (x + dx);
-    } else {
-      s = NEG_INF;
-      idx = (long long)y * g.w + x;
-    }
-    const size_t base = (((size_t)t * g.h + y) * g.w + x) * topk;
-    out_s[base + lane] = s;
-    out_i[base + lane] = idx;
-  }
-  if (pass_count != nullptr && lane == 0)
-    atomicAdd(pass_count, (unsigned long long)passes);
+// Block b: query frame t = b % (T - 1) + 1 of tile b / (T - 1), t fastest.
+// COUNT: add the warp's merges to merge_count (an instance of its own; the
+// note above says why).
+template <int NP, bool EXIT, bool COUNT, int NKR = wtk::key_rows(NP),
+          int NT = wtk::threads(NP, NKR)>
+__global__ void __launch_bounds__(NT, 1)
+    video_v1_kernel(const float* __restrict__ feats,
+                    float* __restrict__ out_s, long long* __restrict__ out_i,
+                    int T, int P, Geometry g,
+                    unsigned long long* __restrict__ merge_count) {
+  extern __shared__ float4 smem4[];
+  const int t = blockIdx.x % (T - 1) + 1;
+  const int tile = blockIdx.x / (T - 1);
+  const int y0 = (tile / g.tiles_x) * wtk::TH;
+  const int x0 = (tile % g.tiles_x) * wtk::TW;
+  const size_t fs = (size_t)g.h * g.w * g.C;
+  const RecentBank bank{feats, fs, t, P, t <= P};
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int merged =
+      wtk::run<NP, NKR, EXIT>(feats + (size_t)t * fs, bank, y0, x0, g, smem);
+  __syncthreads();
+  wtk::store_video_lists<NT>(wtk::lists(g, smem, NKR), t, P, y0, x0, g,
+                             out_s, out_i);
+  if (COUNT && (threadIdx.x & 31) == 0)
+    atomicAdd(merge_count, (unsigned long long)merged);
 }
 
-template <class T>
-cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T_,
-                   int h, int w, int C, int r, float radius2, float inv_tau,
-                   int topk, int P, int early_exit,
-                   unsigned long long* pass_count, cudaStream_t stream) {
-  const Geometry g = make_geometry<T>(h, w, C, r, radius2, inv_tau);
-  const size_t bytes = smem_bytes<T>(g);
-  const cudaError_t err = allow_smem(video_v1_kernel<T>, bytes);
+template <int NP, bool EXIT>
+cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
+                   int P, const Geometry& g, unsigned long long* count,
+                   cudaStream_t stream) {
+  auto kernel = count != nullptr ? video_v1_kernel<NP, EXIT, true>
+                                 : video_v1_kernel<NP, EXIT, false>;
+  const size_t smem = wtk::smem_bytes(g, wtk::key_rows(NP));
+  const cudaError_t err = wtk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(tiles<T>(g), T_ - 1);
-  video_v1_kernel<T><<<grid, NT, bytes, stream>>>(
-      feats, out_s, out_i, g, topk, P, early_exit, pass_count);
+  kernel<<<wtk::tiles(g) * (T - 1), wtk::threads(NP, wtk::key_rows(NP)),
+           smem, stream>>>(feats, out_s, out_i, T, P, g, count);
   return cudaGetLastError();
+}
+
+template <bool EXIT>
+cudaError_t launch_passes(const float* feats, float* out_s, long long* out_i,
+                          int T, int P, const Geometry& g,
+                          unsigned long long* count, cudaStream_t st) {
+  switch (wtk::passes(g.r)) {
+    case 1: return launch<1, EXIT>(feats, out_s, out_i, T, P, g, count, st);
+    case 2: return launch<2, EXIT>(feats, out_s, out_i, T, P, g, count, st);
+    case 3: return launch<3, EXIT>(feats, out_s, out_i, T, P, g, count, st);
+    default: return launch<4, EXIT>(feats, out_s, out_i, T, P, g, count, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest top-k and largest window offset r the compiled kernel takes.
-int vfs_video_v1_max_topk() { return KMAX; }
-int vfs_video_v1_max_offset() { return MAX_OFFSET; }
-
-// pass_count (one unsigned 64-bit integer, or null) accumulates the passes
-// the blocks ran.
+// r and band: the wrapper's plan
+// (vfs_tpu_torch/ops/window_geometry.py::window_plan); band holds r + 1
+// host ints. early_exit: the per-lane check of the lists' last entries
+// (nonzero) or none. merge_count (one unsigned 64-bit integer, or null:
+// no atomics) accumulates the (query, key row) merges the blocks ran.
 int vfs_video_topk_affinity_v1(const void* feats, void* scores, void* src,
                                int T, int h, int w, int C, int r,
-                               float radius2, float inv_tau, int topk, int P,
-                               int early_exit, void* pass_count,
+                               const int* band, float inv_tau, int topk,
+                               int P, int early_exit, void* merge_count,
                                void* stream) {
-  if (T < 2 || T - 1 > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
-      r < 0 || r > MAX_OFFSET || topk < 1 || topk > KMAX || P < 1 ||
-      (long long)h * w * C >= INT_MAX ||
+  const long long blocks = (long long)((h + wtk::TH - 1) / wtk::TH) *
+                           ((w + wtk::TW - 1) / wtk::TW) * (T - 1);
+  if (T < 2 || h < 1 || w < 1 || C < 4 || C % 4 != 0 || P < 1 ||
+      !wtk::check_band(r, band, topk) || blocks >= INT_MAX ||
       (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
     return (int)cudaErrorInvalidValue;
+  const Geometry g = wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
   const float* f = static_cast<const float*>(feats);
   float* s = static_cast<float*>(scores);
   long long* i = static_cast<long long*>(src);
-  unsigned long long* pc = static_cast<unsigned long long*>(pass_count);
+  unsigned long long* count = static_cast<unsigned long long*>(merge_count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (r <= 12)
-    err = launch<TileA>(f, s, i, T, h, w, C, r, radius2, inv_tau, topk, P,
-                        early_exit, pc, st);
-  else if (r <= 20)
-    err = launch<TileB>(f, s, i, T, h, w, C, r, radius2, inv_tau, topk, P,
-                        early_exit, pc, st);
-  else
-    err = launch<TileC>(f, s, i, T, h, w, C, r, radius2, inv_tau, topk, P,
-                        early_exit, pc, st);
-  return (int)err;
+  return (int)(early_exit
+                   ? launch_passes<true>(f, s, i, T, P, g, count, st)
+                   : launch_passes<false>(f, s, i, T, P, g, count, st));
 }
 
 }  // extern "C"

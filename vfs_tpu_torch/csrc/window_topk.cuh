@@ -1,8 +1,12 @@
-// The windowed top-k core shared by video_topk_affinity.cu (phase 1 of the
-// decoupled propagation, replacing video_topk_affinity2 of
-// vfs_tpu/ops/pallas_affinity_video.py:1037) and local_topk_attend.cu (one
-// scan step, replacing pallas_local_topk_attend of
-// vfs_tpu/ops/pallas_attention.py:357).
+// The windowed top-k core shared by the four kernels of the port:
+//   row 1 video_topk_affinity.cu     (phase 1 of the decoupled propagation,
+//         replacing video_topk_affinity2, pallas_affinity_video.py:1037);
+//   row 2 video_topk_affinity_v1.cu  (the v1 engine's phase 1, replacing
+//         video_topk_affinity, pallas_affinity_video.py:531);
+//   row 3 local_topk_attend.cu       (one scan step, replacing
+//         pallas_local_topk_attend, vfs_tpu/ops/pallas_attention.py:357);
+//   row 4 local_topk_attend_v2.cu    (replacing pallas_local_topk_attend_v2,
+//         vfs_tpu/ops/pallas_attention_v2.py:130).
 //
 // What it computes. A block owns a tile of TH x TW = 8 x 32 query cells of
 // one query plane (h, w, C) and walks a list of bank frames (h, w, C). For
@@ -12,10 +16,10 @@
 // the circle (|dx| <= band[|dy|], the host's table of the float test
 // float(dy^2 + dx^2) < radius^2) and in the map, under the full comparator:
 // score descending, then order key (j, dy + r, dx + r) ascending. The list
-// is exact whatever order the keys arrive in. Every score is an fmaf chain
-// in ascending channel order from 0, times inv_tau: the arithmetic of the
-// per-frame kernels (perframe_topk.cuh), so rows 2 and 4 give the same
-// numbers bit for bit.
+// is exact whatever order the keys arrive in, so rows 2 and 4, which walk
+// the bank in other orders and other groupings than rows 1 and 3, give the
+// same lists bit for bit. Every score is an fmaf chain in ascending channel
+// order from 0, times inv_tau.
 //
 // Bound. 2*C FLOPs per (query, in-map circle key, distinct bank frame): at
 // the DAVIS shapes (60 x 107 cells, P = 20) 0.393 ms per frame or step at
@@ -69,10 +73,17 @@
 //   shuffle. Each list is touched by one warp at a time, so nothing is
 //   locked. In a block's first key rows nearly every score enters (row 3
 //   scores one slot per block, so its lists fill from empty in every
-//   block); later ones mostly stop at the check.
+//   block); later ones mostly stop at the check. The check is the tau exit
+//   of the per-frame TPU kernels generalised from a frame to a key row;
+//   run<..., EXIT = false> skips it (row 2's 'sweep' extraction), and every
+//   query with in-band candidates is merged: the same lists, more merges.
 //
 // Interface for the kernels that include it: run() leaves the tile's lists
 // in shared memory (lists()); the caller reads them after __syncthreads().
+// It returns the (query, key row) merges its warp ran, for a counter.
+// store_video_lists (rows 1 and 2) decodes them to the video outputs;
+// store_lists (rows 3 and 4) writes them to a partial-list buffer, which
+// merge_parts and decode_list reduce in a second stage.
 //
 // Ablation switches, all off in the package's build. `python3
 // ab_kernels.py --ablate` builds rows 1 and 3 with one of them on
@@ -337,27 +348,34 @@ __device__ __noinline__ void merge_query(int q, const Candidates& c,
   }
 }
 
-// The warps merge key row ky's candidates into the tile's lists. Each
-// lane first checks one query (wid + nwarps * lane) against its list's
-// last entry; the warp then merges, one at a time, only the queries with
-// a candidate that beats it.
-__device__ __forceinline__ void merge_row(int ky, int oj, bool twice,
-                                          int y0, int x0, const int* band,
-                                          const float* sbuf, const Lists& L,
-                                          const Geometry& g, int nwarps) {
+// The warps merge key row ky's candidates into the tile's lists. With
+// EXIT, each lane first checks one query (wid + nwarps * lane) against its
+// list's last entry and the warp merges, one at a time, only the queries
+// with a candidate that beats it; without, every query with in-band
+// candidates. Returns the number of queries the warp merged.
+template <bool EXIT>
+__device__ __forceinline__ int merge_row(int ky, int oj, bool twice, int y0,
+                                         int x0, const int* band,
+                                         const float* sbuf, const Lists& L,
+                                         const Geometry& g, int nwarps) {
   const int lane = threadIdx.x & 31;
   const int q = (threadIdx.x >> 5) + nwarps * lane;
   bool hit = false;
   Candidates c{sbuf, 0, -1, 0};
   if (q < QN) {
     c = candidates(q, ky, oj, y0, x0, band, sbuf, g);
-    const float tail_s = L.s[q * g.topk + g.topk - 1];
-    const int tail_o = L.o[q * g.topk + g.topk - 1];
+    if (EXIT) {
+      const float tail_s = L.s[q * g.topk + g.topk - 1];
+      const int tail_o = L.o[q * g.topk + g.topk - 1];
 #pragma unroll 4
-    for (int dx = c.dx_begin; dx <= c.dx_end; ++dx)
-      hit |= better(c.row[dx], c.o_row + dx, tail_s, tail_o);
+      for (int dx = c.dx_begin; dx <= c.dx_end; ++dx)
+        hit |= better(c.row[dx], c.o_row + dx, tail_s, tail_o);
+    } else {
+      hit = c.dx_begin <= c.dx_end;
+    }
   }
   unsigned hits = __ballot_sync(0xffffffffu, hit);
+  const int merged = __popc(hits);
   while (hits) {
     const int b = __ffs(hits) - 1;
     hits &= hits - 1;
@@ -365,6 +383,7 @@ __device__ __forceinline__ void merge_row(int ky, int oj, bool twice,
     merge_query(qb, candidates(qb, ky, oj, y0, x0, band, sbuf, g), twice, L,
                 g);
   }
+  return merged;
 }
 
 // Bank: the frames a block walks. Needs
@@ -375,13 +394,15 @@ __device__ __forceinline__ void merge_row(int ky, int oj, bool twice,
 // (row 1's frame 0 while t <= P: scored once, inserted under both j).
 //
 // NP: passes per row group; NKR: key rows staged together, which share
-// each staged query chunk. The block has threads(NP, NKR) >= QN threads;
-// each warp computes one (row group, pass, key row) of each group. The
-// tile's lists end in shared memory (lists()); the caller reads them after
-// a __syncthreads().
-template <int NP, int NKR, class Bank>
-__device__ void run(const float* __restrict__ qframe, const Bank& bank,
-                    int y0, int x0, const Geometry& g, float* smem) {
+// each staged query chunk; EXIT: merge_row's check against the lists' last
+// entries. The block has threads(NP, NKR) >= QN threads; each warp
+// computes one (row group, pass, key row) of each group. The tile's lists
+// end in shared memory (lists()); the caller reads them after a
+// __syncthreads(). Returns the (query, key row) merges the calling warp
+// ran (the same in all its lanes).
+template <int NP, int NKR, bool EXIT = true, class Bank>
+__device__ int run(const float* __restrict__ qframe, const Bank& bank,
+                   int y0, int x0, const Geometry& g, float* smem) {
   constexpr int NT = threads(NP, NKR);
   static_assert(NT >= QN, "merge_row gives each query a lane");
   const int tid = threadIdx.x;
@@ -470,6 +491,7 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
   float acc[4][4][4];
+  int merged = 0;
   bool active = false;
   int dx0 = 0;    // the pass's first dx
   int krow = 0;   // row of the thread's first key cell 4K
@@ -564,10 +586,138 @@ __device__ void run(const float* __restrict__ qframe, const Bank& bank,
       }
       __syncthreads();
       if (!(WTK_ABLATE & 2) && ky0 + k < ky_end)
-        merge_row(ky0 + k, oj, twice, y0, x0, band, sbuf, L, g, NT / 32);
+        merged += merge_row<EXIT>(ky0 + k, oj, twice, y0, x0, band, sbuf, L,
+                                  g, NT / 32);
     }
   }
   cp_async_wait<0>();
+  return merged;
+}
+
+// Rows 1 and 2: decode the tile's lists of query frame t to scores and
+// sources (T, h, w, topk). Bank position j = 0 is frame 0, j = s + 1 ring
+// slot s, which holds f = t-1 - ((t-1-s) mod P); src = f*h*w + ky*w + kx;
+// fillers (fewer than topk valid keys) score NEG_INF and point at the
+// query's own cell in frame 0. Call after __syncthreads().
+template <int NT>
+__device__ void store_video_lists(const Lists& L, int t, int P, int y0,
+                                  int x0, const Geometry& g,
+                                  float* __restrict__ out_s,
+                                  long long* __restrict__ out_i) {
+  const long long hw = (long long)g.h * g.w;
+  const int span2 = g.span * g.span;
+  for (int e = threadIdx.x; e < QN * g.topk; e += NT) {
+    const int q = e / g.topk;
+    const int y = y0 + q / TW;
+    const int x = x0 + q % TW;
+    if (y >= g.h || x >= g.w) continue;
+    float s = L.s[e];
+    const int o = L.o[e];
+    long long idx;
+    if (o == INT_MAX) {  // filler: fewer than k valid keys
+      s = NEG_INF;
+      idx = (long long)y * g.w + x;
+    } else {
+      const int j = o / span2;
+      const int rem = o - j * span2;
+      const int dy = rem / g.span - g.r;
+      const int dx = rem % g.span - g.r;
+      const int f = j == 0 ? 0 : t - 1 - ((t - 1 - (j - 1)) % P);
+      idx = f * hw + (long long)(y + dy) * g.w + (x + dx);
+    }
+    const size_t out = (((size_t)t * g.h + y) * g.w + x) * g.topk +
+                       (e - q * g.topk);
+    out_s[out] = s;
+    out_i[out] = idx;
+  }
+}
+
+// Rows 3 and 4, stage 1: the tile's lists to part p of part_s / part_o
+// (parts, h, w, topk), raw: empty entries stay (-inf, INT_MAX). Call after
+// __syncthreads().
+template <int NT>
+__device__ void store_lists(const Lists& L, int p, int y0, int x0,
+                            const Geometry& g, float* __restrict__ part_s,
+                            int* __restrict__ part_o) {
+  for (int e = threadIdx.x; e < QN * g.topk; e += NT) {
+    const int q = e / g.topk;
+    const int y = y0 + q / TW;
+    const int x = x0 + q % TW;
+    if (y >= g.h || x >= g.w) continue;
+    const size_t out = (((size_t)p * g.h + y) * g.w + x) * g.topk +
+                       (e - q * g.topk);
+    part_s[out] = L.s[e];
+    part_o[out] = L.o[e];
+  }
+}
+
+// Insert (s, o) into the sorted list (ls, lo) of length topk, dropping its
+// last entry; the caller checked that (s, o) beats that entry. Not inlined:
+// one copy serves every call site, and insertions are rare next to the
+// candidates that only meet the threshold.
+__device__ __noinline__ void insert(float* ls, int* lo, int topk, float s,
+                                    int o) {
+  int i = topk - 1;
+  while (i > 0 && better(s, o, ls[i - 1], lo[i - 1])) {
+    ls[i] = ls[i - 1];
+    lo[i] = lo[i - 1];
+    --i;
+  }
+  ls[i] = s;
+  lo[i] = o;
+}
+
+// Rows 3 and 4, stage 2, one thread per query q of hw: the exact top-k
+// (ls, lo) of the sorted partial lists part_s / part_o (parts, hw, topk)
+// of the parts p with use(p), merged in part order under the full
+// comparator (the order keys make the result the same in any order).
+template <class Use>
+__device__ __forceinline__ void merge_parts(const float* __restrict__ part_s,
+                                            const int* __restrict__ part_o,
+                                            int parts, Use use, int hw, int q,
+                                            int topk, float* ls, int* lo) {
+  for (int i = 0; i < topk; ++i) {
+    ls[i] = -INFINITY;
+    lo[i] = INT_MAX;
+  }
+  for (int p = 0; p < parts; ++p) {
+    if (!use(p)) continue;
+    const size_t base = ((size_t)p * hw + q) * topk;
+    for (int i = 0; i < topk; ++i) {
+      const float s = part_s[base + i];
+      const int o = part_o[base + i];
+      // each list is sorted: once an entry misses, the rest miss too
+      if (!better(s, o, ls[topk - 1], lo[topk - 1])) break;
+      insert(ls, lo, topk, s, o);
+    }
+  }
+}
+
+// Decode query q = (y, x)'s merged list: the order key (f, dy + r, dx + r)
+// of entry i becomes the cell index f*h*w + ky*w + kx in lo[i]; fillers
+// become (NEG_INF, q). Writes both to out_s / out_i [q * topk, + topk).
+__device__ __forceinline__ void decode_list(float* ls, int* lo, int topk,
+                                            int q, int y, int x, int w,
+                                            int hw, int r,
+                                            float* __restrict__ out_s,
+                                            long long* __restrict__ out_i) {
+  const int span = 2 * r + 1;
+  const size_t base = (size_t)q * topk;
+  for (int i = 0; i < topk; ++i) {
+    if (lo[i] == INT_MAX) {  // filler: fewer than k valid keys
+      ls[i] = NEG_INF;
+      lo[i] = q;
+    } else {
+      const int o = lo[i];
+      const int f = o / (span * span);
+      const int rem = o - f * span * span;
+      const int dy = rem / span - r;
+      const int dx = rem % span - r;
+      lo[i] = f * hw + (y + dy) * w + (x + dx);
+    }
+    out_s[base + i] = ls[i];
+    out_i[base + i] = lo[i];
+  }
 }
 
 }  // namespace wtk

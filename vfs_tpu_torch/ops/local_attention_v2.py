@@ -7,10 +7,12 @@ PyTorch counterpart of ``vfs_tpu/ops/pallas_attention_v2.py``
 ``local_attention.local_topk_attend``, with the same signature, contract
 and ``(out, scores, src)`` result, so its plain version is
 ``local_attention.local_topk_attend_reference``. The kernel
-(``vfs_tpu_torch/csrc/local_topk_attend_v2.cu``) selects by per-slot
-extraction and a running merge; the epilogue (gather, softmax, weighted
-sum) is plain PyTorch after it, as the JAX package leaves it to XLA. No
-propagation backend calls it, as in the JAX package.
+(``vfs_tpu_torch/csrc/local_topk_attend_v2.cu``) runs the windowed top-k
+core of row 3 with a running merge over groups of valid slots
+(``window_geometry.slot_groups``), then merges the groups' lists; the
+epilogue (gather, softmax, weighted sum) is plain PyTorch after it, as
+the JAX package leaves it to XLA. No propagation backend calls it, as in
+the JAX package.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -19,7 +21,6 @@ or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
@@ -27,6 +28,7 @@ import torch
 from . import _build
 from .local_attention import (Result, check_operands,
                               local_topk_attend_reference)
+from .window_geometry import plan_args, slot_groups, tile_count, window_plan
 
 KERNEL_NAME = 'local_topk_attend_v2'
 
@@ -34,13 +36,10 @@ KERNEL_NAME = 'local_topk_attend_v2'
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_local_topk_attend_v2
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for name in ('vfs_local_v2_max_topk', 'vfs_local_v2_max_offset'):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -58,33 +57,39 @@ def local_topk_attend_v2_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                               bank_vals: torch.Tensor,
                               bank_valid: torch.Tensor, radius: float,
                               temperature: float, topk: int,
-                              pass_count: Optional[torch.Tensor] = None
+                              merge_count: Optional[torch.Tensor] = None
                               ) -> Result:
     """Launch the CUDA kernel on ``query``'s device and current stream,
     then the epilogue. ``local_topk_attend_v2_cuda.launches`` counts the
-    launches; ``pass_count``, a one-element int64 tensor on the same
-    device, adds the extraction passes the kernel ran."""
+    launches; ``merge_count``, a one-element int64 tensor on the same
+    device, adds the (query, key row) list merges the kernel ran. Raises
+    on a radius or top-k the kernel does not take before anything else."""
+    plan = window_plan(radius, topk)
     check_operands(query, bank_feats, bank_vals, bank_valid)
     f_total, h, w, c = bank_feats.shape
-    count = _build.counter_ptr(pass_count, query.device)
-    lib = _library()
-    r = int(math.ceil(radius - 1))
-    if not 0 <= r <= lib.vfs_local_v2_max_offset():
-        raise ValueError(f'radius {radius} is outside what the kernel was '
-                         f'compiled for (r <= '
-                         f'{lib.vfs_local_v2_max_offset()})')
-    if not 1 <= topk <= lib.vfs_local_v2_max_topk():
-        raise ValueError(f'topk {topk} is outside 1..'
-                         f'{lib.vfs_local_v2_max_topk()}')
+    if not 1 <= f_total <= 65535:
+        raise ValueError(f'{f_total} bank slots: the kernel takes 1..65535')
+    count = _build.counter_ptr(merge_count, query.device)
+    dev = query.device
+    groups = slot_groups(f_total, tile_count(h, w),
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
     valid = bank_valid.to(torch.int32).contiguous()
-    scores = torch.empty((h, w, topk), dtype=torch.float32,
-                         device=query.device)
-    src = torch.empty((h, w, topk), dtype=torch.int64, device=query.device)
-    with torch.cuda.device(query.device):
+    scores = torch.empty((h, w, topk), dtype=torch.float32, device=dev)
+    src = torch.empty((h, w, topk), dtype=torch.int64, device=dev)
+    # scratch: each group's top-k lists, merged by the kernel's last stage,
+    # and the valid slots in order with their count
+    part_s = torch.empty((groups, h, w, topk), dtype=torch.float32,
+                         device=dev)
+    part_o = torch.empty((groups, h, w, topk), dtype=torch.int32, device=dev)
+    slots = torch.empty(f_total + 1, dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
         err = lib.vfs_local_topk_attend_v2(
             query.data_ptr(), bank_feats.data_ptr(), valid.data_ptr(),
-            scores.data_ptr(), src.data_ptr(), f_total, h, w, c, r,
-            radius * radius, 1.0 / temperature, topk, count,
+            scores.data_ptr(), src.data_ptr(), part_s.data_ptr(),
+            part_o.data_ptr(), slots.data_ptr(), f_total, groups, h, w, c,
+            *plan_args(plan), 1.0 / temperature, topk, count,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '

@@ -4,17 +4,19 @@ PyTorch counterpart of ``video_topk_affinity`` in
 ``vfs_tpu/ops/pallas_affinity_video.py`` (the v1 whole-video kernel). It
 computes the function of ``video_affinity`` (the v2 engine), with the same
 contract, ``(T, h, w, k)`` layout, filler convention and tie order, so its
-plain version is ``video_affinity.video_topk_affinity_reference``. What
-differs is the kernel's algorithm
-(``vfs_tpu_torch/csrc/video_topk_affinity_v1.cu``): per bank frame, a
-frame-local top-k by passes and a merge into each query's running list,
-with the tau early exit.
+plain version is ``video_affinity.video_topk_affinity_reference``. The
+kernel (``vfs_tpu_torch/csrc/video_topk_affinity_v1.cu``) runs the
+windowed top-k core of row 1 and walks each query frame's bank most
+recent first, as the v1 TPU kernel does; its lists equal row 1's bit for
+bit.
 
 Options, as in the JAX function:
 
 - ``extract``: ``'perframe'`` takes the tau exit when ``early_exit`` is
-  set; ``'sweep'`` (the TPU's extraction over every frame's stored
-  segment, which has no exit) runs every pass. The lists are the same.
+  set: a query's candidates of a key row are merged only if one beats
+  its list's last entry. ``'sweep'`` (the TPU's extraction over every
+  frame's stored segment, which has no exit) merges every query with
+  candidates. The lists are the same.
 - ``bank_splits``: only bounded the TPU's VMEM ring. It has no effect,
   but an explicit ``bank_splits > 1`` with ``'perframe'`` raises
   ``ValueError`` where the JAX function raises.
@@ -26,13 +28,13 @@ or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 from .video_affinity import check_features, video_topk_affinity_reference
+from .window_geometry import plan_args, window_plan
 
 KERNEL_NAME = 'video_topk_affinity_v1'
 
@@ -51,12 +53,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_video_topk_affinity_v1
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float] + [ctypes.c_int] * 3 + [
             ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for name in ('vfs_video_v1_max_topk', 'vfs_video_v1_max_offset'):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -65,25 +64,18 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
                                 precede_frames: int, early_exit: bool = True,
                                 extract: str = 'sweep',
                                 bank_splits: Optional[int] = None,
-                                pass_count: Optional[torch.Tensor] = None
+                                merge_count: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on ``feats``' device and current stream.
     ``video_topk_affinity_v1_cuda.launches`` counts the launches;
-    ``pass_count``, a one-element int64 tensor on the same device, adds
-    the extraction passes the kernel ran."""
+    ``merge_count``, a one-element int64 tensor on the same device, adds
+    the (query, key row) list merges the kernel ran. Raises on a radius or
+    top-k the kernel does not take before anything else but the options."""
     check_v1_options(extract, bank_splits)
+    plan = window_plan(radius, topk)
     check_features(feats, precede_frames)
     t_total, h, w, c = feats.shape
-    count = _build.counter_ptr(pass_count, feats.device)
-    lib = _library()
-    r = int(math.ceil(radius - 1))
-    if not 0 <= r <= lib.vfs_video_v1_max_offset():
-        raise ValueError(f'radius {radius} is outside what the kernel was '
-                         f'compiled for (r <= '
-                         f'{lib.vfs_video_v1_max_offset()})')
-    if not 1 <= topk <= lib.vfs_video_v1_max_topk():
-        raise ValueError(f'topk {topk} is outside 1..'
-                         f'{lib.vfs_video_v1_max_topk()}')
+    count = _build.counter_ptr(merge_count, feats.device)
     scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
                          device=feats.device)
     src = torch.empty((t_total, h, w, topk), dtype=torch.int64,
@@ -92,11 +84,12 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
     src[0] = 0
     if t_total < 2:
         return scores, src
+    lib = _library()
     with torch.cuda.device(feats.device):
         err = lib.vfs_video_topk_affinity_v1(
             feats.data_ptr(), scores.data_ptr(), src.data_ptr(), t_total, h,
-            w, c, r, radius * radius, 1.0 / temperature, topk,
-            precede_frames, int(early_exit and extract == 'perframe'), count,
+            w, c, *plan_args(plan), 1.0 / temperature, topk, precede_frames,
+            int(early_exit and extract == 'perframe'), count,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
