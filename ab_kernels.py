@@ -1,11 +1,9 @@
 #!/usr/bin/env python3
 """Time the four windowed top-k kernels on one card: two checkouts against
-each other, this checkout's rows 1 and 3 against their ablations, or row
-4 at several slot-group counts.
+each other, or this checkout's rows 1 and 3 against their ablations.
 
     python3 ab_kernels.py DIR_A DIR_B
     python3 ab_kernels.py --ablate
-    python3 ab_kernels.py --groups
 
 Every mode uses the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
 (60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
@@ -31,11 +29,6 @@ and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
 (``ABLATIONS``), then times them in the order full, each ablation, full.
 An ablated kernel's outputs are wrong; only its time is read. It prints
 one JSON line per variant.
-
-``--groups`` times row 4 with its slot-group count G set to each of
-``GROUPS`` in turn (``window_geometry.slot_groups`` replaced for the
-call), the package's own G first and last, and checks that every G gives
-the same outputs. It prints one JSON line per model.
 
 Every mode ends with the card's name and power limit as ``nvidia-smi``
 gives them. Needs one card.
@@ -65,9 +58,6 @@ ABLATIONS = {'no_inner_loop': 1, 'no_merge': 2,
              'no_merge_no_stage_copies': 2 | 4,
              'no_merge_no_chunk_barrier': 2 | 8,
              'no_merge_loop_copies': 2 | 1 | 4}
-# row 4's slot-group counts for --groups, from one group (32 blocks at the
-# DAVIS shapes) to one slot a group (21, row 3's grid)
-GROUPS = (1, 2, 3, 4, 7, 11, 21)
 
 
 def digest(tensors):
@@ -223,56 +213,18 @@ def split(runs, c, radius, smi_line):
     return out
 
 
-def groups():
-    """Row 4 at each slot-group count of GROUPS, the package's own count
-    first and last; every count must give the same outputs."""
-    import chip_smoke
-    import torch
-    from vfs_tpu_torch.device import exact_fp32
-    from vfs_tpu_torch.ops import local_attention_v2, window_geometry
-    dev = torch.device('cuda', 0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    own = window_geometry.slot_groups(SLOTS, window_geometry.tile_count(H, W),
-                                      sms)
-    with exact_fp32():
-        for model, c, radius in chip_smoke.MODELS:
-            step = make_inputs(dev, c)['step']
-            ms, hashes = {}, set()
-            for g in (own, *GROUPS, own):
-                with chip_smoke.patched(local_attention_v2, 'slot_groups',
-                                        lambda _, g=g: lambda *a: g):
-                    def call():
-                        return local_attention_v2.local_topk_attend_v2_cuda(
-                            *step, radius, 0.07, TOPK)
-                    ms.setdefault(g, []).append(chip_smoke.cuda_ms(call))
-                    hashes.add(digest(call()))
-            if len(hashes) != 1:
-                raise AssertionError(f'{model}: the slot-group counts give '
-                                     'different outputs')
-            print(json.dumps({'model': model, 'sms': sms, 'own_groups': own,
-                              'row4_ms_per_step': {str(g): t
-                                                   for g, t in ms.items()},
-                              'outputs_equal': True}), flush=True)
-            del step
-            torch.cuda.empty_cache()
-    print(chip_smoke.card_line())
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('checkouts', nargs='*')
     parser.add_argument('--ablate', action='store_true')
-    parser.add_argument('--groups', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
         return child()
     if args.ablate:
         return ablate()
-    if args.groups:
-        return groups()
     if len(args.checkouts) != 2:
-        parser.error('give two checkouts, --ablate or --groups')
+        parser.error('give two checkouts or --ablate')
     import ab_eval
     import chip_smoke
     a, b = (os.path.abspath(c) for c in args.checkouts)

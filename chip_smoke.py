@@ -23,9 +23,8 @@ Phases, one JSON line each on stdout:
    ``video_extract`` and ``early_exit``: the lists equal row 1's and each
    other's bit for bit, and on smooth features the tau exit merges fewer
    (query, key row) pairs. ``local_topk_attend_v2`` over
-   ``local_topk_attend``'s cases, a wider radius and slot groups with no
-   valid slot (one valid slot of 21, F below the groups the tiles would
-   take, no valid slot at all), plus groups of several slots.
+   ``local_topk_attend``'s cases and a wider radius; both on banks of
+   mostly invalid slots (one valid slot of 21, 17 of 21, none at all).
 3. full: every kernel at the r18 (C=256, radius 12) and r50 (C=1024,
    radius 18) DAVIS-480p shapes (60x107 cells, P=20, top-10) with
    CUDA-event timings (median of 5 after a warm-up), the work, the bound
@@ -62,15 +61,17 @@ Phases, one JSON line each on stdout:
    joints. ``video_topk_affinity_v1`` must launch once per video; the
    heatmaps must agree with the same command under ``video_engine=v2``
    within 1e-5 (PCK equal) and, on one video, with a run whose phase 1
-   is the plain version.
+   is the plain version. The counted eval's wall is followed by
+   ``POSE_REPEATS`` more of the same path, and their median.
 7. vip: slice 3's VIP path, part segmentation with mIoU of the r50 model
    (``--eval mIoU``, ``video_engine=v1``, the default
    ``video_extract='sweep'``) on two synthetic 48-frame 480x854 videos
    with 19 moving parts; one launch per video, masks on >= 99.9% of
    pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
    video, to a plain-phase-1 run.
-8. kernels: every kernel with its launches on its path, times, bound,
-   share of the bound and share of the computed pairs it needs. (Times
+8. kernels: every kernel with its launches on its path, times, bound
+   and share of the bound. (The full lines also give the share of the
+   computed pairs the function needs, from the core's pass rule. Times
    of an earlier checkout come from ``ab_kernels.py``, which runs both
    checkouts in one call.)
 
@@ -143,7 +144,7 @@ V2_INFO = dict(
 # the v1 kernel's (video_extract, early_exit) settings
 V1_MODES = [('sweep', False), ('sweep', True), ('perframe', False),
             ('perframe', True)]
-# wider windows for the per-frame kernels' larger tiles: radius 18 and 30
+# wider windows for rows 2 and 4: radius 18 and 30
 WIDE_CASES = [(6, 9, 10, 36, 3, 5), (5, 12, 13, 60, 2, 6)]
 MODELS = (('r18', 256, 12.0), ('r50', 1024, 18.0))
 # local_topk_attend's small matrix: (h, w, C, radius, slot validity, topk,
@@ -164,17 +165,15 @@ EDGE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
                     (13, 45, 4, 5.0, (1, 0, 1), 10, 4),
                     (10, 37, 260, 12.0, (1, 1), 32, 4),
                     (9, 40, 8, 32.0, (0, 1, 1), 32, 16)]
-# row 4's slot groups (window_geometry.slot_groups on 132 SMs): one valid
-# slot of 21 on a 2 x 4224 map, 132 tiles (5 groups, 4 of them empty); F =
-# 3 below the groups one tile would take (3 groups, 2 empty); no valid
-# slot (every group empty: fillers only); 17 valid slots of 21 in 5 groups
-# of 3 or 4
+# warm JHMDB evals timed after the counted one (pose phase)
+POSE_REPEATS = 4
+# rows 3 and 4 on banks of mostly invalid slots: one valid slot of 21, 17
+# of 21, and no valid slot (fillers only)
 ONE_OF_21 = tuple(int(f == 13) for f in range(21))
 SOME_OF_21 = tuple(int(f not in (2, 6, 11, 17)) for f in range(21))
-GROUP_CASES = [(2, 4224, 8, 5.0, ONE_OF_21, 10, 4),
-               (5, 6, 8, 3.0, (0, 1, 0), 5, 4),
-               (5, 6, 8, 3.0, (0, 0), 5, 4),
-               (2, 4224, 8, 5.0, SOME_OF_21, 10, 4)]
+SPARSE_LOCAL_CASES = [(9, 40, 8, 5.0, ONE_OF_21, 10, 4),
+                      (9, 40, 8, 5.0, SOME_OF_21, 10, 4),
+                      (5, 6, 8, 3.0, (0, 0), 5, 4)]
 
 
 def emit(obj):
@@ -478,11 +477,11 @@ def phase_small_edges(dev, tensor):
     """The four kernels at the edges of their 8 x 32 query tiles and
     32-channel chunks (EDGE_CASES, EDGE_LOCAL_CASES); the video kernels'
     t <= P case in which frame 0's two bank entries (j = 0 and ring slot 0)
-    both enter the lists; row 4's slot groups (GROUP_CASES)."""
+    both enter the lists; rows 3 and 4 on banks of mostly invalid slots
+    (SPARSE_LOCAL_CASES)."""
     import torch
     from vfs_tpu_torch.ops import (l2_normalize, video_topk_affinity_cuda,
                                    video_topk_affinity_v1_cuda)
-    from vfs_tpu_torch.ops.window_geometry import slot_groups, tile_count
     video_cases = []
     for t_total, h, w, c, radius, p, topk in EDGE_CASES:
         rng = np.random.RandomState(t_total * 1000 + h * 10 + c)
@@ -517,14 +516,10 @@ def phase_small_edges(dev, tensor):
               'frame0_tie_case': {'max_abs_err': err,
                                   'src_mismatch': mismatch}})
 
-    columns = ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
-               'max_abs_err', 'max_logit_err', 'src_mismatch']
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for info, run, cases in ((LOCAL_INFO, run_local, EDGE_LOCAL_CASES),
-                             (V2_INFO, run_local_v2,
-                              EDGE_LOCAL_CASES + GROUP_CASES)):
+    for info, run in ((LOCAL_INFO, run_local), (V2_INFO, run_local_v2)):
         results = []
-        for h, w, c, radius, valid, topk, k in cases:
+        for h, w, c, radius, valid, topk, k in (EDGE_LOCAL_CASES
+                                                + SPARSE_LOCAL_CASES):
             rng = np.random.RandomState(h * 1000 + w * 10 + c)
             f = len(valid)
             query = l2_normalize(tensor(rng.randn(h, w, c))).contiguous()
@@ -536,11 +531,9 @@ def phase_small_edges(dev, tensor):
                 f'valid={sum(valid)}/{f}')
             results.append([h, w, c, radius, f, sum(valid), topk, k, err,
                             logit_err, mismatch])
-            if run is run_local_v2:
-                results[-1].append(slot_groups(f, tile_count(h, w), sms))
         emit({'phase': 'small', 'kernel': info['name'], 'edges': True,
-              'columns': columns + (['groups'] if run is run_local_v2
-                                    else []),
+              'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
+                          'max_abs_err', 'max_logit_err', 'src_mismatch'],
               'cases': results})
 
 
@@ -789,8 +782,7 @@ def phase_full_v1(dev, smi_name, plain_ms):
     return dict(max_abs_err=r50['max_abs_err'],
                 src_mismatch=r50['src_mismatch'], ms=r50['kernel_ms'],
                 plain_ms=plain_ms['r50'][48], bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / r50['kernel_ms'],
-                pairs_needed_share=out['r50']['pairs_needed_share'])
+                bound_share=b_ms / r50['kernel_ms'])
 
 
 def phase_full_v2(dev, smi_name):
@@ -800,15 +792,14 @@ def phase_full_v2(dev, smi_name):
     the launch count set to 0 before the first call and read after the
     last. Held against the plain version and against row 3's kernel (the
     same function, the same arithmetic: scores and sources equal), with
-    its slot groups and the (query, key row) merges it ran. Returns the
-    kernels line's entry (r50)."""
+    the (query, key row) merges it ran. Returns the kernels line's entry
+    (r50)."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
     from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
                                    local_topk_attend_reference,
                                    local_topk_attend_v2,
                                    local_topk_attend_v2_cuda)
-    from vfs_tpu_torch.ops.window_geometry import slot_groups, tile_count
     h, w, p, topk, k_classes = 60, 107, 20, 10, 4
     f = p + 1
     inputs = {}
@@ -869,9 +860,6 @@ def phase_full_v2(dev, smi_name):
             max_logit_err_vs_row3=row3_logit_err,
             kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
             row3_kernel_ms_per_step=row3_ms, merges=int(count),
-            groups=slot_groups(f, tile_count(h, w),
-                               torch.cuda.get_device_properties(dev)
-                               .multi_processor_count),
             gflop_per_step=flops / 1e9, bound_ms_per_step=b_ms,
             bound_by=b_by, bound_share=b_ms / kernel_ms,
             pairs_needed_share=pairs_needed_share(h, w, radius),
@@ -887,7 +875,6 @@ def phase_full_v2(dev, smi_name):
                 plain_ms=r50['plain_ms_per_step'],
                 bound_ms=r50['bound_ms_per_step'], bound_by=r50['bound_by'],
                 bound_share=r50['bound_share'],
-                pairs_needed_share=r50['pairs_needed_share'],
                 library_ms=None, library_note=NO_LIBRARY_CALL)
 
 
@@ -1027,7 +1014,6 @@ def phase_main(dev, smi_name):
         **KERNEL_INFO, launches=launches, max_abs_err=err,
         src_mismatch=mismatch, ms=affinity_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / affinity_ms,
-        pairs_needed_share=pairs_needed_share(h, w, radius),
         library_ms=None, library_note=NO_LIBRARY_CALL)]
 
 
@@ -1228,9 +1214,8 @@ def phase_eval(local_full):
                 plain_ms=local_full['plain_ms_per_step'],
                 bound_ms=local_full['bound_ms_per_step'],
                 bound_by=local_full['bound_by'],
-                bound_share=local_full['bound_share'],
-                pairs_needed_share=local_full['pairs_needed_share'],
-                library_ms=None, library_note=NO_LIBRARY_CALL)
+                bound_share=local_full['bound_share'], library_ms=None,
+                library_note=NO_LIBRARY_CALL)
 
 
 def blocky_background(h, w, rng):
@@ -1441,6 +1426,12 @@ def phase_pose():
             eval_s = walls[-1]
             extract_ms = spans_ms(extract_spans)
             propagate_ms = spans_ms(propagate_spans)
+            # one eval takes about a second and single walls spread by tens
+            # of percent: time a few more of the same path
+            for _ in range(POSE_REPEATS):
+                run(v1, list_all, 'repeat')
+            repeat_fps = [sum(x.shape[0] for x in heat) / s
+                          for s in [eval_s, *walls[-POSE_REPEATS:]]]
             pck_v2, heat_v2 = run(['test_cfg.video_engine=v2'], list_all,
                                   'v2')
             with patched(propagation, 'video_topk_affinity_v1',
@@ -1469,6 +1460,8 @@ def phase_pose():
           'dataset': 'JHMDBDataset', 'engine': 'v1', 'extract': 'perframe',
           'videos': len(heat), 'frames': frames, 'first_call_s': first_s,
           'eval_s': eval_s, 'eval_fps': frames / eval_s,
+          'eval_fps_repeats': repeat_fps,
+          'eval_fps_median': statistics.median(repeat_fps),
           'extract_ms_per_frame': extract_ms / frames,
           'propagate_ms_per_frame': propagate_ms / frames,
           'heatmap_max_abs_diff_v2': diff_v2,

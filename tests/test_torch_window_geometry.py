@@ -1,6 +1,5 @@
 """Host-side geometry of the windowed top-k kernels (rows 1 to 4): the
-circle band, the launch plan, the pass rule and row 4's slot groups, on
-the CPU."""
+circle band, the launch plan and the pass rule, on the CPU."""
 
 import numpy as np
 import pytest
@@ -12,12 +11,10 @@ from vfs_tpu_torch.ops.local_attention_v2 import local_topk_attend_v2_cuda
 from vfs_tpu_torch.ops.video_affinity import (circle_offsets,
                                               video_topk_affinity_cuda)
 from vfs_tpu_torch.ops.video_affinity_v1 import video_topk_affinity_v1_cuda
-from vfs_tpu_torch.ops.window_geometry import (BLOCKS_PER_SM, MAX_OFFSET,
-                                               PASS_DX, TILE_H, TILE_W,
-                                               circle_band, group_begin,
-                                               pair_counts, pass_starts,
-                                               plan_args, slot_groups,
-                                               tile_count, window_plan)
+from vfs_tpu_torch.ops.window_geometry import (MAX_OFFSET, PASS_DX,
+                                               circle_band, pair_counts,
+                                               pass_starts, plan_args,
+                                               window_plan)
 
 torch.set_num_threads(1)
 
@@ -117,41 +114,6 @@ def test_wrappers_reject_before_launch(monkeypatch, kind, row):
             local_topk_attend_cuda(*step, radius, 0.07, topk)
         else:
             local_topk_attend_v2_cuda(*step, radius, 0.07, topk)
-
-
-@pytest.mark.parametrize('h,w', [(60, 107), (3, 5), (24, 352), (200, 300)])
-@pytest.mark.parametrize('f_total', [1, 2, 3, 21, 40])
-def test_slot_groups_split_every_valid_rank_once(h, w, f_total):
-    """Row 4's groups: at least 1 and at most F of them, the fewest that
-    give a 132-SM card BLOCKS_PER_SM blocks an SM, and for every count n
-    of valid slots each rank in exactly one group, in order; group sizes
-    differ by at most one."""
-    tiles = tile_count(h, w)
-    assert tiles == -(-h // TILE_H) * -(-w // TILE_W)
-    groups = slot_groups(f_total, tiles, 132)
-    want = BLOCKS_PER_SM * 132
-    assert 1 <= groups <= f_total
-    assert groups == f_total or tiles * groups >= want
-    assert groups == 1 or tiles * (groups - 1) < want
-    for n in range(f_total + 1):
-        bounds = [group_begin(g, groups, n) for g in range(groups + 1)]
-        assert bounds[0] == 0 and bounds[-1] == n
-        ranks = [i for a, b in zip(bounds, bounds[1:]) for i in range(a, b)]
-        assert ranks == list(range(n))
-        sizes = {b - a for a, b in zip(bounds, bounds[1:])}
-        assert max(sizes) - min(sizes) <= 1
-
-
-def test_slot_groups_at_the_davis_shapes():
-    """60 x 107 cells are 32 tiles: a 21-slot bank on 132 SMs takes one
-    slot a group (672 blocks); a map of 136 tiles (135 x 240 cells) takes
-    5 groups, ranks split 4, 4, 4, 4, 5."""
-    assert tile_count(60, 107) == 32
-    assert slot_groups(21, 32, 132) == 21
-    assert tile_count(135, 240) == 136
-    assert slot_groups(21, 136, 132) == 5
-    assert [group_begin(g, 5, 21) for g in range(6)] == [0, 4, 8, 12, 16,
-                                                         21]
 
 
 @pytest.mark.parametrize('radius', [31.9, 32.0])

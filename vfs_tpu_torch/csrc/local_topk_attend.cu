@@ -23,7 +23,8 @@
 //
 // Design. Two stages, launched together by the one C entry point.
 // 1. Per slot. One block per (tile of 8 x 32 query cells, slot f) runs the
-//    windowed top-k core of window_topk.cuh on its one frame (register
+//    windowed top-k core of window_topk.cuh on its one frame (the core's
+//    slot_kernel, which row 4 shares: register
 //    blocks of 4 query rows x 4 columns x 4 dx, 8.5 FFMA per shared-memory
 //    wavefront, key rows sharing each staged query chunk, a 2-stage
 //    cp.async ring, passes outside the circle's band skipped) and writes
@@ -66,39 +67,6 @@ using wtk::Geometry;
 using wtk::KMAX;
 constexpr int MT = 128;  // merge threads per block
 
-// One bank slot.
-struct SlotBank {
-  const float* frame_;
-  int f;
-  __device__ int count() const { return 1; }
-  __device__ int order_j(int) const { return f; }
-  __device__ bool twice(int) const { return false; }
-  __device__ const float* frame(int) const { return frame_; }
-};
-
-// Stage 1: the tile's top-k lists over slot blockIdx.y to part_s / part_o
-// (F, h*w, topk); empty entries are (-inf, INT_MAX).
-template <int NP, int NKR = wtk::key_rows(NP),
-          int NT = wtk::threads(NP, NKR)>
-__global__ void __launch_bounds__(NT, 1)
-    local_topk_slot_kernel(const float* __restrict__ query,
-                           const float* __restrict__ bank,
-                           const int* __restrict__ valid,
-                           float* __restrict__ part_s,
-                           int* __restrict__ part_o, Geometry g) {
-  extern __shared__ float4 smem4[];
-  const int f = blockIdx.y;
-  if (valid[f] == 0) return;  // uniform over the block; merge skips it too
-  const int y0 = (blockIdx.x / g.tiles_x) * wtk::TH;
-  const int x0 = (blockIdx.x % g.tiles_x) * wtk::TW;
-  const SlotBank slot{bank + (size_t)f * g.h * g.w * g.C, f};
-  float* smem = reinterpret_cast<float*>(smem4);
-  wtk::run<NP, NKR>(query, slot, y0, x0, g, smem);
-  __syncthreads();
-  wtk::store_lists<NT>(wtk::lists(g, smem, NKR), f, y0, x0, g, part_s,
-                       part_o);
-}
-
 // Stage 2: one thread per query merges the valid slots' lists and runs the
 // epilogue.
 __global__ void __launch_bounds__(MT)
@@ -138,20 +106,6 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
-template <int NP>
-cudaError_t launch_slots(const float* query, const float* bank,
-                         const int* valid, float* part_s, int* part_o, int F,
-                         const Geometry& g, cudaStream_t stream) {
-  auto kernel = local_topk_slot_kernel<NP>;
-  const size_t smem = wtk::smem_bytes(g, wtk::key_rows(NP));
-  const cudaError_t err = wtk::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(wtk::tiles(g), F);
-  kernel<<<grid, wtk::threads(NP, wtk::key_rows(NP)), smem, stream>>>(
-      query, bank, valid, part_s, part_o, g);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -180,13 +134,8 @@ int vfs_local_topk_attend(const void* query, const void* bank,
   float* ps = static_cast<float*>(part_s);
   int* po = static_cast<int*>(part_o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (wtk::passes(r)) {
-    case 1: err = launch_slots<1>(q, b, ok, ps, po, F, g, st); break;
-    case 2: err = launch_slots<2>(q, b, ok, ps, po, F, g, st); break;
-    case 3: err = launch_slots<3>(q, b, ok, ps, po, F, g, st); break;
-    default: err = launch_slots<4>(q, b, ok, ps, po, F, g, st); break;
-  }
+  const cudaError_t err =
+      wtk::launch_slots<false>(q, b, ok, ps, po, F, g, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   local_topk_merge_kernel<<<(h * w + MT - 1) / MT, MT, 0, st>>>(
       static_cast<const float*>(vals), ok, ps, po, static_cast<float*>(out),

@@ -1,5 +1,5 @@
-// Masked top-k local attention of one query frame against a frame bank, by
-// a running merge over the bank's slots (the v2 per-step attention).
+// Masked top-k local attention of one query frame against a frame bank,
+// without the epilogue (the v2 per-step attention's selection).
 //
 // Replaces the TPU kernel pallas_local_topk_attend_v2
 // (vfs_tpu/ops/pallas_attention_v2.py:130, body _make_kernel :40). Its
@@ -16,35 +16,24 @@
 // the query's own cell in slot 0 (the TPU kernel's fillers point at flat
 // index 0 with weight 0; neither reaches the logits).
 //
-// Design. Three launches on the caller's stream, from one C entry point.
-// 0. Compact: one block writes the valid slots in order to slots[0..n) and
-//    n to slots[F].
-// 1. Groups: one block per (tile of 8 x 32 query cells, group g of G) runs
-//    the windowed top-k core of window_topk.cuh (row 3's: 4 x 4 x 4
-//    register blocks, key rows sharing each staged query chunk, a 2-stage
-//    cp.async ring, passes outside the circle's band skipped) over the
-//    valid slots of ranks [g*n/G, (g+1)*n/G), in slot order, and writes the
-//    tile's lists to part (g). This keeps v2's running merge over slots:
-//    the lists stay warm across a group's slots, where row 3's (tile, slot)
-//    blocks fill them from empty on every slot. A group whose range is
-//    empty returns at once and stage 2 skips it.
-// 2. Merge: one thread per query merges the non-empty groups' lists in
-//    group order under the full comparator and decodes them: row 3's merge
-//    stage (the core's merge_parts and decode_list) without its epilogue.
-// G trades warm lists (small G) against balance: one block runs per SM
-// (16 warps at r18, 12 at r50), tiles differ in work (edge tiles have
-// fewer key rows), and the SMs even that out only over several blocks
-// each. `python3 ab_kernels.py --groups` timed G at the DAVIS shapes (32
-// tiles, F = 21) on an NVIDIA H100 80GB HBM3 at 700 W, ms per step:
-//   G     1      2      3      4      7      11     21
-//   r18   12.33  6.76   4.55   3.95   4.09   3.91   3.93
-//   r50   82.24  43.72  28.16  24.30  23.57  21.29  19.72
-// G = 4 (128 blocks, one wave) keeps its lists warm over 5 or 6 slots but
-// its 6-slot interior tiles set the step's length; balance wins at r50
-// and ties at r18. So the wrapper's rule (window_geometry.slot_groups, the
-// one place G is derived) takes the fewest groups that give every SM 5
-// blocks: G = min(F, ceil(5 * SMs / tiles)), 21 at the DAVIS shapes, and
-// fewer, warm groups for maps of more tiles (5 at 135 x 240 cells).
+// Design. Two launches on the caller's stream, from one C entry point: row
+// 3's two stages (local_topk_attend.cu) without its epilogue.
+// 1. Per slot: the core's slot_kernel (window_topk.cuh), one block per
+//    (tile of 8 x 32 query cells, slot f) with register blocks of 4 query
+//    rows x 4 columns x 4 dx, key rows sharing each staged query chunk, a
+//    2-stage cp.async ring and passes outside the circle's band skipped. It
+//    writes the tile's lists over its slot to scratch; a block of an
+//    invalid slot returns at once.
+// 2. Merge: one thread per query merges the valid slots' lists in slot
+//    order under the full comparator and decodes them (the core's
+//    merge_parts and decode_list, row 3's merge stage).
+// v2's TPU kernel merges its slots into one running list. A block that
+// walks several slots would keep its lists warm over them, but a step has
+// only 32 tiles at 60 x 107 cells: fewer blocks than the (tile, slot)
+// grid's 672 leave the 132 SMs unbalanced, one block of 16 (r18) or 12
+// (r50) warps running per SM and edge tiles doing less work. Slot groups
+// of that kind were timed on the card and lost to this grid at r50 and
+// tied at r18 (PERF.md §6), so the grid stays.
 //
 // Bound (an H100 SXM). With a full bank (21 valid distinct slots) at the
 // DAVIS-480p shapes (60x107 cells, top-10) one step needs 26.34 GFLOP at
@@ -53,9 +42,8 @@
 // / 552 MB of bank read once: bound by operations. The earlier per-frame
 // design (one block per tile: 210 / 405 blocks of 8 warps on 132 SMs, the
 // whole key-window score block in shared memory, extraction by passes)
-// reached 9.0% / 13.4% of it; this one reaches about 9% / 17%
-// (chip_smoke.py on the card above), row 3's shares. At G = F its stage 1
-// is row 3's grid over the valid slots, and what holds row 3 holds it
+// reached 9.0% / 13.4% of it; this one reaches row 3's shares, about 10%
+// / 17% (chip_smoke.py on the card above), and what holds row 3 holds it
 // (the inner loop's FFMA rate and wasted pairs, the exposed stage copies,
 // the merges of lists that fill from empty in every block; PERF.md §6).
 //
@@ -68,89 +56,13 @@
 
 namespace {
 
-using wtk::Geometry;
 using wtk::KMAX;
-constexpr int CT = 1024;  // compaction threads
-constexpr int MT = 128;   // merge threads per block
+constexpr int MT = 128;  // merge threads per block
 
-// First rank of group g of G over n valid slots (window_geometry.group_begin).
-__device__ __forceinline__ int group_begin(int g, int G, int n) {
-  return (int)((long long)g * n / G);
-}
-
-// Stage 0: the valid slots in slot order to slots[0..n), n to slots[F].
-__global__ void __launch_bounds__(CT)
-    local_v2_compact_kernel(const int* __restrict__ valid,
-                            int* __restrict__ slots, int F) {
-  __shared__ int warp_n[CT / 32];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  int base = 0;  // valid slots before this round, the same in every thread
-  for (int f0 = 0; f0 < F; f0 += CT) {
-    const int f = f0 + threadIdx.x;
-    const bool ok = f < F && valid[f] != 0;
-    const unsigned m = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) warp_n[wid] = __popc(m);
-    __syncthreads();  // warp_n written
-    int at = base;
-    for (int i = 0; i < CT / 32; ++i) {
-      if (i == wid) at = base;  // base so far: the warps before this one
-      base += warp_n[i];
-    }
-    if (ok) slots[at + __popc(m & ((1u << lane) - 1u))] = f;
-    __syncthreads();  // every thread read warp_n
-  }
-  if (threadIdx.x == 0) slots[F] = base;
-}
-
-// The valid slots of one group, in slot order.
-struct GroupBank {
-  const float* bank;
-  size_t frame_stride;
-  const int* slots;  // the group's first slot
-  int n;
-  __device__ int count() const { return n; }
-  __device__ int order_j(int i) const { return slots[i]; }
-  __device__ bool twice(int) const { return false; }
-  __device__ const float* frame(int i) const {
-    return bank + (size_t)slots[i] * frame_stride;
-  }
-};
-
-// Stage 1: the tile's top-k lists over group blockIdx.y's slots to part_s
-// / part_o (G, h*w, topk); empty entries are (-inf, INT_MAX). COUNT: add
-// the warp's merges to merge_count (a separate instance, as in row 2).
-template <int NP, bool COUNT, int NKR = wtk::key_rows(NP),
-          int NT = wtk::threads(NP, NKR)>
-__global__ void __launch_bounds__(NT, 1)
-    local_v2_group_kernel(const float* __restrict__ query,
-                          const float* __restrict__ bank,
-                          const int* __restrict__ slots, int F,
-                          float* __restrict__ part_s,
-                          int* __restrict__ part_o, Geometry g,
-                          unsigned long long* __restrict__ merge_count) {
-  extern __shared__ float4 smem4[];
-  const int n = slots[F];
-  const int grp = blockIdx.y;
-  const int lo = group_begin(grp, gridDim.y, n);
-  const int hi = group_begin(grp + 1, gridDim.y, n);
-  if (lo == hi) return;  // uniform over the block; stage 2 skips it too
-  const int y0 = (blockIdx.x / g.tiles_x) * wtk::TH;
-  const int x0 = (blockIdx.x % g.tiles_x) * wtk::TW;
-  const GroupBank group{bank, (size_t)g.h * g.w * g.C, slots + lo, hi - lo};
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int merged = wtk::run<NP, NKR>(query, group, y0, x0, g, smem);
-  __syncthreads();
-  wtk::store_lists<NT>(wtk::lists(g, smem, NKR), grp, y0, x0, g, part_s,
-                       part_o);
-  if (COUNT && (threadIdx.x & 31) == 0)
-    atomicAdd(merge_count, (unsigned long long)merged);
-}
-
-// Stage 2: one thread per query merges the non-empty groups' lists and
-// decodes them.
+// Stage 2: one thread per query merges the valid slots' lists and decodes
+// them.
 __global__ void __launch_bounds__(MT)
-    local_v2_merge_kernel(const int* __restrict__ slots, int F, int G,
+    local_v2_merge_kernel(const int* __restrict__ valid, int F,
                           const float* __restrict__ part_s,
                           const int* __restrict__ part_o,
                           float* __restrict__ out_s,
@@ -159,77 +71,46 @@ __global__ void __launch_bounds__(MT)
   const int hw = h * w;
   const int q = blockIdx.x * MT + threadIdx.x;
   if (q >= hw) return;
-  const int n = slots[F];
   float ls[KMAX];
   int lo[KMAX];
-  wtk::merge_parts(
-      part_s, part_o, G,
-      [&](int p) { return group_begin(p, G, n) < group_begin(p + 1, G, n); },
-      hw, q, topk, ls, lo);
+  wtk::merge_parts(part_s, part_o, F, [&](int f) { return valid[f] != 0; },
+                   hw, q, topk, ls, lo);
   wtk::decode_list(ls, lo, topk, q, q / w, q % w, w, hw, r, out_s, out_i);
-}
-
-template <int NP>
-cudaError_t launch_groups(const float* query, const float* bank,
-                          const int* slots, int F, int G, float* part_s,
-                          int* part_o, const Geometry& g,
-                          unsigned long long* count, cudaStream_t stream) {
-  auto kernel = count != nullptr ? local_v2_group_kernel<NP, true>
-                                 : local_v2_group_kernel<NP, false>;
-  const size_t smem = wtk::smem_bytes(g, wtk::key_rows(NP));
-  const cudaError_t err = wtk::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(wtk::tiles(g), G);
-  kernel<<<grid, wtk::threads(NP, wtk::key_rows(NP)), smem, stream>>>(
-      query, bank, slots, F, part_s, part_o, g, count);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// G: slot groups, 1 <= G <= F (the wrapper's
-// window_geometry.slot_groups). Scratch: part_s (G*h*w*topk floats),
-// part_o (as many ints), slots (F + 1 ints). r and band: the wrapper's
-// plan (window_geometry.window_plan); band holds r + 1 host ints.
-// merge_count (one unsigned 64-bit integer, or null: no atomics)
-// accumulates the (query, key row) merges the blocks ran.
+// part_s (F*h*w*topk floats) and part_o (as many ints) are scratch for the
+// per-slot lists. r and band: the wrapper's plan
+// (window_geometry.window_plan); band holds r + 1 host ints. merge_count
+// (one unsigned 64-bit integer, or null: no atomics) accumulates the
+// (query, key row) merges the blocks ran.
 int vfs_local_topk_attend_v2(const void* query, const void* bank,
                              const void* valid, void* scores, void* src,
-                             void* part_s, void* part_o, void* slots, int F,
-                             int G, int h, int w, int C, int r,
-                             const int* band, float inv_tau, int topk,
-                             void* merge_count, void* stream) {
-  if (F < 1 || F > 65535 || G < 1 || G > F || h < 1 || w < 1 || C < 4 ||
-      C % 4 != 0 || !wtk::check_band(r, band, topk) ||
-      (long long)G * h * w >= INT_MAX ||
+                             void* part_s, void* part_o, int F, int h, int w,
+                             int C, int r, const int* band, float inv_tau,
+                             int topk, void* merge_count, void* stream) {
+  if (F < 1 || F > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
+      !wtk::check_band(r, band, topk) || (long long)h * w >= INT_MAX ||
       (long long)F * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const Geometry g = wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
+  const wtk::Geometry g = wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
   const float* q = static_cast<const float*>(query);
   const float* b = static_cast<const float*>(bank);
-  int* sl = static_cast<int*>(slots);
+  const int* ok = static_cast<const int*>(valid);
   float* ps = static_cast<float*>(part_s);
   int* po = static_cast<int*>(part_o);
   unsigned long long* count = static_cast<unsigned long long*>(merge_count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  local_v2_compact_kernel<<<1, CT, 0, st>>>(static_cast<const int*>(valid),
-                                            sl, F);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  switch (wtk::passes(r)) {
-    case 1: err = launch_groups<1>(q, b, sl, F, G, ps, po, g, count, st);
-      break;
-    case 2: err = launch_groups<2>(q, b, sl, F, G, ps, po, g, count, st);
-      break;
-    case 3: err = launch_groups<3>(q, b, sl, F, G, ps, po, g, count, st);
-      break;
-    default: err = launch_groups<4>(q, b, sl, F, G, ps, po, g, count, st);
-  }
+  const cudaError_t err =
+      count != nullptr
+          ? wtk::launch_slots<true>(q, b, ok, ps, po, F, g, count, st)
+          : wtk::launch_slots<false>(q, b, ok, ps, po, F, g, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   local_v2_merge_kernel<<<(h * w + MT - 1) / MT, MT, 0, st>>>(
-      sl, F, G, ps, po, static_cast<float*>(scores),
+      ok, F, ps, po, static_cast<float*>(scores),
       static_cast<long long*>(src), h, w, r, topk);
   return (int)cudaGetLastError();
 }

@@ -16,10 +16,10 @@
 // the circle (|dx| <= band[|dy|], the host's table of the float test
 // float(dy^2 + dx^2) < radius^2) and in the map, under the full comparator:
 // score descending, then order key (j, dy + r, dx + r) ascending. The list
-// is exact whatever order the keys arrive in, so rows 2 and 4, which walk
-// the bank in other orders and other groupings than rows 1 and 3, give the
-// same lists bit for bit. Every score is an fmaf chain in ascending channel
-// order from 0, times inv_tau.
+// is exact whatever order the keys arrive in, so row 2, which walks the
+// bank in another order than row 1, gives row 1's lists bit for bit; row 4
+// runs row 3's stages and gives its lists too. Every score is an fmaf
+// chain in ascending channel order from 0, times inv_tau.
 //
 // Bound. 2*C FLOPs per (query, in-map circle key, distinct bank frame): at
 // the DAVIS shapes (60 x 107 cells, P = 20) 0.393 ms per frame or step at
@@ -71,19 +71,22 @@
 //   with a score that beats it: the list, in shared memory, sits one entry
 //   per lane and each such score goes to its place by a ballot and a
 //   shuffle. Each list is touched by one warp at a time, so nothing is
-//   locked. In a block's first key rows nearly every score enters (row 3
-//   scores one slot per block, so its lists fill from empty in every
-//   block); later ones mostly stop at the check. The check is the tau exit
-//   of the per-frame TPU kernels generalised from a frame to a key row;
-//   run<..., EXIT = false> skips it (row 2's 'sweep' extraction), and every
-//   query with in-band candidates is merged: the same lists, more merges.
+//   locked. In a block's first key rows nearly every score enters (rows 3
+//   and 4 score one slot per block, so their lists fill from empty in
+//   every block); later ones mostly stop at the check. The check is the
+//   tau exit of the per-frame TPU kernels generalised from a frame to a
+//   key row; run<..., EXIT = false> skips it (row 2's 'sweep'
+//   extraction), and every query with in-band candidates is merged: the
+//   same lists, more merges.
 //
 // Interface for the kernels that include it: run() leaves the tile's lists
 // in shared memory (lists()); the caller reads them after __syncthreads().
 // It returns the (query, key row) merges its warp ran, for a counter.
-// store_video_lists (rows 1 and 2) decodes them to the video outputs;
-// store_lists (rows 3 and 4) writes them to a partial-list buffer, which
-// merge_parts and decode_list reduce in a second stage.
+// store_video_lists (rows 1 and 2) decodes them to the video outputs.
+// Rows 3 and 4 share their first stage, slot_kernel (launch_slots): one
+// block per (tile, bank slot) writes the tile's lists over that slot to a
+// partial-list buffer (store_lists), which merge_parts and decode_list
+// reduce in a second stage.
 //
 // Ablation switches, all off in the package's build. `python3
 // ab_kernels.py --ablate` builds rows 1 and 3 with one of them on
@@ -651,6 +654,81 @@ __device__ void store_lists(const Lists& L, int p, int y0, int x0,
   }
 }
 
+// One bank slot: rows 3 and 4's first stage.
+struct SlotBank {
+  const float* frame_;
+  int f;
+  __device__ int count() const { return 1; }
+  __device__ int order_j(int) const { return f; }
+  __device__ bool twice(int) const { return false; }
+  __device__ const float* frame(int) const { return frame_; }
+};
+
+// Rows 3 and 4, stage 1: the tile's top-k lists over slot blockIdx.y to
+// part_s / part_o (F, h*w, topk); empty entries are (-inf, INT_MAX). A
+// block of an invalid slot returns at once (stage 2 skips the slot too).
+// COUNT: add the warps' (query, key row) merges to merge_count; the
+// uncounted instance carries no count.
+template <int NP, bool COUNT, int NKR = key_rows(NP),
+          int NT = threads(NP, NKR)>
+__global__ void __launch_bounds__(NT, 1)
+    slot_kernel(const float* __restrict__ query,
+                const float* __restrict__ bank,
+                const int* __restrict__ valid, float* __restrict__ part_s,
+                int* __restrict__ part_o, Geometry g,
+                unsigned long long* __restrict__ merge_count) {
+  extern __shared__ float4 smem4[];
+  const int f = blockIdx.y;
+  if (valid[f] == 0) return;  // uniform over the block
+  const int y0 = (blockIdx.x / g.tiles_x) * TH;
+  const int x0 = (blockIdx.x % g.tiles_x) * TW;
+  const SlotBank slot{bank + (size_t)f * g.h * g.w * g.C, f};
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int merged = run<NP, NKR>(query, slot, y0, x0, g, smem);
+  __syncthreads();
+  store_lists<NT>(lists(g, smem, NKR), f, y0, x0, g, part_s, part_o);
+  if (COUNT && (threadIdx.x & 31) == 0)
+    atomicAdd(merge_count, (unsigned long long)merged);
+}
+
+template <int NP, bool COUNT>
+cudaError_t launch_slots_np(const float* query, const float* bank,
+                            const int* valid, float* part_s, int* part_o,
+                            int F, const Geometry& g,
+                            unsigned long long* merge_count,
+                            cudaStream_t stream) {
+  auto kernel = slot_kernel<NP, COUNT>;
+  const size_t smem = smem_bytes(g, key_rows(NP));
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles(g), F);
+  kernel<<<grid, threads(NP, key_rows(NP)), smem, stream>>>(
+      query, bank, valid, part_s, part_o, g, merge_count);
+  return cudaGetLastError();
+}
+
+// Launch stage 1 over F slots on stream, for g.r's passes.
+template <bool COUNT>
+cudaError_t launch_slots(const float* query, const float* bank,
+                         const int* valid, float* part_s, int* part_o, int F,
+                         const Geometry& g, unsigned long long* merge_count,
+                         cudaStream_t stream) {
+  switch (passes(g.r)) {
+    case 1: return launch_slots_np<1, COUNT>(query, bank, valid, part_s,
+                                             part_o, F, g, merge_count,
+                                             stream);
+    case 2: return launch_slots_np<2, COUNT>(query, bank, valid, part_s,
+                                             part_o, F, g, merge_count,
+                                             stream);
+    case 3: return launch_slots_np<3, COUNT>(query, bank, valid, part_s,
+                                             part_o, F, g, merge_count,
+                                             stream);
+    default: return launch_slots_np<4, COUNT>(query, bank, valid, part_s,
+                                              part_o, F, g, merge_count,
+                                              stream);
+  }
+}
+
 // Insert (s, o) into the sorted list (ls, lo) of length topk, dropping its
 // last entry; the caller checked that (s, o) beats that entry. Not inlined:
 // one copy serves every call site, and insertions are rare next to the
@@ -694,8 +772,11 @@ __device__ __forceinline__ void merge_parts(const float* __restrict__ part_s,
 }
 
 // Decode query q = (y, x)'s merged list: the order key (f, dy + r, dx + r)
-// of entry i becomes the cell index f*h*w + ky*w + kx in lo[i]; fillers
-// become (NEG_INF, q). Writes both to out_s / out_i [q * topk, + topk).
+// of entry i becomes the cell index f*h*w + ky*w + kx, computed in 64 bits;
+// fillers become (NEG_INF, q). Writes both to out_s / out_i [q * topk,
+// + topk) and leaves the score in ls[i] and the index's low 32 bits in
+// lo[i]: the index itself where F*h*w < 2^31, as row 3's entry requires for
+// its value gather.
 __device__ __forceinline__ void decode_list(float* ls, int* lo, int topk,
                                             int q, int y, int x, int w,
                                             int hw, int r,
@@ -704,19 +785,20 @@ __device__ __forceinline__ void decode_list(float* ls, int* lo, int topk,
   const int span = 2 * r + 1;
   const size_t base = (size_t)q * topk;
   for (int i = 0; i < topk; ++i) {
+    long long idx = q;
     if (lo[i] == INT_MAX) {  // filler: fewer than k valid keys
       ls[i] = NEG_INF;
-      lo[i] = q;
     } else {
       const int o = lo[i];
       const int f = o / (span * span);
       const int rem = o - f * span * span;
       const int dy = rem / span - r;
       const int dx = rem % span - r;
-      lo[i] = f * hw + (y + dy) * w + (x + dx);
+      idx = (long long)f * hw + (long long)(y + dy) * w + (x + dx);
     }
+    lo[i] = (int)idx;
     out_s[base + i] = ls[i];
-    out_i[base + i] = lo[i];
+    out_i[base + i] = idx;
   }
 }
 

@@ -1,5 +1,4 @@
-"""Masked top-k local attention of one query frame, v2: per-frame
-extraction with a running merge.
+"""Masked top-k local attention of one query frame, v2.
 
 PyTorch counterpart of ``vfs_tpu/ops/pallas_attention_v2.py``
 (``pallas_local_topk_attend_v2``, a drop-in replacement for
@@ -7,12 +6,11 @@ PyTorch counterpart of ``vfs_tpu/ops/pallas_attention_v2.py``
 ``local_attention.local_topk_attend``, with the same signature, contract
 and ``(out, scores, src)`` result, so its plain version is
 ``local_attention.local_topk_attend_reference``. The kernel
-(``vfs_tpu_torch/csrc/local_topk_attend_v2.cu``) runs the windowed top-k
-core of row 3 with a running merge over groups of valid slots
-(``window_geometry.slot_groups``), then merges the groups' lists; the
-epilogue (gather, softmax, weighted sum) is plain PyTorch after it, as
-the JAX package leaves it to XLA. No propagation backend calls it, as in
-the JAX package.
+(``vfs_tpu_torch/csrc/local_topk_attend_v2.cu``) runs row 3's two stages
+on the windowed top-k core, per-slot lists and their merge; the epilogue
+(gather, softmax, weighted sum) is plain PyTorch after it, as the JAX
+package leaves it to XLA. No propagation backend calls it, as in the JAX
+package.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -28,7 +26,7 @@ import torch
 from . import _build
 from .local_attention import (Result, check_operands,
                               local_topk_attend_reference)
-from .window_geometry import plan_args, slot_groups, tile_count, window_plan
+from .window_geometry import plan_args, window_plan
 
 KERNEL_NAME = 'local_topk_attend_v2'
 
@@ -36,7 +34,7 @@ KERNEL_NAME = 'local_topk_attend_v2'
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     fn = lib.vfs_local_topk_attend_v2
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -71,24 +69,20 @@ def local_topk_attend_v2_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
         raise ValueError(f'{f_total} bank slots: the kernel takes 1..65535')
     count = _build.counter_ptr(merge_count, query.device)
     dev = query.device
-    groups = slot_groups(f_total, tile_count(h, w),
-                         torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)
     valid = bank_valid.to(torch.int32).contiguous()
     scores = torch.empty((h, w, topk), dtype=torch.float32, device=dev)
     src = torch.empty((h, w, topk), dtype=torch.int64, device=dev)
-    # scratch: each group's top-k lists, merged by the kernel's last stage,
-    # and the valid slots in order with their count
-    part_s = torch.empty((groups, h, w, topk), dtype=torch.float32,
+    # scratch: each slot's top-k lists, merged by the kernel's last stage
+    part_s = torch.empty((f_total, h, w, topk), dtype=torch.float32,
                          device=dev)
-    part_o = torch.empty((groups, h, w, topk), dtype=torch.int32, device=dev)
-    slots = torch.empty(f_total + 1, dtype=torch.int32, device=dev)
+    part_o = torch.empty((f_total, h, w, topk), dtype=torch.int32,
+                         device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.vfs_local_topk_attend_v2(
             query.data_ptr(), bank_feats.data_ptr(), valid.data_ptr(),
             scores.data_ptr(), src.data_ptr(), part_s.data_ptr(),
-            part_o.data_ptr(), slots.data_ptr(), f_total, groups, h, w, c,
+            part_o.data_ptr(), f_total, h, w, c,
             *plan_args(plan), 1.0 / temperature, topk, count,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -15,10 +15,6 @@ row: its pass. ``passes`` warps cover the window's ``2r + 1`` dx for each
 group of 4 query rows. ``pass_starts`` and ``pair_counts`` follow the
 core's pass rule so that the CPU tests and ``chip_smoke.py`` can count
 the pairs the kernels compute.
-
-Row 4 splits the valid bank slots into groups, one block per (tile,
-group): ``slot_groups`` is the one rule for their number and
-``group_begin`` the split, the same as the kernel's.
 """
 
 from __future__ import annotations
@@ -88,34 +84,6 @@ def plan_args(plan: WindowPlan) -> tuple:
     """The plan as the C interfaces of the four kernels take it: r and the
     band (r + 1 host ints)."""
     return plan.r, (ctypes.c_int * len(plan.band))(*plan.band)
-
-
-def tile_count(h: int, w: int) -> int:
-    """Query tiles of an (h, w) map: one block each per bank frame, slot or
-    slot group."""
-    return -(-h // TILE_H) * -(-w // TILE_W)
-
-
-BLOCKS_PER_SM = 5
-
-
-def slot_groups(f_total: int, tiles: int, sms: int) -> int:
-    """Row 4's slot groups G for a bank of ``f_total`` slots: the fewest
-    groups whose ``tiles x G`` blocks give every SM ``BLOCKS_PER_SM`` of
-    them (one block runs per SM at a time), at most ``f_total``. Fewer
-    groups keep each block's lists warm over more slots; more blocks let
-    the SMs balance tiles of unequal work. On an H100 at the DAVIS shapes
-    (32 tiles, 21 slots) balance won: G = 21 ran fastest at r50 and within
-    1% of the fastest at r18 (``ab_kernels.py --groups``; the figures are
-    in ``csrc/local_topk_attend_v2.cu``)."""
-    return min(f_total, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
-
-
-def group_begin(g: int, groups: int, n: int) -> int:
-    """First rank of group ``g`` of ``groups`` over ``n`` valid slots:
-    group g takes the valid slots of ranks ``[group_begin(g),
-    group_begin(g + 1))``, in slot order (the kernel's rule)."""
-    return g * n // groups
 
 
 def pass_starts(plan: WindowPlan, e: int) -> Tuple[int, ...]:
