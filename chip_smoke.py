@@ -69,8 +69,36 @@ Phases, one JSON line each on stdout:
    with 19 moving parts; one launch per video, masks on >= 99.9% of
    pixels equal to the ``video_engine=v2`` run (mIoU equal) and, on one
    video, to a plain-phase-1 run.
-8. kernels: every kernel with its launches on its path, times, bound
-   and share of the bound. (The full lines also give the share of the
+8. train: slice 6's path, SimSiam pretraining of the r18 config at full
+   width (ResNet-18, the 512-512-512 / 128-512 head, 32 samples of two
+   4-frame 224x224 clips: 256 frames a step) with seeded random weights,
+   through ``python -m vfs_tpu_torch.tools.train --validate
+   --auto-resume`` in-process, on a synthetic Kinetics-layout set of 32
+   MJPG clips of 16 256x340 frames under ``build/`` (``RepeatDataset``
+   times 2: 2 steps an epoch) with the config's 16 loader processes, and
+   ``write_davis``'s layout with two 10-frame 480x854 videos for the eval
+   hook. Two epochs: every loss finite, ``video_topk_affinity`` launched
+   once per val video per eval epoch, ``epoch_1``, ``epoch_2`` and
+   ``best.json`` written; a second call with ``total_epochs=3`` resumes
+   from ``epoch_2``, runs epoch 3 alone and ends at step 6. Then one
+   step at B=2 from the same weights and batch on the card and on the CPU,
+   each in exact fp32 and in fp64 (see the tolerances below); the
+   device-only step time (median of
+   ``TIMED_STEPS`` CUDA-event-timed steps after ``WARMUP_STEPS`` on a
+   batch already on the card), ``train_mfu`` and peak memory in exact
+   fp32 and in bf16 (the bf16 step's first backbone features and
+   gradients within ``BF16_REL_L2`` of the fp32 step's and its loss
+   within ``BF16_LOSS_ATOL``, BatchNorm statistics fp32), and ``torch.profiler``'s kernel times of three more
+   steps by kind. End to end and the loader, in a window that keeps all
+   16 loader processes busy (a process builds a whole batch): a
+   ``tools.train`` run of one epoch of ``E2E_BATCHES`` steps on the
+   same clips (``RepeatDataset`` times raised), whose steps/s leaves out
+   the first step; the loader alone over a warm epoch of
+   ``LOADER_BATCHES``; and the pipeline's samples/s in this process. The
+   eval hook's J&F and wall.
+9. kernels: every kernel with its launches on its path, times, bound
+   and share of the bound. ``video_topk_affinity``'s launches are the main
+   path's and the train phase's eval hook's. (The full lines also give the share of the
    computed pairs the function needs, from the core's pass rule. Times
    of an earlier checkout come from ``ab_kernels.py``, which runs both
    checkouts in one call.)
@@ -92,7 +120,33 @@ at the full shapes their scores and sources must equal those kernels'
 exactly, and the pose heatmaps of the v1 and v2 engines agree within 1e-5;
 against the plain version (cuBLAS order) a near tie may swap one selected
 key, so the plain-phase-1 heatmaps must agree within 1e-5 on >= 99.9% of
-their values.
+their values. Train: cuDNN sums the convolutions in another order than
+the CPU (TF32 off on both), and BatchNorm's ``E[x^2] - E[x]^2`` over the
+8-row batches of a B=2 step amplifies fp32 rounding by the batch's
+mean^2 / var, which the random crops move by orders of magnitude from
+batch to batch (1e-5 to 2e-3 relative L2 between card and CPU). So the
+check takes the exact answer, the CPU's step in fp64: the card's fp64
+step must equal it within 1e-9 (relative L2 of every gradient, and the
+loss), which shows the same code computes the same function on both
+devices; and the card's fp32 step must lie within ``CARD_CPU_FACTOR`` x
+the CPU's fp32 distance from it plus ``CARD_CPU_FLOOR`` (relative L2 of
+every gradient; the loss likewise plus 1e-6), which shows the card's
+fp32 (cuDNN's algorithms, TF32 off) is as accurate as the CPU's. The
+gradients that are zero in exact arithmetic (a Linear bias before a
+BatchNorm) are rounding noise and are left out. The bf16 step: its
+first step from the same seed-0 weights on the same batch as the fp32
+step; the backbone's features (both views) and all the gradients are
+set against the fp32 step's in relative L2. The loss, ``2 - 2 cos``
+averaged, is about 2.00 at this initialisation whatever the backbone
+computes, so its check (``BF16_LOSS_ATOL``, 1e-3 against readings of
+2.1e-5 and 3.6e-6) tells little beside those two. Measured on an H100 80GB HBM3
+at 700 W, two runs: features 1.03e-2 in both, gradients 1.63e-1 and
+1.55e-1 (the CPU tests hold each bf16 stage against the JAX package's
+bf16 ConvBN, where fp32 differs from bf16 by 3e-3 a stage forward).
+``BF16_REL_L2`` holds them at about
+2.5x those readings above, and at 1e-3 and 1e-2 below, so that a bf16
+step that ran in fp32 fails: two fp32 steps differ by rounding alone
+(the card's and the CPU's gradients by 2e-5).
 """
 
 from __future__ import annotations
@@ -114,10 +168,11 @@ CONFIG = os.path.join(ROOT, 'configs', 'r18_nc_sgd_cos_100e_r2_1xNx8_k400.py')
 CONFIG_R50 = os.path.join(ROOT, 'configs',
                           'r50_nc_sgd_cos_100e_r5_1xNx2_k400.py')
 
-# (fp32 CUDA-core TFLOP/s, device-memory TB/s), NVIDIA data sheets, dense,
-# at the full power limit; first matching name wins
-PEAKS = [('H100 PCIe', 51.0, 2.0), ('H100 NVL', 60.0, 3.9),
-         ('H100', 67.0, 3.35)]
+# (fp32 CUDA-core TFLOP/s, device-memory TB/s, bf16 tensor-core TFLOP/s),
+# NVIDIA data sheets, dense, at the full power limit; first matching name
+# wins
+PEAKS = [('H100 PCIe', 51.0, 2.0, 756.0), ('H100 NVL', 60.0, 3.9, 835.0),
+         ('H100', 67.0, 3.35, 989.0)]
 
 # the CPU tests' small-shape matrix: (T, h, w, neighbor_range, P, topk)
 SMALL_CASES = [(9, 6, 7, 6, 4, 5), (12, 8, 8, 6, 4, 3), (6, 5, 9, 8, 3, 4),
@@ -181,9 +236,10 @@ def emit(obj):
 
 
 def peaks(name):
-    for key, tflops, tbps in PEAKS:
+    """(fp32 TFLOP/s, TB/s, bf16 TFLOP/s) of the card called ``name``."""
+    for key, *rates in PEAKS:
         if key in name:
-            return tflops, tbps
+            return tuple(rates)
     return PEAKS[2][1:]
 
 
@@ -248,7 +304,7 @@ def step_work(h, w, c, radius, topk, k_classes, n_slots, distinct):
 
 
 def bound_ms(flops, nbytes, name):
-    tflops, tbps = peaks(name)
+    tflops, tbps, _ = peaks(name)
     by_ops = flops / (tflops * 1e12) * 1e3
     by_bytes = nbytes / (tbps * 1e12) * 1e3
     return max(by_ops, by_bytes), ('operations' if by_ops >= by_bytes
@@ -1533,6 +1589,491 @@ def phase_vip():
     return launches
 
 
+# the train phase (module docstring, phase 8)
+K400_CLIPS, K400_FRAMES, K400_HW = 32, 16, (256, 340)
+TRAIN_VAL_FRAMES = 10
+TIMED_STEPS, WARMUP_STEPS = 10, 3
+# batches in the epoch that times the end-to-end rate (two for each of
+# the config's 16 loader processes, so that the steps wait on the loader's
+# second round) and in the warm epoch that times the loader alone (one
+# for each: all 16 busy)
+E2E_BATCHES, LOADER_BATCHES = 32, 16
+LOADER_SAMPLES_IN_PROCESS = 8
+CARD_CPU_FACTOR, CARD_CPU_FLOOR = 4.0, 1e-5
+# (low, high) relative L2 of the bf16 step's step-0 backbone features and
+# gradients from the fp32 step's (module docstring, tolerances)
+BF16_REL_L2 = dict(feats=(1e-3, 2.5e-2), grads=(1e-2, 0.4))
+BF16_LOSS_ATOL = 1e-3
+
+
+def write_k400(root):
+    """A Kinetics-layout set under ``root``: ``K400_CLIPS`` MJPG ``.avi``
+    clips (OpenCV writes MJPG without FFmpeg) of ``K400_FRAMES`` frames of
+    ``K400_HW``, a blocky textured background with a disc moving across
+    it, each from its own seed, and the list file. Every frame of every
+    clip must read back through cv2. Returns the list file's path."""
+    import cv2
+    n, t_total, (h, w) = K400_CLIPS, K400_FRAMES, K400_HW
+    lines = []
+    yy, xx = np.mgrid[:h, :w]
+    for v in range(n):
+        rng = np.random.RandomState(100 + v)
+        base = rng.randint(0, 255, (h // 16 + 1, w // 16 + 1, 3))
+        base = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w]
+        colour = rng.randint(0, 255, 3)
+        name = f'clip{v:03d}.avi'
+        writer = cv2.VideoWriter(os.path.join(root, name),
+                                 cv2.VideoWriter_fourcc(*'MJPG'), 25,
+                                 (w, h))
+        for t in range(t_total):
+            img = base.copy()
+            cy, cx = 60 + 6 * t, 40 + 15 * t
+            img[(yy - cy)**2 + (xx - cx)**2 < 45**2] = colour
+            writer.write(img.astype(np.uint8))
+        writer.release()
+        cap = cv2.VideoCapture(os.path.join(root, name))
+        read = 0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            read += frame.shape == (h, w, 3)
+        cap.release()
+        if read != t_total:
+            raise AssertionError(f'{name}: cv2 read back {read} of '
+                                 f'{t_total} frames')
+        lines.append(f'{name} {v % 400}\n')
+    ann = os.path.join(root, 'k400_train_list.txt')
+    with open(ann, 'w') as f:
+        f.writelines(lines)
+    return ann
+
+
+def train_flops(model, frames_hw, n_frames):
+    """FLOPs of one train step of ``model``: 2 per multiply-accumulate of
+    every convolution and linear layer at the shapes a forward over two
+    views of ``n_frames`` frames gives them, x3 for the forward and the
+    backward (data and weight gradients), but x2 for the stem's
+    convolution, whose input (the frames) takes no gradient; and the
+    forward's multiply-accumulates a frame. Counted with hooks on a copy
+    over two 1-frame views, scaled."""
+    import copy
+    import torch
+    probe = copy.deepcopy(model).cpu().float().eval()
+    macs = [0, 0]  # forward, forward + backward passes
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.in_channels // m.groups * m.kernel_size[0] \
+                * m.kernel_size[1]
+        else:
+            k = m.in_features
+        passes = 2 if m is probe.backbone.conv1 else 3
+        macs[0] += out.numel() * k
+        macs[1] += passes * out.numel() * k
+
+    for m in probe.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        # one sample of two 1-frame views: the backbone and head see 2
+        # frames; the BatchNorms of an eval-mode copy run on 1-row batches
+        probe(torch.zeros(1, 2, 1, *frames_hw, 3))
+    return 2 * macs[1] * n_frames / 2, macs[0] / 2
+
+
+def step_timer(records):
+    """``patched`` maker for ``apis.train.make_train_step``: each step's
+    loss (a tensor on the card) and its end time, the card's queue
+    drained, go to ``records``."""
+    import torch
+
+    def make(make_step):
+        def wrapped(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def timed(imgs):
+                log_vars = step(imgs)
+                torch.cuda.synchronize()
+                records.append((log_vars['loss'], time.time()))
+                return log_vars
+            return timed
+        return wrapped
+    return make
+
+
+def eval_counter(evals):
+    """``patched`` maker for ``apis.test.single_process_test``: each
+    eval's wall seconds and ``video_topk_affinity``'s launches in it."""
+    import torch
+    from vfs_tpu_torch.ops import video_topk_affinity_cuda
+
+    def make(fn):
+        def counted(model, dataset, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = video_topk_affinity_cuda.launches, time.time()
+            out = fn(model, dataset, *args, **kwargs)
+            torch.cuda.synchronize()
+            evals.append(dict(videos=len(dataset), wall_s=time.time() - t0,
+                              launches=video_topk_affinity_cuda.launches
+                              - before))
+            return out
+        return counted
+    return make
+
+
+def build_train_model(cfg_dict, mixed, dev):
+    """The config's tracker at full width with seeded random weights
+    (seed 0), on ``dev``; ``mixed`` takes the bf16 backbone."""
+    import copy
+    import torch
+    from vfs_tpu_torch.apis.train import apply_mixed_precision
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.utils import Config
+    cfg = Config.fromdict(copy.deepcopy(cfg_dict))
+    if mixed:
+        cfg.bf16 = True
+        apply_mixed_precision(cfg)
+    model = build_model(cfg.model, train_cfg=cfg.get('train_cfg'))
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    if dev.type == 'cuda':
+        model.backbone.to(memory_format=torch.channels_last)
+    return model, cfg
+
+
+def train_grads(cfg_dict, batch, device, dtype):
+    """One step of the config's model (seed-0 weights) on ``batch``:
+    (loss, {name: gradient as fp64 on the CPU})."""
+    import torch
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    model, cfg = build_train_model(cfg_dict, False, torch.device('cpu'))
+    model.to(device=device, dtype=dtype)
+    if device.type == 'cuda':
+        model.backbone.to(memory_format=torch.channels_last)
+    optimizer, _ = build_optimizer(model.parameters(), cfg.optimizer,
+                                   cfg.get('lr_config'), 10, 5)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    loss = float(make_train_step(model, optimizer)(
+        batch.astype(np_dtype))['loss'])
+    return loss, {n: p.grad.detach().double().cpu()
+                  for n, p in model.named_parameters()}
+
+
+def grad_error(grads, ref):
+    """The largest relative L2 difference of a gradient from ``ref``'s,
+    and its name; gradients that are zero in exact arithmetic (a Linear
+    bias before a BatchNorm: below 1e-6 of the whole) are left out."""
+    import torch
+    total = float(torch.sqrt(sum((g * g).sum() for g in ref.values())))
+    return max((float((grads[n] - g).norm()) / float(g.norm()), n)
+               for n, g in ref.items() if float(g.norm()) > 1e-6 * total)
+
+
+def card_vs_cpu(cfg_dict, batch, dev):
+    """One step at B=2 from the same weights and batch on the card and on
+    the CPU through the same code, each in exact fp32 and in fp64 (module
+    docstring, tolerances). Returns the losses and the errors."""
+    import torch
+    cpu = torch.device('cpu')
+    l64, g64 = train_grads(cfg_dict, batch, cpu, torch.float64)
+    card64 = train_grads(cfg_dict, batch, dev, torch.float64)
+    cpu32 = train_grads(cfg_dict, batch, cpu, torch.float32)
+    card32 = train_grads(cfg_dict, batch, dev, torch.float32)
+    err64, name64 = grad_error(card64[1], g64)
+    err_cpu, _ = grad_error(cpu32[1], g64)
+    err_card, name = grad_error(card32[1], g64)
+    err_pair, _ = grad_error(card32[1], cpu32[1])
+    if err64 > 1e-9 or abs(card64[0] - l64) > 1e-9 * abs(l64):
+        raise AssertionError(f'card vs CPU in fp64: gradient {name64} '
+                             f'differs by {err64}, loss {card64[0]} vs '
+                             f'{l64}')
+    if err_card > CARD_CPU_FACTOR * err_cpu + CARD_CPU_FLOOR or \
+            abs(card32[0] - l64) > CARD_CPU_FACTOR * abs(cpu32[0] - l64) \
+            + 1e-6 * abs(l64):
+        raise AssertionError(
+            f'card vs CPU in fp32: gradient {name} off the fp64 step by '
+            f'{err_card} (the CPU by {err_cpu}), loss {card32[0]} '
+            f'({cpu32[0]} on the CPU, {l64} in fp64)')
+    return dict(loss_fp32=[card32[0], cpu32[0]], loss_fp64=[card64[0], l64],
+                grad_rel_l2_fp32_card_cpu=err_pair,
+                grad_rel_l2_fp32_card_exact=err_card,
+                grad_rel_l2_fp32_cpu_exact=err_cpu,
+                grad_rel_l2_fp64_card_cpu=err64)
+
+
+KERNEL_KINDS = (('conv', ('conv', 'cudnn', 'xmma', 'wgrad', 'dgrad',
+                           'fprop', 'implicit')),
+                ('gemm', ('gemm', 'cublas', 'cutlass')),
+                ('reduce', ('reduce',)),
+                ('elementwise', ('elementwise', 'vectorized', 'unrolled')))
+
+
+def device_breakdown(step, batch, steps=3):
+    """``torch.profiler``'s kernel times over ``steps`` train steps: the
+    card's busy ms a step, its idle share of the steps' wall (the
+    profiler's own cost included), the ms a step by kind of kernel (by
+    name) and the top kernels. None where it shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
+    kernels = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith('CUDA'):
+            us = getattr(e, 'self_device_time_total', None)
+            if us is None:
+                us = getattr(e, 'self_cuda_time_total', 0)
+            kernels.append((us / 1e3 / steps, e.key, e.count / steps))
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        return dict(device_busy_ms=None, device_idle_share=None,
+                    kernel_ms_by_kind=None, top_kernels=None)
+    kinds = {}
+    for ms, name, _ in kernels:
+        low = name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(key in low for key in keys)), 'other')
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    kernels.sort(reverse=True)
+    return dict(device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+                kernel_ms_by_kind=kinds,
+                kernels_per_step=sum(k[2] for k in kernels),
+                top_kernels=[[name[:90], ms, n]
+                             for ms, name, n in kernels[:8]])
+
+
+def device_steps(cfg_dict, batch, mixed, dev):
+    """Median ms of TIMED_STEPS CUDA-event-timed train steps on a batch
+    already on the card, after WARMUP_STEPS, and the peak memory; the
+    first step's loss, backbone features (both views) and gradients,
+    whether the BatchNorm statistics stayed fp32, and
+    ``device_breakdown`` of three more steps."""
+    import torch
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    model, cfg = build_train_model(cfg_dict, mixed, dev)
+    optimizer, _ = build_optimizer(model.parameters(), cfg.optimizer,
+                                   cfg.get('lr_config'), 1000, 100)
+    step = make_train_step(model, optimizer)
+    feats = []
+    hook = model.backbone.register_forward_hook(
+        lambda m, args, out: feats.append(out.detach().clone()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first_loss = float(step(batch)['loss'])
+    hook.remove()
+    first = dict(loss=first_loss, feats=torch.cat(feats),
+                 grads=torch.cat([p.grad.detach().flatten()
+                                  for p in model.parameters()]))
+    ms = cuda_ms(lambda: step(batch), runs=TIMED_STEPS,
+                 warmup=WARMUP_STEPS - 1)
+    stats_fp32 = all(b.dtype == torch.float32 for n, b in
+                     model.named_buffers() if 'running' in n)
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = device_breakdown(step, batch)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return ms, peak, first, stats_fp32, breakdown
+
+
+def phase_train(dev, smi_line):
+    """Slice 6's path (module docstring, phase 8). Returns the launches of
+    video_topk_affinity in the eval hook."""
+    import torch
+    import vfs_tpu_torch.apis.test as apis_test
+    import vfs_tpu_torch.apis.train as apis_train
+    from vfs_tpu_torch.datasets import build_dataloader, build_dataset
+    from vfs_tpu_torch.ops import video_topk_affinity_cuda
+    from vfs_tpu_torch.tools import train as tools_train
+    from vfs_tpu_torch.utils import Config
+
+    cfg_dict = Config.fromfile(CONFIG).to_dict()
+    global_batch = cfg_dict['data']['videos_per_gpu']
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        clips = os.path.join(root, 'k400')
+        os.makedirs(clips)
+        ann = write_k400(clips)
+        davis = os.path.join(root, 'davis')
+        img_root, ann_root, (list_all, _), _ = write_davis(
+            davis, t_total=TRAIN_VAL_FRAMES)
+        work = os.path.join(root, 'work')
+        # the config's key names a second feature (feat_1) that an eval
+        # with one out_index does not give, so best.json would never be
+        # written (in the JAX package too): key on the one J&F
+        options = [f'data.train.dataset.ann_file={ann}',
+                   f'data.train.dataset.data_prefix={clips}',
+                   f'data.val.ann_file={list_all}',
+                   f'data.val.data_prefix={img_root}',
+                   f'data.val.anno_prefix={ann_root}',
+                   f'data.val.data_root={davis}',
+                   'evaluation.key_indicator=J&F-Mean']
+
+        def train(total_epochs, validate, records, evals, work=work,
+                  extra=()):
+            argv = [CONFIG, '--work-dir', work, '--auto-resume',
+                    *(['--validate'] if validate else []), '--options',
+                    *options, *extra, f'total_epochs={total_epochs}']
+            with patched(apis_train, 'make_train_step',
+                         step_timer(records)), \
+                    patched(apis_test, 'single_process_test',
+                            eval_counter(evals)):
+                t0 = time.time()
+                state = tools_train.main(argv)
+                return state, time.time() - t0
+
+        # the path, counted: two epochs with the eval hook
+        records, evals = [], []
+        video_topk_affinity_cuda.launches = 0
+        state, wall_s = train(2, True, records, evals)
+        launches = video_topk_affinity_cuda.launches
+        steps_per_epoch = len(records) // 2
+        losses = [float(loss) for loss, _ in records]
+        ckpt = os.path.join(work, 'checkpoints')
+        with open(os.path.join(work, 'best.json')) as f:
+            best = json.load(f)
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            val = [r for r in map(json.loads, f) if r['mode'] == 'val']
+        # auto-resume: epoch 3 alone
+        resume_records, resume_evals = [], []
+        state3, _ = train(3, False, resume_records, resume_evals)
+        ckpts = sorted(os.listdir(ckpt))
+
+        # end to end in a window that keeps every loader process busy:
+        # one epoch of E2E_BATCHES steps, the first step (the pool's
+        # start) left out
+        window_records = []
+        times = E2E_BATCHES * global_batch // K400_CLIPS
+        train(1, False, window_records, [], work=os.path.join(root, 'e2e'),
+              extra=[f'data.train.times={times}'])
+        window_ends = [t for _, t in window_records]
+        e2e_sps = (len(window_ends) - 1) / (window_ends[-1]
+                                            - window_ends[0])
+
+        # the host loader alone: epoch 0 starts the pool and gives the
+        # batch used below, epoch 1 is timed
+        dataset = build_dataset(dict(
+            cfg_dict['data']['train'],
+            times=LOADER_BATCHES * global_batch // K400_CLIPS, dataset=dict(
+                cfg_dict['data']['train']['dataset'], ann_file=ann,
+                data_prefix=clips)))
+        loader = build_dataloader(
+            dataset, global_batch, cfg_dict['data']['workers_per_gpu'],
+            shuffle=True, drop_last=True, seed=0)
+        try:
+            first_batch = None
+            for batch in loader:
+                first_batch = first_batch or batch
+            loader.set_epoch(1)
+            t0 = time.time()
+            n_samples = sum(len(b['imgs']) for b in loader)
+            loader_sps = n_samples / (time.time() - t0)
+        finally:
+            loader.close()
+        # the pipeline in this process, a sample at a time (cv2 free to
+        # use its threads)
+        t0 = time.time()
+        for i in range(LOADER_SAMPLES_IN_PROCESS):
+            dataset[i]
+        in_process_sps = LOADER_SAMPLES_IN_PROCESS / (time.time() - t0)
+        frames_hw = first_batch['imgs'].shape[3:5]
+        clip_len = first_batch['imgs'].shape[2]
+        card_batch = torch.as_tensor(first_batch['imgs'], device=dev)
+        small = first_batch['imgs'][:2]
+
+    want = K400_CLIPS * cfg_dict['data']['train']['times'] // global_batch
+    if state.step != 2 * steps_per_epoch or steps_per_epoch != want:
+        raise AssertionError(f'{state.step} steps, {steps_per_epoch} an '
+                             f'epoch (want 2 x {want})')
+    if not all(np.isfinite(losses)) or len(losses) != 2 * want:
+        raise AssertionError(f'train losses {losses}')
+    if [e['launches'] for e in evals] != [e['videos'] for e in evals] \
+            or len(evals) != 2 or launches != sum(e['videos'] for e in evals):
+        raise AssertionError(f'eval hook launches {evals} ({launches} in '
+                             'all; want one per val video per epoch)')
+    if 'epoch_1' not in ckpts or 'epoch_2' not in ckpts:
+        raise AssertionError(f'checkpoints {ckpts}')
+    if state3.step != 3 * want or len(resume_records) != want \
+            or 'epoch_3' not in ckpts or resume_evals:
+        raise AssertionError(f'resume: step {state3.step}, '
+                             f'{len(resume_records)} steps run')
+    if not all(np.isfinite(float(loss)) for loss, _ in resume_records):
+        raise AssertionError('non-finite loss after resume')
+    if not 0.0 <= best['best_score'] <= 1.0 or len(val) != 2:
+        raise AssertionError(f'eval hook results {best} {val}')
+    if len(window_records) != E2E_BATCHES or not all(
+            np.isfinite(float(loss)) for loss, _ in window_records):
+        raise AssertionError(f'end-to-end window: {len(window_records)} '
+                             f'steps (want {E2E_BATCHES})')
+
+    card_cpu = card_vs_cpu(cfg_dict, small, dev)
+    n_frames = global_batch * 2 * clip_len
+    flops, macs_per_frame = train_flops(
+        build_train_model(cfg_dict, False, torch.device('cpu'))[0],
+        frames_hw, n_frames)
+    fp32_tflops, _, bf16_tflops = peaks(smi_line)
+    modes, first = {}, {}
+    for name, mixed, peak_tflops in (
+            ('fp32', False, fp32_tflops),
+            ('bf16', True, bf16_tflops)):
+        ms, mem, first[name], stats_fp32, breakdown = device_steps(
+            cfg_dict, card_batch, mixed, dev)
+        modes[name] = dict(
+            ms_per_step=ms, steps_per_s=1e3 / ms,
+            frames_per_s=n_frames * 1e3 / ms,
+            train_mfu=flops / (ms * 1e-3) / (peak_tflops * 1e12),
+            peak_tflops=peak_tflops,
+            bound_ms=flops / (peak_tflops * 1e12) * 1e3,
+            max_memory_allocated_gb=mem / 2**30,
+            step0_loss=first[name]['loss'], bn_stats_fp32=stats_fp32,
+            **breakdown)
+    bf16_gap = {k: float((first['bf16'][k] - first['fp32'][k]).norm()
+                         / first['fp32'][k].norm())
+                for k in ('feats', 'grads')}
+    for k, (low, high) in BF16_REL_L2.items():
+        if not low < bf16_gap[k] < high:
+            raise AssertionError(f'bf16 step-0 {k} off the fp32 ones by '
+                                 f'{bf16_gap[k]} in relative L2 (want '
+                                 f'{low} to {high})')
+    loss_gap = abs(first['bf16']['loss'] - first['fp32']['loss'])
+    if loss_gap > BF16_LOSS_ATOL:
+        raise AssertionError(f'bf16 step-0 loss off the fp32 one by '
+                             f'{loss_gap} (> {BF16_LOSS_ATOL})')
+    if not modes['bf16']['bn_stats_fp32']:
+        raise AssertionError('bf16 step: BatchNorm statistics not fp32')
+    emit({'phase': 'train', 'card': smi_line,
+          'config': os.path.relpath(CONFIG, ROOT),
+          'global_batch': global_batch, 'frames_per_step': n_frames,
+          'frame_hw': list(frames_hw),
+          'gmac_per_frame': macs_per_frame / 1e9,
+          'tflop_per_step': flops / 1e12, **{
+              f'{m}_{k}': v for m, d in modes.items() for k, v in d.items()},
+          'bf16_fp32_loss_gap': loss_gap,
+          'bf16_fp32_feature_rel_l2': bf16_gap['feats'],
+          'bf16_fp32_grad_rel_l2': bf16_gap['grads'],
+          **{f'card_vs_cpu_{k}': v for k, v in card_cpu.items()},
+          'loader_samples_per_s': loader_sps,
+          'loader_samples_per_s_in_process': in_process_sps,
+          'loader_workers': cfg_dict['data']['workers_per_gpu'],
+          'loader_epoch_batches': LOADER_BATCHES,
+          'e2e_epoch_steps': E2E_BATCHES,
+          'e2e_steps_per_s': e2e_sps,
+          'train_wall_s': wall_s, 'losses': losses,
+          'eval_jf': [r['J&F-Mean'] for r in val],
+          'eval_wall_s': [e['wall_s'] for e in evals],
+          'eval_videos': evals[0]['videos'], 'kernel_launches': launches,
+          'resume_final_step': state3.step, 'checkpoints': ckpts})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1549,6 +2090,7 @@ def main():
     row1 = phase_main(dev, smi_line)
     row3 = phase_eval(local_full)
     v1_launches = phase_pose() + phase_vip()
+    row1[0]['launches'] += phase_train(dev, smi_line)
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
     emit({'kernels': [*row1, row2, row3, v2_entry]})

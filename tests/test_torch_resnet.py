@@ -206,5 +206,5 @@ def test_resnet_init_and_modes():
     assert not model.layer2[0].bn1.training  # norm_eval
     # zero-init residual: each block's last BN starts at scale 0
     assert float(model.layer3[1].bn2.weight.detach().abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError):
-        ResNet(depth=18, dtype='bfloat16')
+    with pytest.raises(ValueError):
+        ResNet(depth=18, dtype='float16')

@@ -1,0 +1,303 @@
+"""Training loop (counterpart of ``vfs_tpu/apis/train.py``; reference:
+mmaction/apis/train.py:12-119 and the mmcv EpochBasedRunner it delegates
+to, here one loop).
+
+One process trains on one device, CUDA unless the caller passes
+``device='cpu'``; a process group of several (``parallel.init_dist``)
+trains data-parallel under the JAX package's contract (each process its
+shard, the local mean loss, averaged gradients, global BatchNorm
+statistics). A step is forward, backward and one update of the optax
+chain (``core.optimizer``). Without ``fp16`` / ``bf16`` in the config it
+runs in the exact fp32 mode (TF32 off); with either, the backbone runs
+under bf16 autocast (``apply_mixed_precision``) while the master weights,
+the heads, the loss and the BatchNorm statistics stay fp32. Checkpoints
+each ``checkpoint_config.interval`` epochs under
+``work_dir/checkpoints/epoch_{n}``, auto-resume from the latest, and the
+propagation eval of ``data.val`` after each ``evaluation.interval``
+epochs (``EvalHook``, ``best.json``).
+
+Left for later slices, each raising ``NotImplementedError``: on-device
+augmentation (``cfg.device_aug``), ``--profile``, the wandb logger
+(ROADMAP Queue 1 item 4), and eval over several devices or processes
+(item 5).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..checkpoint import (latest_checkpoint, load_backbone_state,
+                          load_torchvision_resnet, restore_checkpoint,
+                          save_checkpoint)
+from ..core.optimizer import ChainedOptimizer, build_optimizer
+from ..datasets import build_dataloader
+from ..device import DeviceLike, exact_fp32, resolve_device
+from ..models.trackers.sim_siam_tracker import parse_losses
+from ..parallel import (get_rank, get_world_size, reduce_log_vars,
+                        wrap_distributed)
+from ..utils import JsonlLogger, get_root_logger
+
+
+class TrainState(NamedTuple):
+    model: nn.Module
+    optimizer: ChainedOptimizer
+    step: int
+
+
+def _later(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is ported in a later slice (ROADMAP Queue 1 item {item})')
+
+
+def apply_mixed_precision(cfg) -> bool:
+    """With the reference's ``fp16 = dict(...)`` key (or ``bf16 = True``)
+    in the config, give the backbone ``dtype='bfloat16'`` (bf16 autocast
+    in its forward; parameters and BatchNorm statistics stay fp32).
+    ``loss_scale`` keys are accepted and ignored: bf16 needs no loss
+    scaling. Returns True if mixed precision was enabled. Call before
+    ``build_model``."""
+    mixed = bool(cfg.get('fp16') is not None or cfg.get('bf16'))
+    if mixed and isinstance(cfg.get('model'), dict) \
+            and isinstance(cfg.model.get('backbone'), dict):
+        cfg.model.backbone.setdefault('dtype', 'bfloat16')
+    return mixed
+
+
+def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
+                    norm_cfg: Optional[Dict] = None
+                    ) -> Callable[[np.ndarray], Dict[str, torch.Tensor]]:
+    """The train step: ``step(imgs)`` moves a (B, 2, T, H, W, C) batch to
+    the model's device, runs forward and backward (``model`` may be the
+    ``DistributedDataParallel`` wrapper) and one optimizer update, and
+    returns this process's log vars (tensors on the device; reading them
+    waits for the step).
+
+    ``norm_cfg`` (``mean`` / ``std``) takes the uint8 input path: a train
+    pipeline with ``Normalize(on_device=True)`` ships uint8 frames and
+    the step computes ``(x - mean) / std`` on the device, in fp32, with
+    the pipeline's own constants (``_pipeline_norm_cfg``)."""
+    device = next(model.parameters()).device
+    mean = std = None
+    if norm_cfg is not None:
+        mean = torch.as_tensor(np.asarray(norm_cfg['mean'], np.float32),
+                               device=device)
+        std = torch.as_tensor(np.asarray(norm_cfg['std'], np.float32),
+                              device=device)
+
+    def train_step(imgs) -> Dict[str, torch.Tensor]:
+        x = torch.as_tensor(imgs).to(device)
+        if x.dtype == torch.uint8:
+            if mean is None:
+                raise ValueError(
+                    'uint8 train batch needs img_norm_cfg (pipeline used '
+                    'Normalize(on_device=True) but the config has no '
+                    'img_norm_cfg)')
+            x = (x.to(torch.float32) - mean) / std
+        with exact_fp32():
+            total, log_vars = parse_losses(model(x))
+            optimizer.zero_grad()
+            total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in log_vars.items()}
+
+    return train_step
+
+
+def _load_backbone_pretrained(model: nn.Module, cfg, logger) -> None:
+    """Honour ``cfg.model.backbone.pretrained`` (a torchvision-layout
+    ``.pth``) for the train path, after the random init. A checkpoint
+    that does not fit the backbone raises."""
+    backbone = (cfg.get('model') or {}).get('backbone') \
+        if isinstance(cfg.get('model'), dict) else None
+    pre = (backbone or {}).get('pretrained')
+    if not pre:
+        return
+    if backbone.get('type') != 'ResNet':
+        raise ValueError(
+            f'backbone.pretrained={pre!r} is only supported for the 2D '
+            f"ResNet backbone; got type={backbone.get('type')!r}")
+    load_backbone_state(model.backbone, load_torchvision_resnet(pre))
+    logger.info(f'initialized backbone from pretrained {pre}')
+
+
+def _pipeline_norm_cfg(dataset) -> Optional[Dict]:
+    """The mean/std that the train pipeline's ``Normalize`` applies (the
+    uint8 on-device path must use these, not ``cfg.img_norm_cfg``).
+    Unwraps ``RepeatDataset`` and the like through ``.dataset``."""
+    from ..datasets.pipelines.augmentations import Normalize
+    ds = dataset
+    while not hasattr(ds, 'pipeline') and hasattr(ds, 'dataset'):
+        ds = ds.dataset
+    for t in getattr(getattr(ds, 'pipeline', None), 'transforms', []):
+        if isinstance(t, Normalize):
+            return dict(mean=t.mean, std=t.std)
+    return None
+
+
+def _refuse_later_slices(cfg, validate: bool, local_devices) -> None:
+    """Config keys the JAX trainer honours that this slice leaves out."""
+    if cfg.get('device_aug'):
+        raise _later('cfg.device_aug (on-device augmentation)', 4)
+    if int(cfg.get('profile_steps', 0) or 0) > 0:
+        raise _later('--profile', 4)
+    hooks = (cfg.get('log_config') or {}).get('hooks', []) or []
+    if any(isinstance(h, dict) and h.get('type') == 'WandbLoggerHook'
+           for h in hooks):
+        raise _later('the wandb logger (WandbLoggerHook)', 4)
+    if local_devices:
+        raise _later('validation over several devices (--local-devices)', 5)
+    if validate and get_world_size() > 1:
+        raise _later('validation in a run of several processes', 5)
+
+
+def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
+                logger=None, local_devices=None,
+                device: DeviceLike = None) -> TrainState:
+    """Train ``model`` (a tracker whose forward returns a loss dict) on
+    ``dataset`` per ``cfg`` on ``device`` (CUDA unless the caller says
+    otherwise). Returns the final ``TrainState``."""
+    logger = logger or get_root_logger()
+    device = resolve_device(device)
+    _refuse_later_slices(cfg, validate, local_devices)
+    work_dir = cfg.get('work_dir', './work_dirs/default')
+    os.makedirs(work_dir, exist_ok=True)
+    rank = get_rank()
+    jsonl = JsonlLogger(os.path.join(work_dir, 'train_log.jsonl'))
+    seed = cfg.get('seed', 0) or 0
+
+    data_cfg = cfg.data
+    loader = build_dataloader(
+        dataset, videos_per_gpu=data_cfg['videos_per_gpu'],
+        workers_per_gpu=data_cfg['workers_per_gpu'], shuffle=True,
+        drop_last=True, seed=seed, num_shards=get_world_size(),
+        shard_index=rank)
+    total_epochs = cfg.total_epochs
+    iters_per_epoch = len(loader)
+    total_iters = total_epochs * iters_per_epoch
+    grad_clip = None
+    if cfg.get('optimizer_config'):
+        gc = cfg.optimizer_config.get('grad_clip')
+        if gc:
+            grad_clip = gc.get('max_norm', None) if isinstance(gc, dict) \
+                else gc
+
+    model.init_weights(torch.Generator().manual_seed(seed))
+    _load_backbone_pretrained(model, cfg, logger)
+    model.to(device)
+    if device.type == 'cuda':
+        model.backbone.to(memory_format=torch.channels_last)
+    optimizer, schedule = build_optimizer(
+        model.parameters(), cfg.optimizer, cfg.get('lr_config'), total_iters,
+        iters_per_epoch, grad_clip)
+
+    # auto-resume (reference tools/train.py:103-105)
+    start_epoch = 0
+    ckpt_dir = os.path.join(work_dir, 'checkpoints')
+    latest = latest_checkpoint(ckpt_dir)
+    if latest and cfg.get('auto_resume', True):
+        ckpt = restore_checkpoint(latest, map_location=device)
+        model.load_state_dict(ckpt['model'])
+        optimizer.load_state_dict(ckpt['optimizer'])
+        start_epoch = int(os.path.basename(latest).split('_')[1])
+        logger.info(f'auto-resumed from {latest} (epoch {start_epoch})')
+
+    if cfg.get('fp16') is not None or cfg.get('bf16'):
+        logger.info('mixed precision enabled: bf16 backbone, fp32 master '
+                    'weights, heads and BatchNorm statistics')
+    train_step = make_train_step(
+        wrap_distributed(model, device), optimizer,
+        _pipeline_norm_cfg(dataset) or cfg.get('img_norm_cfg'))
+
+    log_interval = (cfg.get('log_config') or {}).get('interval', 50)
+    eval_hook = None
+    if validate and cfg.get('data') and cfg.data.get('val'):
+        from ..core.evaluation.eval_hooks import EvalHook
+        eval_cfg = dict(cfg.get('evaluation') or {})
+        eval_hook = EvalHook(
+            build_val_eval_fn(cfg, lambda: model, device=device),
+            interval=eval_cfg.get('interval', 1),
+            key_indicator=eval_cfg.get('key_indicator'),
+            rule=eval_cfg.get('rule'), work_dir=work_dir)
+    ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval', 1)
+
+    try:
+        for epoch in range(start_epoch, total_epochs):
+            loader.set_epoch(epoch)
+            model.train()
+            t_iter = time.time()
+            for i, batch in enumerate(loader):
+                log_vars = train_step(batch['imgs'])
+                if (i + 1) % log_interval == 0:
+                    log_vars = reduce_log_vars(log_vars)
+                    lr = schedule(optimizer.count - 1)
+                    dt = (time.time() - t_iter) / log_interval
+                    t_iter = time.time()
+                    logger.info(
+                        f'Epoch [{epoch + 1}][{i + 1}/{iters_per_epoch}] '
+                        f'lr: {lr:.5f}, time: {dt:.3f}, ' + ', '.join(
+                            f'{k}: {v:.4f}' for k, v in log_vars.items()))
+                    if rank == 0:
+                        jsonl.log(dict(mode='train', epoch=epoch + 1,
+                                       iter=i + 1, lr=lr, time=dt,
+                                       **log_vars))
+            if rank == 0 and ((epoch + 1) % ckpt_interval == 0
+                              or epoch + 1 == total_epochs):
+                path = save_checkpoint(ckpt_dir, epoch + 1, dict(
+                    model=model.state_dict(),
+                    optimizer=optimizer.state_dict(),
+                    step=optimizer.count, epoch=epoch + 1))
+                logger.info(f'checkpoint saved to {path}')
+            if eval_hook is not None:
+                results = eval_hook.after_epoch(epoch)
+                if results:
+                    jsonl.log(dict(mode='val', epoch=epoch + 1, **{
+                        k: float(v) for k, v in results.items()
+                        if isinstance(v, (int, float))}))
+    finally:
+        loader.close()
+    return TrainState(model, optimizer, optimizer.count)
+
+
+def build_val_eval_fn(cfg, model_getter: Callable[[], nn.Module],
+                      device: DeviceLike = None):
+    """An eval_fn running the propagation eval of ``cfg.data.val`` with the
+    current training backbone: its state dict goes into a
+    ``VanillaTracker`` built with ``test_cfg`` (test strides and
+    out_indices; the weights do not depend on them). A hand-off whose
+    ``backbone.*`` keys do not match raises, because a silent miss would
+    evaluate untrained weights."""
+    from ..datasets import build_dataset
+    from ..models import build_model
+    from .test import single_process_test
+
+    dataset = build_dataset(cfg.data.val, dict(test_mode=True))
+    tracker = build_model(
+        dict(type='VanillaTracker', backbone=dict(cfg.model.backbone)),
+        test_cfg=cfg.test_cfg)
+
+    def eval_fn():
+        prefix = 'backbone.'
+        state = {k[len(prefix):]: v
+                 for k, v in model_getter().state_dict().items()
+                 if k.startswith(prefix)}
+        want = set(tracker.backbone.state_dict())
+        if set(state) != want:
+            raise KeyError(
+                'validation weight hand-off: the train model\'s backbone.* '
+                f'keys do not match the eval backbone (missing '
+                f'{sorted(want - set(state))[:4]}, unexpected '
+                f'{sorted(set(state) - want)[:4]}); did the tracker rename '
+                'its backbone?')
+        tracker.backbone.load_state_dict(state)
+        results = single_process_test(tracker, dataset, device=device)
+        metrics = cfg.evaluation.get('metrics', 'davis') \
+            if cfg.get('evaluation') else 'davis'
+        return dataset.evaluate(results, metrics=metrics)
+
+    return eval_fn

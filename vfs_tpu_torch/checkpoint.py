@@ -7,12 +7,20 @@
 - ``flax_resnet_to_torch``: the JAX package's ResNet ``(params,
   batch_stats)`` trees, as nested dicts of numpy arrays, -> a state dict
   for the port's ``ResNet``. Conv kernels go HWIO -> OIHW.
+- ``flax_head_to_torch`` / ``flax_simsiam_to_torch``: the same for a
+  SimSiam head and a whole ``SimSiamBaseTracker`` (``_backbone`` and
+  ``_img_head``); ``Dense`` kernels go (in, out) -> ``Linear`` (out, in).
+- ``save_checkpoint`` / ``latest_checkpoint`` / ``restore_checkpoint``:
+  train checkpoints (``torch.save`` of the model, the optimizer, the
+  schedule step and the epoch) under ``epoch_{n}``, with a ``latest``
+  marker that auto-resume reads.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -97,6 +105,79 @@ def flax_resnet_to_torch(params: Mapping, batch_stats: Mapping
                 n = re.fullmatch(r'conv(\d)', child).group(1)
                 convbn(p, s, f'{base}.conv{n}', f'{base}.bn{n}')
     return sd
+
+
+def flax_head_to_torch(params: Mapping, batch_stats: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """A JAX-package head's trees -> a state dict of the port's head, leaf
+    by leaf: ``kernel`` -> ``weight`` in torch's layout (``Dense`` (in,
+    out) -> (out, in); ``Conv`` HWIO -> OIHW), ``scale`` -> ``weight``,
+    ``mean`` / ``var`` -> ``running_mean`` / ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+    leaf_names = dict(bias='bias', scale='weight', mean='running_mean',
+                      var='running_var')
+
+    def walk(tree, prefix):
+        for name, node in tree.items():
+            if hasattr(node, 'items'):
+                walk(node, f'{prefix}{name}.')
+                continue
+            a = np.asarray(node, dtype=np.float32)
+            if name == 'kernel':
+                a = a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))
+                name = 'weight'
+            else:
+                name = leaf_names[name]
+            sd[f'{prefix}{name}'] = torch.from_numpy(np.array(a))
+
+    walk(params, '')
+    walk(batch_stats, '')
+    return sd
+
+
+def flax_simsiam_to_torch(params: Mapping, batch_stats: Mapping
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX-package ``SimSiamBaseTracker`` trees -> a state dict of the
+    port's tracker: ``_backbone`` through ``flax_resnet_to_torch`` under
+    ``backbone.``, ``_img_head`` through ``flax_head_to_torch`` under
+    ``img_head.``."""
+    sd = {f'backbone.{k}': v for k, v in flax_resnet_to_torch(
+        params['_backbone'], batch_stats['_backbone']).items()}
+    if '_img_head' in params:
+        sd.update({f'img_head.{k}': v for k, v in flax_head_to_torch(
+            params['_img_head'], batch_stats.get('_img_head', {})).items()})
+    return sd
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, state: Dict[str, Any]) -> str:
+    """``torch.save`` a train state (model and optimizer state dicts, the
+    schedule step, the epoch) as ``ckpt_dir/epoch_{epoch}`` and point the
+    ``latest`` marker at it. Returns the path."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    name = f'epoch_{epoch}'
+    path = os.path.join(ckpt_dir, name)
+    torch.save(state, path + '.tmp')
+    os.replace(path + '.tmp', path)
+    with open(os.path.join(ckpt_dir, 'latest'), 'w') as f:
+        f.write(name)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The path the ``latest`` marker names, or None."""
+    marker = os.path.join(ckpt_dir, 'latest')
+    if not os.path.isfile(marker):
+        return None
+    with open(marker) as f:
+        path = os.path.join(ckpt_dir, f.read().strip())
+    return path if os.path.isfile(path) else None
+
+
+def restore_checkpoint(path: str,
+                       map_location: Any = 'cpu') -> Dict[str, Any]:
+    """A train state written by ``save_checkpoint``."""
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def load_backbone_state(module: torch.nn.Module,

@@ -1,9 +1,15 @@
-from .augmentations import Flip, Normalize, Resize
+from .augmentations import (ColorJitter, Flip, Normalize, RandomGaussianBlur,
+                            RandomGrayScale, RandomResizedCrop, Resize)
 from .compose import Compose
 from .formating import Collect, FormatShape, ToTensor
-from .loading import RawFrameDecode, SequentialSampleFrames
+from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
+                      OpenCVDecode, OpenCVInit, RawFrameDecode, SampleFrames,
+                      SequentialSampleFrames)
 
 __all__ = [
-    'Flip', 'Normalize', 'Resize', 'Compose', 'Collect', 'FormatShape',
-    'ToTensor', 'RawFrameDecode', 'SequentialSampleFrames'
+    'ColorJitter', 'Flip', 'Normalize', 'RandomGaussianBlur',
+    'RandomGrayScale', 'RandomResizedCrop', 'Resize', 'Compose', 'Collect',
+    'FormatShape', 'ToTensor', 'Clip2Frame', 'DecordDecode', 'DecordInit',
+    'Frame2Clip', 'OpenCVDecode', 'OpenCVInit', 'RawFrameDecode',
+    'SampleFrames', 'SequentialSampleFrames'
 ]

@@ -1,9 +1,14 @@
-"""Geometric and photometric transforms of the eval pipeline (host-side
-numpy, cv2 and PIL; counterpart of ``Resize``, ``Flip`` and ``Normalize``
-in ``vfs_tpu/datasets/pipelines/augmentations.py``, reference:
-mmaction/datasets/pipelines/augmentations.py)."""
+"""Geometric and photometric transforms (host-side numpy, cv2 and PIL;
+counterpart of ``vfs_tpu/datasets/pipelines/augmentations.py``,
+reference: mmaction/datasets/pipelines/augmentations.py). The random ones
+draw from ``np.random`` and ``random`` in the JAX package's order, so
+equal seeds give equal frames; ``same_on_clip=False`` re-draws per frame
+and ``same_across_clip=False`` at clip boundaries (VFS's per-frame
+augmentation)."""
 
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -56,6 +61,64 @@ def _should_generate_new(i, results, same_on_clip, same_across_clip,
         keep_same = i % clip_len in same_frame_indices
         generate_new = generate_new and not keep_same
     return generate_new
+
+
+@PIPELINES.register_module()
+class RandomResizedCrop:
+    """Random area/aspect crop (reference augmentations.py:171-330)."""
+
+    def __init__(self, area_range=(0.08, 1.0),
+                 aspect_ratio_range=(3 / 4, 4 / 3), same_on_clip=True,
+                 same_across_clip=True, same_clip_indices=None,
+                 same_frame_indices=None):
+        self.area_range = area_range
+        self.aspect_ratio_range = aspect_ratio_range
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+        self.same_clip_indices = same_clip_indices
+        self.same_frame_indices = same_frame_indices
+
+    @staticmethod
+    def get_crop_bbox(img_shape, area_range, aspect_ratio_range,
+                      max_attempts=10):
+        img_h, img_w = img_shape
+        area = img_h * img_w
+        min_ar, max_ar = aspect_ratio_range
+        aspect_ratios = np.exp(np.random.uniform(
+            np.log(min_ar), np.log(max_ar), size=max_attempts))
+        target_areas = np.random.uniform(*area_range,
+                                         size=max_attempts) * area
+        candidate_w = np.round(np.sqrt(target_areas *
+                                       aspect_ratios)).astype(np.int32)
+        candidate_h = np.round(np.sqrt(target_areas /
+                                       aspect_ratios)).astype(np.int32)
+        for i in range(max_attempts):
+            crop_w, crop_h = candidate_w[i], candidate_h[i]
+            if crop_h <= img_h and crop_w <= img_w:
+                x = random.randint(0, img_w - crop_w)
+                y = random.randint(0, img_h - crop_h)
+                return x, y, x + crop_w, y + crop_h
+        crop_size = min(img_h, img_w)
+        x = (img_w - crop_size) // 2
+        y = (img_h - crop_size) // 2
+        return x, y, x + crop_size, y + crop_size
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        bbox = self.get_crop_bbox((img_h, img_w), self.area_range,
+                                  self.aspect_ratio_range)
+        for i, img in enumerate(results['imgs']):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    self.same_clip_indices, self.same_frame_indices):
+                bbox = self.get_crop_bbox((img_h, img_w), self.area_range,
+                                          self.aspect_ratio_range)
+            left, top, right, bottom = bbox
+            results['imgs'][i] = img[top:bottom, left:right]
+        left, top, right, bottom = bbox
+        results['crop_bbox'] = np.array([left, top, right, bottom])
+        results['img_shape'] = (bottom - top, right - left)
+        return results
 
 
 @PIPELINES.register_module()
@@ -156,4 +219,130 @@ class Normalize:
         results['imgs'] = imgs
         results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
                                        to_bgr=self.to_bgr)
+        return results
+
+
+@PIPELINES.register_module()
+class ColorJitter:
+    """Brightness/contrast/saturation/hue jitter with probability ``p``
+    (reference augmentations.py:1280-1320, torchvision parameterization)."""
+
+    def __init__(self, brightness=0, contrast=0, saturation=0, hue=0, p=1.0,
+                 same_on_clip=True, same_across_clip=True):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = hue
+        self.p = p
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+
+    def _sample(self):
+        if np.random.rand() >= self.p:
+            return None
+        b = np.random.uniform(max(0, 1 - self.brightness),
+                              1 + self.brightness)
+        c = np.random.uniform(max(0, 1 - self.contrast), 1 + self.contrast)
+        s = np.random.uniform(max(0, 1 - self.saturation),
+                              1 + self.saturation)
+        h = np.random.uniform(-self.hue, self.hue)
+        # torchvision get_params applies the four ops in a random
+        # permutation (the reference delegates to torchvision,
+        # augmentations.py:1304-1306); torch's randperm stream is
+        # approximated with the np stream here
+        order = tuple(np.random.permutation(4))
+        return (b, c, s, h, order)
+
+    @staticmethod
+    def _apply(img, params):
+        """torchvision adjust_* semantics in float math (cv2 HSV for the
+        hue rotate — not PIL-bit-exact, a documented approximation):
+        contrast blends against the GRAYSCALE mean and saturation blends
+        each pixel toward its grayscale value, ops in ``params`` order."""
+        import cv2
+        if params is None:
+            return img
+        b, c, s, h, order = params
+        gray_w = np.array([0.299, 0.587, 0.114], np.float32)
+        img = img.astype(np.float32)
+        for op in order:
+            if op == 0:  # brightness
+                img = np.clip(img * b, 0, 255)
+            elif op == 1:  # contrast (gray-mean blend)
+                mean = (img @ gray_w).mean()
+                img = np.clip((img - mean) * c + mean, 0, 255)
+            elif op == 2:  # saturation (per-pixel gray blend)
+                g = (img @ gray_w)[..., None]
+                img = np.clip(g + (img - g) * s, 0, 255)
+            else:  # hue
+                hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8),
+                                   cv2.COLOR_RGB2HSV).astype(np.float32)
+                hsv[..., 0] = (hsv[..., 0] + h * 180) % 180
+                hsv = np.clip(hsv, 0,
+                              [179, 255, 255]).astype(np.uint8)
+                img = cv2.cvtColor(hsv,
+                                   cv2.COLOR_HSV2RGB).astype(np.float32)
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    def __call__(self, results):
+        params = self._sample()
+        for i in range(len(results['imgs'])):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    None, None):
+                params = self._sample()
+            results['imgs'][i] = self._apply(results['imgs'][i], params)
+        return results
+
+
+@PIPELINES.register_module()
+class RandomGrayScale:
+    """Random grayscale (reference augmentations.py:1257-1278)."""
+
+    def __init__(self, p=0.2, same_on_clip=True, same_across_clip=True):
+        self.p = p
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+
+    def __call__(self, results):
+        import cv2
+        gray = np.random.rand() < self.p
+        for i in range(len(results['imgs'])):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    None, None):
+                gray = np.random.rand() < self.p
+            if gray:
+                g = cv2.cvtColor(results['imgs'][i], cv2.COLOR_RGB2GRAY)
+                results['imgs'][i] = np.stack([g, g, g], axis=-1)
+        return results
+
+
+@PIPELINES.register_module()
+class RandomGaussianBlur:
+    """Random gaussian blur (reference augmentations.py:1224-1255, PIL
+    GaussianBlur with radius ~ U(0.1, 2.0))."""
+
+    def __init__(self, p=0.5, sigma_range=(0.1, 2.0), same_on_clip=True,
+                 same_across_clip=True):
+        self.p = p
+        self.sigma_range = sigma_range
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+
+    def __call__(self, results):
+        import cv2
+        def sample():
+            if np.random.rand() >= self.p:
+                return None
+            return np.random.uniform(*self.sigma_range)
+        sigma = sample()
+        for i in range(len(results['imgs'])):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    None, None):
+                sigma = sample()
+            if sigma is not None:
+                results['imgs'][i] = cv2.GaussianBlur(
+                    results['imgs'][i], (0, 0), sigma)
         return results

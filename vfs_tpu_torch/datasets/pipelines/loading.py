@@ -1,7 +1,8 @@
-"""Frame samplers and decoders of the eval pipeline (host-side numpy, cv2
-and PIL; counterpart of the eval part of
-``vfs_tpu/datasets/pipelines/loading.py``, reference:
-mmaction/datasets/pipelines/loading.py)."""
+"""Frame samplers and decoders (host-side numpy, cv2 and PIL; counterpart
+of ``vfs_tpu/datasets/pipelines/loading.py``, reference:
+mmaction/datasets/pipelines/loading.py). The train samplers draw from
+``np.random`` in the JAX package's order, so equal seeds give equal
+frames."""
 
 from __future__ import annotations
 
@@ -10,6 +11,102 @@ import os.path as osp
 import numpy as np
 
 from ..registry import PIPELINES
+
+
+@PIPELINES.register_module()
+class SampleFrames:
+    """Sample clips of ``clip_len`` frames (reference loading.py:17-190).
+
+    Supports train (random offsets) and test (centered offsets) modes, the
+    ``loop`` out-of-bound handling used by the VFS configs, and
+    ``frame_interval=0`` (all frames of a clip at the same index; VFS r18
+    config uses clip_len=1 so interval is irrelevant).
+    """
+
+    def __init__(self, clip_len, frame_interval=1, num_clips=1,
+                 temporal_jitter=False, twice_sample=False,
+                 out_of_bound_opt='loop', test_mode=False,
+                 start_index=None):
+        self.clip_len = clip_len
+        self.frame_interval = frame_interval
+        self.num_clips = num_clips
+        self.temporal_jitter = temporal_jitter
+        self.twice_sample = twice_sample
+        self.out_of_bound_opt = out_of_bound_opt
+        self.test_mode = test_mode
+        self.start_index = start_index
+        assert out_of_bound_opt in ('loop', 'repeat_last')
+
+    def _get_train_clips(self, num_frames):
+        # frame_interval=0 (the VFS configs) gives ori_clip_len=0 exactly
+        # like the reference (loading.py:85): offsets can reach
+        # num_frames and the 'loop' wrap brings them home — matching the
+        # reference's sampling distribution draw-for-draw
+        ori_clip_len = self.clip_len * self.frame_interval
+        avg_interval = (num_frames - ori_clip_len + 1) // self.num_clips
+        if avg_interval > 0:
+            base_offsets = np.arange(self.num_clips) * avg_interval
+            clip_offsets = base_offsets + np.random.randint(
+                avg_interval, size=self.num_clips)
+        elif num_frames > max(self.num_clips, ori_clip_len):
+            clip_offsets = np.sort(
+                np.random.randint(num_frames - ori_clip_len + 1,
+                                  size=self.num_clips))
+        elif avg_interval == 0:
+            ratio = (num_frames - ori_clip_len + 1.0) / self.num_clips
+            clip_offsets = np.around(np.arange(self.num_clips) * ratio)
+        else:
+            clip_offsets = np.zeros((self.num_clips,), np.int64)
+        return clip_offsets
+
+    def _get_test_clips(self, num_frames):
+        ori_clip_len = self.clip_len * self.frame_interval
+        avg_interval = (num_frames - ori_clip_len + 1) / float(self.num_clips)
+        if num_frames > ori_clip_len - 1:
+            base_offsets = np.arange(self.num_clips) * avg_interval
+            clip_offsets = (base_offsets + avg_interval / 2.0).astype(np.int64)
+            if self.twice_sample:
+                clip_offsets = np.concatenate(
+                    [clip_offsets, base_offsets.astype(np.int64)])
+        else:
+            clip_offsets = np.zeros((self.num_clips,), np.int64)
+        return clip_offsets
+
+    def __call__(self, results):
+        total_frames = results['total_frames']
+        if self.test_mode:
+            clip_offsets = self._get_test_clips(total_frames)
+        else:
+            clip_offsets = self._get_train_clips(total_frames)
+        if self.frame_interval == 0:
+            frame_inds = np.repeat(clip_offsets[:, None], self.clip_len,
+                                   axis=1)
+        else:
+            frame_inds = clip_offsets[:, None] + np.arange(
+                self.clip_len)[None, :] * self.frame_interval
+        frame_inds = np.concatenate(frame_inds)
+        if self.temporal_jitter:
+            perframe_offsets = np.random.randint(
+                max(self.frame_interval, 1), size=len(frame_inds))
+            frame_inds += perframe_offsets
+        frame_inds = frame_inds.reshape((-1, self.clip_len))
+        if self.out_of_bound_opt == 'loop':
+            frame_inds = np.mod(frame_inds, max(total_frames, 1))
+        else:
+            safe_inds = frame_inds < total_frames
+            unsafe_inds = 1 - safe_inds
+            last_ind = np.max(safe_inds * frame_inds, axis=1)
+            new_inds = (safe_inds * frame_inds +
+                        (unsafe_inds.T * last_ind).T)
+            frame_inds = new_inds
+        start_index = self.start_index if self.start_index is not None \
+            else results.get('start_index', 0)
+        frame_inds = np.concatenate(frame_inds) + start_index
+        results['frame_inds'] = frame_inds.astype(np.int64)
+        results['clip_len'] = self.clip_len
+        results['frame_interval'] = self.frame_interval
+        results['num_clips'] = self.num_clips
+        return results
 
 
 @PIPELINES.register_module()
@@ -28,6 +125,106 @@ class SequentialSampleFrames:
         results['frame_interval'] = self.frame_interval
         results['num_clips'] = 1
         return results
+
+
+@PIPELINES.register_module()
+class Frame2Clip:
+    """Treat N sampled frames as one N-frame clip (loading.py:209-218)."""
+
+    def __call__(self, results):
+        results['clip_len'] = results['clip_len'] * results['num_clips']
+        results['num_clips'] = 1
+        return results
+
+
+@PIPELINES.register_module()
+class Clip2Frame:
+    """Regroup K 1-frame clips into K/clip_len clips of clip_len frames
+    (reference loading.py:221-233; the VFS r18 config samples 8 one-frame
+    clips then groups them into 2 clips x 4 frames)."""
+
+    def __init__(self, clip_len=2):
+        self.clip_len = clip_len
+
+    def __call__(self, results):
+        assert results['num_clips'] % self.clip_len == 0
+        results['num_clips'] = results['num_clips'] // self.clip_len
+        results['clip_len'] = self.clip_len
+        return results
+
+
+@PIPELINES.register_module()
+class OpenCVInit:
+    """Open a video with cv2 (the reference uses decord,
+    loading.py:801-838)."""
+
+    def __init__(self, io_backend='disk', **kwargs):
+        assert io_backend == 'disk'
+
+    def __call__(self, results):
+        import cv2
+        cap = cv2.VideoCapture(results['filename'])
+        if not cap.isOpened():
+            raise IOError(f'cannot open video {results["filename"]}')
+        results['video_reader'] = cap
+        results['total_frames'] = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        return results
+
+
+@PIPELINES.register_module()
+class OpenCVDecode:
+    """Decode the sampled ``frame_inds`` with cv2 (sequential seek; decodes
+    each unique index once, like the reference's unique-index map,
+    loading.py:855-876)."""
+
+    def __call__(self, results):
+        import cv2
+        cap = results['video_reader']
+        frame_inds = results['frame_inds']
+        if frame_inds.ndim != 1:
+            frame_inds = np.squeeze(frame_inds)
+        unique_inds = np.unique(frame_inds)
+        frames = {}
+        # sequential decode up to max index (cv2 random seek is unreliable)
+        max_ind = int(unique_inds.max())
+        cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
+        idx = 0
+        ok = True
+        last = None
+        while idx <= max_ind and ok:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            last = frame
+            if idx in unique_inds:
+                frames[idx] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            idx += 1
+        if last is not None:
+            for i in unique_inds:
+                if int(i) not in frames:  # short video: repeat last frame
+                    frames[int(i)] = cv2.cvtColor(last, cv2.COLOR_BGR2RGB)
+        cap.release()
+        results['video_reader'] = None
+        imgs = [frames[int(i)] for i in frame_inds]
+        results['imgs'] = imgs
+        results['original_shape'] = imgs[0].shape[:2]
+        results['img_shape'] = imgs[0].shape[:2]
+        return results
+
+
+@PIPELINES.register_module()
+class DecordInit(OpenCVInit):
+    """The reference's decord init, on cv2 (the JAX package's native
+    FFmpeg decoder is not part of the port; its cv2 fallback is)."""
+
+    def __init__(self, io_backend='disk', num_threads=1, **kwargs):
+        super().__init__(io_backend=io_backend)
+        self.num_threads = num_threads
+
+
+@PIPELINES.register_module()
+class DecordDecode(OpenCVDecode):
+    """The reference's decord decode, on cv2 (see ``DecordInit``)."""
 
 
 @PIPELINES.register_module()

@@ -11,18 +11,22 @@ checkpoints load directly (``vfs_tpu_torch.checkpoint``).
 The public seam keeps the JAX layout: ``forward`` takes ``(N, H, W, C)``
 and returns ``(N, h, w, c)`` maps. Inside, the convolutions run on the
 ``channels_last`` view of the same memory (a permute, no copy). BatchNorm
-uses eps 1e-5; in eval mode it uses the running statistics.
+uses eps 1e-5; in eval mode it uses the running statistics, in training
+mode flax's statistics and update (``models/common/norm.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..common.norm import BatchNorm2d, frozen_running_stats
 from ..registry import BACKBONES
 
 
@@ -34,13 +38,13 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, dilation,
                                dilation, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = downsample
 
     @property
-    def last_bn(self) -> nn.BatchNorm2d:
+    def last_bn(self) -> BatchNorm2d:
         return self.bn2
 
     def forward(self, x):
@@ -58,16 +62,16 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, downsample: Optional[nn.Module] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, dilation, dilation,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
+        self.bn3 = BatchNorm2d(planes * 4, eps=1e-5)
         self.downsample = downsample
 
     @property
-    def last_bn(self) -> nn.BatchNorm2d:
+    def last_bn(self) -> BatchNorm2d:
         return self.bn3
 
     def forward(self, x):
@@ -93,10 +97,21 @@ class ResNet(nn.Module):
 
     Arguments mirror the JAX package's. ``pretrained`` and
     ``torchvision_pretrain`` are kept for config compatibility (weights
-    load through the tracker). ``sync_axis``, ``partial_bn`` and
-    ``with_cp`` concern training, which a later slice of the port brings;
-    they are accepted and have no effect in eval. ``dtype`` must be
-    float32 (the bf16 backbone comes later).
+    load through the tracker). Training semantics:
+
+    - a BatchNorm runs on its running statistics when its stage is frozen,
+      under ``norm_eval``, and, with ``partial_bn``, everywhere but the
+      stem; the parameters of frozen stages take no gradient (the
+      reference's freeze; the JAX package only switches their BN);
+    - ``with_cp`` recomputes each residual block in the backward pass
+      (``torch.utils.checkpoint``, non-reentrant); the recomputation
+      leaves the running statistics alone, so a step updates them once;
+    - ``sync_axis`` is accepted for config compatibility: in a training
+      run over several processes every BatchNorm takes the global batch's
+      statistics (``common.norm.set_sync_group``), as under GSPMD;
+    - ``dtype='bfloat16'`` runs the forward under bf16 autocast (convs in
+      bf16, BatchNorm statistics and parameters in fp32) and returns fp32
+      maps.
     """
 
     def __init__(self, depth: int, in_channels: int = 3, num_stages: int = 4,
@@ -111,10 +126,13 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'invalid depth {depth} for resnet')
-        if str(dtype).replace('torch.', '') != 'float32':
-            raise NotImplementedError(
-                f'backbone dtype={dtype!r}: the bf16 backbone is ported in a '
-                'later slice')
+        dtype_name = str(dtype).rsplit('.', 1)[-1].strip("'>")
+        if dtype_name not in ('float32', 'bfloat16'):
+            raise ValueError(f'backbone dtype={dtype!r}: float32 or bfloat16')
+        self.autocast_dtype = (torch.bfloat16 if dtype_name == 'bfloat16'
+                               else None)
+        self.partial_bn = partial_bn
+        self.with_cp = with_cp
         self.depth = depth
         self.num_stages = num_stages
         self.strides = tuple(strides)
@@ -125,7 +143,7 @@ class ResNet(nn.Module):
         self.zero_init_residual = zero_init_residual
         block, stage_blocks = ARCH_SETTINGS[depth]
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         self.stage_names = []
@@ -137,7 +155,7 @@ class ResNet(nn.Module):
                 downsample = nn.Sequential(
                     nn.Conv2d(inplanes, planes * block.expansion, 1, stride,
                               bias=False),
-                    nn.BatchNorm2d(planes * block.expansion, eps=1e-5))
+                    BatchNorm2d(planes * block.expansion, eps=1e-5))
             first_dil = dilation if dilation == 1 else dilation // 2
             layers = [block(inplanes, planes, stride, first_dil, downsample)]
             inplanes = planes * block.expansion
@@ -165,7 +183,7 @@ class ResNet(nn.Module):
                                * m.kernel_size[1])
                     m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
                                      generator=generator)
-                elif isinstance(m, nn.BatchNorm2d):
+                elif isinstance(m, BatchNorm2d):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
                     m.reset_running_stats()
@@ -189,13 +207,31 @@ class ResNet(nn.Module):
         dicts and checkpoints are unchanged)."""
         return self.stage_names[:max(self.out_indices) + 1]
 
+    def _block(self, block, x):
+        if self.with_cp and self.training and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False,
+                              context_fn=lambda: (
+                                  contextlib.nullcontext(),
+                                  frozen_running_stats(block)))
+        return block(x)
+
     def forward(self, x):
         """``x`` (N, H, W, C) -> the stage outputs at ``out_indices`` as
         (N, h, w, c); a single map when there is one index."""
+        if self.autocast_dtype is not None:
+            with torch.autocast(x.device.type, dtype=self.autocast_dtype):
+                outs = self._forward(x)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            outs = tuple(o.float() for o in outs)
+            return outs[0] if len(outs) == 1 else outs
+        return self._forward(x)
+
+    def _forward(self, x):
         x = self._stem(x)
         outs = []
         for i, name in enumerate(self._live_stages()):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = self._block(block, x)
             if i in self.out_indices:
                 outs.append(self._nhwc(x))
         return outs[0] if len(outs) == 1 else tuple(outs)
@@ -213,9 +249,11 @@ class ResNet(nn.Module):
     def train(self, mode: bool = True):
         super().train(mode)
         self._freeze_stages()
-        if mode and self.norm_eval:
+        if mode and (self.norm_eval or self.partial_bn):
+            # partial_bn: the stem's BN alone keeps training
+            keep = self.bn1 if not self.norm_eval else None
             for m in self.modules():
-                if isinstance(m, nn.BatchNorm2d):
+                if isinstance(m, BatchNorm2d) and m is not keep:
                     m.eval()
         return self
 
@@ -225,12 +263,12 @@ class ResNetBlockwise(ResNet):
     ``out_indices``, the other stages run normally. Same parameters as
     ``ResNet``."""
 
-    def forward(self, x):
+    def _forward(self, x):
         x = self._stem(x)
         outs = []
         for i, name in enumerate(self._live_stages()):
             for block in getattr(self, name):
-                x = block(x)
+                x = self._block(block, x)
                 if i in self.out_indices:
                     outs.append(self._nhwc(x))
         return tuple(outs)

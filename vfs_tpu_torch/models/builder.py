@@ -1,11 +1,19 @@
 """Model builders (counterpart of ``vfs_tpu/models/builder.py``)."""
 
 from ..utils import build_from_cfg
-from .registry import BACKBONES, TRACKERS
+from .registry import BACKBONES, HEADS, LOSSES, TRACKERS
 
 
 def build_backbone(cfg, default_args=None):
     return build_from_cfg(cfg, BACKBONES, default_args)
+
+
+def build_head(cfg, default_args=None):
+    return build_from_cfg(cfg, HEADS, default_args)
+
+
+def build_loss(cfg, default_args=None):
+    return build_from_cfg(cfg, LOSSES, default_args)
 
 
 def build_tracker(cfg, train_cfg=None, test_cfg=None):
@@ -14,9 +22,13 @@ def build_tracker(cfg, train_cfg=None, test_cfg=None):
 
 
 def build_model(cfg, train_cfg=None, test_cfg=None):
-    """Build a registered model from a config dict (trackers only in this
-    slice of the port)."""
+    """Build any registered tracker, head or loss from a config dict; an
+    unknown type raises ``KeyError``."""
     obj_type = cfg.get('type')
     if obj_type in TRACKERS:
         return build_tracker(cfg, train_cfg=train_cfg, test_cfg=test_cfg)
-    raise KeyError(f'{obj_type} is not a registered tracker')
+    if obj_type in HEADS:
+        return build_head(cfg)
+    if obj_type in LOSSES:
+        return build_loss(cfg)
+    raise KeyError(f'{obj_type} is not a registered tracker, head or loss')

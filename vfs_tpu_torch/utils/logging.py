@@ -1,17 +1,20 @@
-"""Text logger (the part of ``vfs_tpu/utils/logging.py`` the eval path
-calls; the port needs nothing of the JAX package).
+"""Text logger and JSONL metric log (counterpart of
+``vfs_tpu/utils/logging.py``; the port needs nothing of the JAX package).
 
 Replaces mmcv's rank-aware ``get_root_logger`` (reference:
-mmaction/utils/logger.py:6-24): one process logs, so every record goes to
-stdout and, when given, a log file.
+mmaction/utils/logger.py:6-24): every record goes to stdout and, when
+given, a log file; in a training run over several processes only rank 0
+logs below ERROR.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
-from typing import Optional
+import time
+from typing import Any, Dict, Optional
 
 LOGGER_NAME = 'vfs_tpu_torch'
 
@@ -19,6 +22,11 @@ LOGGER_NAME = 'vfs_tpu_torch'
 def _formatter() -> logging.Formatter:
     return logging.Formatter('%(asctime)s - %(name)s - %(levelname)s - '
                              '%(message)s')
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def get_root_logger(log_file: Optional[str] = None,
@@ -30,8 +38,8 @@ def get_root_logger(log_file: Optional[str] = None,
         stream = logging.StreamHandler(sys.stdout)
         stream.setFormatter(_formatter())
         logger.addHandler(stream)
-        logger.setLevel(log_level)
         logger.propagate = False
+    logger.setLevel(log_level if _rank() == 0 else logging.ERROR)
     if log_file is not None and not any(
             getattr(h, 'baseFilename', None) == os.path.abspath(log_file)
             for h in logger.handlers):
@@ -39,3 +47,29 @@ def get_root_logger(log_file: Optional[str] = None,
         handler.setFormatter(_formatter())
         logger.addHandler(handler)
     return logger
+
+
+class JsonlLogger:
+    """Append-only JSONL metric log (the reference TextLoggerHook writes a
+    twin .log.json; tools/analysis/analyze_logs.py parses it)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def log(self, record: Dict[str, Any]):
+        record = dict(record)
+        record.setdefault('time', time.time())
+        with open(self.path, 'a') as f:
+            f.write(json.dumps(record, default=_json_default) + '\n')
+
+
+def _json_default(obj):
+    import numpy as np
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return str(obj)

@@ -1,11 +1,37 @@
-"""Small shared utilities (the part of ``vfs_tpu/utils/misc.py`` the eval
-path calls; reference: mmaction/utils/misc.py)."""
+"""Small shared utilities (counterpart of ``vfs_tpu/utils/misc.py``;
+reference: mmaction/utils/misc.py)."""
 
 from __future__ import annotations
 
+import platform
+import random
+import sys
 from typing import Dict
+
+import numpy as np
 
 
 def add_prefix(inputs: Dict, prefix: str) -> Dict:
     """Prefix every key of a dict with ``f'{prefix}.'``."""
     return {f'{prefix}.{k}': v for k, v in inputs.items()}
+
+
+def set_random_seed(seed: int):
+    """Seed Python's, numpy's and torch's generators."""
+    import torch
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def collect_env() -> Dict[str, str]:
+    """Versions and devices, for the head of a training log."""
+    import torch
+    env = {'sys.platform': sys.platform,
+           'Python': sys.version.replace('\n', ''),
+           'platform': platform.platform(), 'PyTorch': torch.__version__,
+           'CUDA': str(torch.version.cuda)}
+    if torch.cuda.is_available():
+        env['GPUs'] = ', '.join(torch.cuda.get_device_name(i) for i in
+                                range(torch.cuda.device_count()))
+    return env
