@@ -91,17 +91,40 @@ Phases, one JSON line each on stdout:
    within ``BF16_LOSS_ATOL``, BatchNorm statistics fp32), and ``torch.profiler``'s kernel times of three more
    steps by kind. End to end and the loader, in a window that keeps all
    16 loader processes busy (a process builds a whole batch): a
-   ``tools.train`` run of one epoch of ``E2E_BATCHES`` steps on the
+   ``tools.train`` run of one epoch of ``HOST_E2E_BATCHES`` steps on the
    same clips (``RepeatDataset`` times raised), whose steps/s leaves out
    the first step; the loader alone over a warm epoch of
    ``LOADER_BATCHES``; and the pipeline's samples/s in this process. The
-   eval hook's J&F and wall.
-9. kernels: every kernel with its launches on its path, times, bound
+   eval hook's J&F and wall. Then slice 7's on-device augmentation, the
+   ``_deviceaug`` config (the same model; the loader decodes and stages
+   256x320 uint8 frames, the chain crops them to 224x224 in the step) on
+   the same clips, a line of its own (``train_deviceaug``): the host
+   loader's samples/s over a warm epoch of ``LOADER_BATCHES`` and its
+   bytes a batch; ``tools.train``'s steps/s over an epoch of
+   ``E2E_BATCHES`` steps, beside the host-aug config's; ``--profile 2``
+   over ``DA_RUN_EPOCHS`` 1-step epochs, whose trace must name the steps'
+   convolution kernels, and an auto-resume of the last epoch, whose draws
+   must equal the whole run's; the chain on a B=2 batch with the same
+   drawn parameters on the card and the CPU (within ``DA_CARD_CPU_ATOL``
+   on the [0, 255] scale); the chain's ms and kernel launches on the full
+   batch, and the device-only step with the chain in exact fp32 and bf16.
+9. dense: slice 7's dense tier, r18 ``forward_test`` at full width on a
+   ``DENSE_FRAMES``-frame 480x854 video under each of ``DENSE_RUNS`` (the
+   masked path with the first frame exempt, ``non_mask_len=1``; no mask,
+   ``backend='dense'``): warm ms/frame on the card, no kernel launched,
+   masks equal to the CPU run's on >= 99.9% of pixels.
+10. learning: slice 7's learning loop, ``python -m
+   vfs_tpu_torch.tools.learning_loop`` at its defaults (seed 0, 24 epochs
+   of 12 steps, batch 8, 64x64 crops) on the card: both J&F values, both
+   retrieval values, the margins and the wall; ``retrieval_margin`` must
+   be positive; ``video_topk_affinity`` launches once per val video and
+   tracker (24).
+11. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
-   path's and the train phase's eval hook's. (The full lines also give the share of the
-   computed pairs the function needs, from the core's pass rule. Times
-   of an earlier checkout come from ``ab_kernels.py``, which runs both
-   checkouts in one call.)
+   path's, the train phase's eval hook's and the learning loop's. (The
+   full lines also give the share of the computed pairs the function
+   needs, from the core's pass rule. Times of an earlier checkout come
+   from ``ab_kernels.py``, which runs both checkouts in one call.)
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -1593,11 +1616,13 @@ def phase_vip():
 K400_CLIPS, K400_FRAMES, K400_HW = 32, 16, (256, 340)
 TRAIN_VAL_FRAMES = 10
 TIMED_STEPS, WARMUP_STEPS = 10, 3
-# batches in the epoch that times the end-to-end rate (two for each of
-# the config's 16 loader processes, so that the steps wait on the loader's
-# second round) and in the warm epoch that times the loader alone (one
-# for each: all 16 busy)
-E2E_BATCHES, LOADER_BATCHES = 32, 16
+# batches in the epoch that times the end-to-end rate of the _deviceaug
+# config (two for each of the config's 16 loader processes, so that the
+# steps wait on the loader's second round) and of the host-aug config (one
+# for each: the 154 MB batches queue on the pool's result pipe from the
+# first round on; cut from 32 to keep the script's time), and in the warm
+# epoch that times the loader alone (one for each: all 16 busy)
+E2E_BATCHES, HOST_E2E_BATCHES, LOADER_BATCHES = 32, 16, 16
 LOADER_SAMPLES_IN_PROCESS = 8
 CARD_CPU_FACTOR, CARD_CPU_FLOOR = 4.0, 1e-5
 # (low, high) relative L2 of the bf16 step's step-0 backbone features and
@@ -1692,8 +1717,8 @@ def step_timer(records):
         def wrapped(*args, **kwargs):
             step = make_step(*args, **kwargs)
 
-            def timed(imgs):
-                log_vars = step(imgs)
+            def timed(imgs, *args):
+                log_vars = step(imgs, *args)
                 torch.cuda.synchronize()
                 records.append((log_vars['loss'], time.time()))
                 return log_vars
@@ -1948,10 +1973,10 @@ def phase_train(dev, smi_line):
         ckpts = sorted(os.listdir(ckpt))
 
         # end to end in a window that keeps every loader process busy:
-        # one epoch of E2E_BATCHES steps, the first step (the pool's
+        # one epoch of HOST_E2E_BATCHES steps, the first step (the pool's
         # start) left out
         window_records = []
-        times = E2E_BATCHES * global_batch // K400_CLIPS
+        times = HOST_E2E_BATCHES * global_batch // K400_CLIPS
         train(1, False, window_records, [], work=os.path.join(root, 'e2e'),
               extra=[f'data.train.times={times}'])
         window_ends = [t for _, t in window_records]
@@ -1988,6 +2013,7 @@ def phase_train(dev, smi_line):
         clip_len = first_batch['imgs'].shape[2]
         card_batch = torch.as_tensor(first_batch['imgs'], device=dev)
         small = first_batch['imgs'][:2]
+        deviceaug = deviceaug_runs(root, ann, clips)
 
     want = K400_CLIPS * cfg_dict['data']['train']['times'] // global_batch
     if state.step != 2 * steps_per_epoch or steps_per_epoch != want:
@@ -2009,10 +2035,10 @@ def phase_train(dev, smi_line):
         raise AssertionError('non-finite loss after resume')
     if not 0.0 <= best['best_score'] <= 1.0 or len(val) != 2:
         raise AssertionError(f'eval hook results {best} {val}')
-    if len(window_records) != E2E_BATCHES or not all(
+    if len(window_records) != HOST_E2E_BATCHES or not all(
             np.isfinite(float(loss)) for loss, _ in window_records):
         raise AssertionError(f'end-to-end window: {len(window_records)} '
-                             f'steps (want {E2E_BATCHES})')
+                             f'steps (want {HOST_E2E_BATCHES})')
 
     card_cpu = card_vs_cpu(cfg_dict, small, dev)
     n_frames = global_batch * 2 * clip_len
@@ -2049,6 +2075,13 @@ def phase_train(dev, smi_line):
                              f'{loss_gap} (> {BF16_LOSS_ATOL})')
     if not modes['bf16']['bn_stats_fp32']:
         raise AssertionError('bf16 step: BatchNorm statistics not fp32')
+    deviceaug.update(deviceaug_device(deviceaug.pop('first_batch'), dev))
+    deviceaug.update(host_aug_e2e_steps_per_s=e2e_sps,
+                     host_aug_loader_samples_per_s=loader_sps,
+                     host_aug_batch_bytes=card_batch.numel()
+                     * card_batch.element_size())
+    emit({'phase': 'train_deviceaug', 'card': smi_line,
+          'config': os.path.relpath(DA_CONFIG, ROOT), **deviceaug})
     emit({'phase': 'train', 'card': smi_line,
           'config': os.path.relpath(CONFIG, ROOT),
           'global_batch': global_batch, 'frames_per_step': n_frames,
@@ -2064,13 +2097,302 @@ def phase_train(dev, smi_line):
           'loader_samples_per_s_in_process': in_process_sps,
           'loader_workers': cfg_dict['data']['workers_per_gpu'],
           'loader_epoch_batches': LOADER_BATCHES,
-          'e2e_epoch_steps': E2E_BATCHES,
+          'e2e_epoch_steps': HOST_E2E_BATCHES,
           'e2e_steps_per_s': e2e_sps,
           'train_wall_s': wall_s, 'losses': losses,
           'eval_jf': [r['J&F-Mean'] for r in val],
           'eval_wall_s': [e['wall_s'] for e in evals],
           'eval_videos': evals[0]['videos'], 'kernel_launches': launches,
           'resume_final_step': state3.step, 'checkpoints': ckpts})
+    return launches
+
+
+# the _deviceaug config's runs in the train phase (module docstring,
+# phase 8): 1-step epochs of the profile and resume runs; the card's chain
+# against the CPU's on the [0, 255] scale, before normalisation
+DA_CONFIG = os.path.join(ROOT, 'configs',
+                         'r18_sgd_cos_100e_r2_1xNx8_k400_deviceaug.py')
+DA_RUN_EPOCHS = 4
+DA_CARD_CPU_ATOL = 1e-3
+# the dense phase (module docstring, phase 9)
+DENSE_FRAMES = 12
+DENSE_RUNS = (('first_neighbor_exempt', dict(with_first_neighbor=False)),
+              ('no_mask_dense', dict(neighbor_range=None, backend='dense')))
+
+
+def draw_recorder(draws):
+    """``patched`` maker for ``DeviceAugChain.draw``: each call's drawn
+    parameters, as CPU tensors, go to ``draws``."""
+    import torch
+
+    def make(draw):
+        def recorded(self, *args, **kwargs):
+            params = draw(self, *args, **kwargs)
+            draws.append([v.cpu() for _, p in params for v in p.values()
+                          if torch.is_tensor(v)] +
+                         [v.cpu() for _, p in params
+                          for v in p.get('rects', ())])
+            return params
+        return recorded
+    return make
+
+
+def trace_kernels(path):
+    """The kernel names of a Chrome trace ``torch.profiler`` wrote."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    return [e['name'] for e in events if e.get('cat') == 'kernel']
+
+
+def deviceaug_runs(root, ann, clips):
+    """The ``_deviceaug`` config through ``tools.train`` on the clips under
+    ``root``: the host loader's samples/s over a warm epoch and its bytes a
+    batch, the end-to-end steps/s over an epoch of ``E2E_BATCHES`` steps,
+    a ``--profile 2`` run of ``DA_RUN_EPOCHS`` 1-step epochs (the trace
+    must name the steps' kernels) and its auto-resume from epoch
+    ``DA_RUN_EPOCHS - 1`` (the last step's draws must be equal). Returns
+    the numbers and the loader's first batch."""
+    import torch
+    import vfs_tpu_torch.apis.train as apis_train
+    from vfs_tpu_torch.datasets import build_dataloader, build_dataset
+    from vfs_tpu_torch.ops import device_aug
+    from vfs_tpu_torch.tools import train as tools_train
+    from vfs_tpu_torch.utils import Config
+
+    cfg_dict = Config.fromfile(DA_CONFIG).to_dict()
+    batch = cfg_dict['data']['videos_per_gpu']
+    options = [f'data.train.dataset.ann_file={ann}',
+               f'data.train.dataset.data_prefix={clips}']
+
+    def train(work, epochs, times, records, draws, extra=()):
+        argv = [DA_CONFIG, '--work-dir', work, '--auto-resume', *extra,
+                '--options', *options, f'data.train.times={times}',
+                f'total_epochs={epochs}']
+        with patched(apis_train, 'make_train_step', step_timer(records)), \
+                patched(device_aug.DeviceAugChain, 'draw',
+                        draw_recorder(draws)):
+            return tools_train.main(argv)
+
+    # the host loader alone: epoch 0 starts the pool, epoch 1 is timed
+    dataset = build_dataset(dict(
+        cfg_dict['data']['train'], times=LOADER_BATCHES * batch // K400_CLIPS,
+        dataset=dict(cfg_dict['data']['train']['dataset'], ann_file=ann,
+                     data_prefix=clips)))
+    loader = build_dataloader(dataset, batch,
+                              cfg_dict['data']['workers_per_gpu'],
+                              shuffle=True, drop_last=True, seed=0)
+    try:
+        first_batch = None
+        for b in loader:
+            first_batch = first_batch or b
+        loader.set_epoch(1)
+        t0 = time.time()
+        n_samples = sum(len(b['imgs']) for b in loader)
+        loader_sps = n_samples / (time.time() - t0)
+    finally:
+        loader.close()
+    imgs = first_batch['imgs']
+    staging_w, staging_h = next(
+        t['scale'] for t in cfg_dict['data']['train']['dataset']['pipeline']
+        if t['type'] == 'DeviceAug')
+    if imgs.dtype != np.uint8 or imgs.shape[3:] != (staging_h, staging_w, 3) \
+            or first_batch['orig_hw'].tolist() != [list(K400_HW)] * batch:
+        raise AssertionError(f'deviceaug batch {imgs.dtype} {imgs.shape} '
+                             f'{first_batch["orig_hw"][:2]}')
+
+    # end to end: one epoch of E2E_BATCHES steps, the first left out
+    records = []
+    train(os.path.join(root, 'da_e2e'), 1, E2E_BATCHES * batch // K400_CLIPS,
+          records, [])
+    ends = [t for _, t in records]
+    if len(records) != E2E_BATCHES or not all(
+            np.isfinite(float(loss)) for loss, _ in records):
+        raise AssertionError(f'deviceaug end to end: {len(records)} steps')
+    e2e_sps = (len(ends) - 1) / (ends[-1] - ends[0])
+
+    # --profile 2 over 1-step epochs, then a resume of the last epoch
+    work = os.path.join(root, 'da_profile')
+    steps_per_epoch = K400_CLIPS // batch
+    records, draws = [], []
+    state = train(work, DA_RUN_EPOCHS, 1, records, draws,
+                  extra=['--profile', '2'])
+    kernels = trace_kernels(os.path.join(work, 'profile',
+                                         'trace_rank0.json'))
+    conv = [k for k in kernels if any(
+        key in k.lower() for key in KERNEL_KINDS[0][1])]
+    if state.step != DA_RUN_EPOCHS * steps_per_epoch or not conv:
+        raise AssertionError(f'profile run: step {state.step}, '
+                             f'{len(kernels)} kernels traced, '
+                             f'{len(conv)} convolutions')
+    with open(os.path.join(work, 'checkpoints', 'latest'), 'w') as f:
+        f.write(f'epoch_{DA_RUN_EPOCHS - 1}')
+    resumed = []
+    state = train(work, DA_RUN_EPOCHS, 1, [], resumed)
+    if state.step != DA_RUN_EPOCHS * steps_per_epoch \
+            or len(resumed) != steps_per_epoch \
+            or len(draws) != DA_RUN_EPOCHS * steps_per_epoch:
+        raise AssertionError(f'resume: step {state.step}, {len(resumed)} '
+                             f'draws (whole run {len(draws)})')
+    same = all(len(r) == len(d) and all(map(torch.equal, r, d))
+               for r, d in zip(resumed, draws[-steps_per_epoch:]))
+    if not same:
+        raise AssertionError('the resumed steps drew other augmentations')
+    return dict(first_batch=first_batch,
+                loader_samples_per_s=loader_sps,
+                loader_batch_bytes=int(imgs.nbytes
+                                       + first_batch['orig_hw'].nbytes),
+                loader_workers=cfg_dict['data']['workers_per_gpu'],
+                e2e_epoch_steps=E2E_BATCHES, e2e_steps_per_s=e2e_sps,
+                profile_kernels_traced=len(kernels),
+                profile_conv_kernels=len(conv),
+                resume_draws_equal=same)
+
+
+def count_kernels(fn):
+    """The kernels ``fn`` launches on the card (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith('CUDA')))
+
+
+def deviceaug_device(first_batch, dev):
+    """The chain of the ``_deviceaug`` config on the card: on a B=2 batch
+    with the same drawn parameters on the card and on the CPU (within
+    ``DA_CARD_CPU_ATOL`` on the [0, 255] scale); its ms and launches on
+    the full batch; the device-only step with the chain in exact fp32 and
+    in bf16 (median of ``TIMED_STEPS`` after ``WARMUP_STEPS``)."""
+    import torch
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    from vfs_tpu_torch.ops.device_aug import build_device_aug, step_seed
+    from vfs_tpu_torch.utils import Config
+    cfg_dict = Config.fromfile(DA_CONFIG).to_dict()
+    da = cfg_dict['device_aug']
+    chain = build_device_aug(da['transforms'], cfg_dict['img_norm_cfg'],
+                             out_hw=tuple(da['out_hw']))
+    imgs = torch.as_tensor(first_batch['imgs'], device=dev)
+    orig_hw = torch.as_tensor(first_batch['orig_hw'], device=dev)
+
+    # (a) the card against the CPU on the same parameters
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(step_seed(0, 0, 0))
+    params = chain.draw(imgs[:2].shape, orig_hw[:2], generator)
+    params_cpu = [(typ, {k: (tuple(t.cpu() for t in v)
+                             if isinstance(v, tuple) else
+                             v.cpu() if torch.is_tensor(v) else v)
+                         for k, v in p.items()}) for typ, p in params]
+    card = chain.apply(imgs[:2], params).cpu()
+    cpu = chain.apply(imgs[:2].cpu(), params_cpu)
+    std = torch.tensor(chain.std)
+    card_cpu = float(((card - cpu) * std).abs().max())
+    if not card_cpu <= DA_CARD_CPU_ATOL:
+        raise AssertionError(f'deviceaug chain: card vs CPU {card_cpu} > '
+                             f'{DA_CARD_CPU_ATOL} on the [0, 255] scale')
+
+    # (b) the chain alone and the device-only step with it
+    chain_ms = cuda_ms(lambda: chain(imgs, orig_hw, generator),
+                       runs=TIMED_STEPS, warmup=2)
+    chain_launches = count_kernels(lambda: chain(imgs, orig_hw, generator))
+    out = {}
+    for name, mixed in (('fp32', False), ('bf16', True)):
+        model, cfg = build_train_model(cfg_dict, mixed, dev)
+        optimizer, _ = build_optimizer(model.parameters(), cfg.optimizer,
+                                       cfg.get('lr_config'), 1000, 100)
+        step = make_train_step(model, optimizer, device_aug=chain)
+        loss = float(step(imgs, orig_hw)['loss'])
+        if not np.isfinite(loss):
+            raise AssertionError(f'deviceaug {name} step: loss {loss}')
+        out[f'{name}_ms_per_step'] = cuda_ms(
+            lambda: step(imgs, orig_hw), runs=TIMED_STEPS,
+            warmup=WARMUP_STEPS - 1)
+        out[f'{name}_kernels_per_step'] = count_kernels(
+            lambda: step(imgs, orig_hw))
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    return dict(batch=list(first_batch['imgs'].shape),
+                chain_card_vs_cpu_max_abs=card_cpu,
+                chain_ms_per_step=chain_ms,
+                chain_kernels_per_step=chain_launches,
+                chain_share_fp32=chain_ms / out['fp32_ms_per_step'],
+                chain_share_bf16=chain_ms / out['bf16_ms_per_step'], **out)
+
+
+def phase_dense(dev, smi_line):
+    """The dense tier (module docstring, phase 9): r18 ``forward_test`` at
+    full width on a ``DENSE_FRAMES``-frame video under each of
+    ``DENSE_RUNS``, on the card (warm ms/frame) and on the CPU; the masks
+    must agree on >= 99.9% of pixels and no kernel may launch."""
+    import runpy
+    import torch
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
+                                   video_topk_affinity_cuda)
+    cfg = runpy.run_path(CONFIG)
+    model = build_model(dict(type='VanillaTracker',
+                             backbone=dict(cfg['model']['backbone'])),
+                        test_cfg=dict(cfg['test_cfg']))
+    model.init_weights(torch.Generator().manual_seed(0))
+    imgs, gt = synthetic_video(t_total=DENSE_FRAMES)
+    meta = [dict(original_shape=imgs.shape[1:3],
+                 img_norm_cfg=dict(cfg['img_norm_cfg']))]
+    runs = {}
+    for name, extra in DENSE_RUNS:
+        model.test_cfg = dict(cfg['test_cfg'], **extra)
+        video_topk_affinity_cuda.launches = 0
+        local_topk_attend_cuda.launches = 0
+        walls = []
+        for _ in range(2):  # cold, warm
+            torch.cuda.synchronize()
+            t0 = time.time()
+            preds = model.forward_test(imgs, gt[0], meta)[0]
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        launched = (video_topk_affinity_cuda.launches
+                    + local_topk_attend_cuda.launches)
+        t0 = time.time()
+        cpu = model.forward_test(imgs, gt[0], meta, device='cpu')[0]
+        cpu_s = time.time() - t0
+        agree = float((preds == cpu).mean())
+        if preds.shape != gt.shape or agree < 0.999 or launched:
+            raise AssertionError(f'dense {name}: masks agree on {agree}, '
+                                 f'{launched} kernel launches')
+        runs[name] = dict(card_ms_per_frame=walls[1] * 1e3 / DENSE_FRAMES,
+                          card_cold_ms_per_frame=walls[0] * 1e3
+                          / DENSE_FRAMES,
+                          cpu_ms_per_frame=cpu_s * 1e3 / DENSE_FRAMES,
+                          mask_agree_cpu=agree)
+    model.test_cfg = dict(cfg['test_cfg'])
+    emit({'phase': 'dense', 'card': smi_line, 'video': list(imgs.shape),
+          **{f'{n}_{k}': v for n, r in runs.items() for k, v in r.items()}})
+
+
+def phase_learning(smi_line):
+    """The learning loop (module docstring, phase 10) at its defaults on
+    the card: ``retrieval_margin`` must be positive; ``jf_margin`` is
+    printed, not gated. Returns video_topk_affinity's launches (one per
+    val video and tracker)."""
+    import torch
+    from vfs_tpu_torch.ops import video_topk_affinity_cuda
+    from vfs_tpu_torch.tools import learning_loop
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        video_topk_affinity_cuda.launches = 0
+        t0 = time.time()
+        res = learning_loop.main(['--work-dir', os.path.join(root, 'll'),
+                                  '--seed', '0'])
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        launches = video_topk_affinity_cuda.launches
+    if not res['retrieval_margin'] > 0 or launches != 2 * 12:
+        raise AssertionError(f'learning loop: {res}, {launches} launches')
+    emit({'phase': 'learning', 'card': smi_line, 'wall_s': wall_s,
+          'kernel_launches': launches, **res})
     return launches
 
 
@@ -2091,6 +2413,8 @@ def main():
     row3 = phase_eval(local_full)
     v1_launches = phase_pose() + phase_vip()
     row1[0]['launches'] += phase_train(dev, smi_line)
+    phase_dense(dev, smi_line)
+    row1[0]['launches'] += phase_learning(smi_line)
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
     emit({'kernels': [*row1, row2, row3, v2_entry]})

@@ -200,8 +200,11 @@ def test_resnet_init_and_modes():
     assert ResNet(depth=18, strides=(1, 2, 1, 1)).output_stride == 8
     assert ResNet(depth=50).feat_dim == 2048
     model.train()
-    assert not model.conv1.weight.requires_grad
-    assert not model.layer1[0].conv1.weight.requires_grad
+    # frozen stages: BatchNorm on running statistics, weights still
+    # trainable (the JAX package's freeze)
+    assert not model.bn1.training and not model.layer1[0].bn1.training
+    assert model.conv1.weight.requires_grad
+    assert model.layer1[0].conv1.weight.requires_grad
     assert model.layer2[0].conv1.weight.requires_grad
     assert not model.layer2[0].bn1.training  # norm_eval
     # zero-init residual: each block's last BN starts at scale 0

@@ -322,3 +322,70 @@ def test_bf16_stage_matches_jax_bf16_forward_and_backward(weights,
         gap = _rel(gx.astype(jnp.float32), gx32)
         assert _rel(gxt, gx.astype(jnp.float32)) < gap / 4
         assert gap > 2e-2
+
+
+
+def test_frozen_stages_two_steps_match_jax():
+    """``frozen_stages=1`` trains as in the JAX package: the stem and
+    ``layer1`` run their BatchNorm on the running statistics, which stay
+    put, while their weights take gradients and updates. Two steps of the
+    r18 optimizer from the same weights, in float64 in both packages:
+    with the stem's BatchNorm on its initial statistics, the frozen
+    stages do not normalise, and the train-mode BatchNorms after them
+    amplify fp32 rounding until two fp32 runs part by 35% at step 2. So
+    the stem and ``layer1`` updates and statistics are held at
+    ``test_torch_train_step``'s float64 tolerance (1e-9 relative L2), and
+    each weight must have moved, so a port that stops their gradients
+    fails."""
+    from vfs_tpu.apis.train import TrainState as JaxTrainState
+    from vfs_tpu.apis.train import make_train_step as jax_make_train_step
+    from vfs_tpu.core.optimizer.builder import \
+        build_optimizer as jax_build_optimizer
+    from vfs_tpu.models import build_model as jax_build_model
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+
+    from test_torch_train_step import (ITERS_PER_EPOCH, LR_CFG, OPT_CFG,
+                                       TOTAL_ITERS, TRAIN_CFG, jax_variables,
+                                       port_model, to_torch_tree64,
+                                       train_batch)
+    cfg = dict(MODEL_CFG, backbone=dict(MODEL_CFG['backbone'],
+                                        frozen_stages=1))
+    batches = [train_batch(1).astype(np.float64),
+               train_batch(2).astype(np.float64)]
+    params, stats = jax_variables(jax_build_model(cfg, train_cfg=TRAIN_CFG),
+                                  batches[0].astype(np.float32))
+    tx, _ = jax_build_optimizer(OPT_CFG, LR_CFG, TOTAL_ITERS,
+                                ITERS_PER_EPOCH)
+    with jax.enable_x64(True):
+        cfg64 = dict(cfg, backbone=dict(cfg['backbone'], dtype=jnp.float64))
+        f64 = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                           (params, stats))
+        state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=f64[0],
+                              batch_stats=f64[1], opt_state=tx.init(f64[0]))
+        step = jax.jit(jax_make_train_step(
+            jax_build_model(cfg64, train_cfg=TRAIN_CFG), tx))
+        for x in batches:
+            state, _ = step(state, jnp.asarray(x))
+        state = jax.tree.map(np.asarray, state)
+    jax_sd = to_torch_tree64(state.params, state.batch_stats)
+
+    model = port_model(params, stats, cfg=cfg).double()
+    optimizer, _ = build_optimizer(model.parameters(), OPT_CFG, LR_CFG,
+                                   TOTAL_ITERS, ITERS_PER_EPOCH)
+    port_step = make_train_step(model, optimizer)
+    for x in batches:
+        port_step(x)
+    start = to_torch_tree64(*f64)
+    sd = model.state_dict()
+    frozen = [k for k in jax_sd if k.startswith(
+        ('backbone.conv1.', 'backbone.bn1.', 'backbone.layer1.'))]
+    assert len(frozen) == 5 * 5  # conv weight + 4 BN tensors, 5 pairs
+    for k in frozen:
+        upd, jax_upd = sd[k] - start[k], jax_sd[k] - start[k]
+        if 'running' in k:  # frozen BatchNorm: statistics unchanged
+            assert not upd.any() and not jax_upd.any(), k
+            continue
+        assert float(jax_upd.norm()) > 1e-3 * float(start[k].norm()), k
+        assert float((upd - jax_upd).norm()) <= \
+            1e-9 * float(jax_upd.norm()) + 1e-12, k

@@ -5,8 +5,10 @@
 ``make_video_dataset``'s videos, checkpoints, auto-resume, the DAVIS eval
 hook on ``make_mini_davis`` with ``best.json``; the eval hand-off against
 the JAX package's (same backbone weights, every metric within 1e-4); two
-processes under torchrun's environment; the keys left for later slices;
-the CLI's refusal to run without a GPU unless asked for the CPU.
+processes under torchrun's environment; ``--profile``, ``cfg.device_aug``
+through the CLI and the wandb logger (a fake ``wandb`` module, against the
+JAX package's logger); the keys left for later slices; the CLI's refusal
+to run without a GPU unless asked for the CPU.
 """
 
 import json
@@ -171,13 +173,9 @@ def test_tools_train_cli_on_cpu_and_no_gpu(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('argv,extra,item', [
-    (['--profile', '2'], {}, 4),
-    ([], dict(device_aug=dict(transforms=[])), 4),
-    ([], dict(log_config=dict(interval=1, hooks=[
-        dict(type='WandbLoggerHook')])), 4),
     (['--validate', '--local-devices', '2'], {}, 5),
     ([], dict(model=dict(type='Recognizer2D', backbone={})), 7),
-], ids=['profile', 'device_aug', 'wandb', 'local_devices', 'recognizer'])
+], ids=['local_devices', 'recognizer'])
 def test_later_slices_raise_naming_their_roadmap_item(data, tmp_path, argv,
                                                       extra, item):
     config = _write_config(data, tmp_path, **extra)
@@ -185,6 +183,146 @@ def test_later_slices_raise_naming_their_roadmap_item(data, tmp_path, argv,
                        match=f'ROADMAP Queue 1 item {item}'):
         tools_train.main([config, '--work-dir', str(tmp_path / 'w'),
                           '--device', 'cpu', *argv])
+
+
+def _trace_names(path):
+    with open(path) as f:
+        return {e.get('name', '') for e in json.load(f)['traceEvents']}
+
+
+@pytest.mark.parametrize('steps', [2, 5], ids=['inside_run', 'past_run_end'])
+def test_profile_traces_steps_from_two(data, tmp_path, steps):
+    """``--profile N`` traces steps [2, 2+N) into ``work_dir/profile``; a
+    run with fewer steps closes the trace at its end. The trace names the
+    step's operators (the backbone's convolutions and the update)."""
+    config = _write_config(data, tmp_path)
+    work = tmp_path / 'w'
+    state = tools_train.main([config, '--work-dir', str(work), '--device',
+                              'cpu', '--profile', str(steps)])
+    assert state.step == 4
+    names = _trace_names(work / 'profile' / 'trace_rank0.json')
+    assert 'aten::convolution' in names or 'aten::conv2d' in names
+    assert sum(n.startswith('aten::') for n in names) > 20
+
+
+def test_profiler_that_fails_to_start_raises(data, tmp_path, monkeypatch):
+    import torch.profiler
+
+    def refuse(self):
+        raise RuntimeError('profiler refused')
+    monkeypatch.setattr(torch.profiler.profile, 'start', refuse)
+    config = _write_config(data, tmp_path)
+    with pytest.raises(RuntimeError, match='profiler refused'):
+        tools_train.main([config, '--work-dir', str(tmp_path / 'w'),
+                          '--device', 'cpu', '--profile', '1'])
+
+
+def test_deviceaug_pipeline_trains_through_the_cli(data, tmp_path):
+    """``cfg.device_aug`` with the ``DeviceAug`` host pipeline through
+    ``python -m vfs_tpu_torch.tools.train --device cpu``: the loader ships
+    uint8 staging clips and the chain crops them to 32x32 in the step."""
+    pipeline = [dict(type='OpenCVInit'),
+                dict(type='SampleFrames', clip_len=1, frame_interval=0,
+                     num_clips=4, out_of_bound_opt='loop'),
+                dict(type='Clip2Frame', clip_len=2),
+                dict(type='OpenCVDecode'),
+                dict(type='DeviceAug', scale=(40, 30)),
+                dict(type='Collect', keys=['imgs', 'label', 'orig_hw'],
+                     meta_keys=())]
+    cfg = _cfg_dict(data, tmp_path)
+    cfg['data']['train']['dataset']['pipeline'] = pipeline
+    config = _write_config(data, tmp_path, data=cfg['data'], device_aug=dict(
+        out_hw=(32, 32), transforms=[
+            dict(type='RandomResizedCrop', area_range=(0.2, 1.0),
+                 same_across_clip=False, same_on_clip=False),
+            dict(type='Flip', flip_ratio=0.5, same_across_clip=False,
+                 same_on_clip=False),
+            dict(type='RandomGrayScale', p=0.2, same_across_clip=False,
+                 same_on_clip=False)]),
+        img_norm_cfg=dict(mean=[123.675, 116.28, 103.53],
+                          std=[58.395, 57.12, 57.375], to_bgr=False))
+    work = tmp_path / 'w'
+    state = tools_train.main([config, '--work-dir', str(work), '--device',
+                              'cpu'])
+    assert state.step == 4
+    assert 'on-device augmentation enabled' in (work / 'train.log').read_text()
+    lines = [json.loads(ln) for ln in
+             (work / 'train_log.jsonl').read_text().split('\n') if ln]
+    assert all(np.isfinite(r['loss']) for r in lines if r['mode'] == 'train')
+
+
+class FakeWandb:
+    """A stand-in ``wandb`` module that records its calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kwargs):
+        self.calls.append(('init', kwargs))
+        fake = self
+
+        class Run:
+            def finish(self):
+                fake.calls.append(('finish',))
+        return Run()
+
+    def log(self, payload, step=None):
+        self.calls.append(('log', payload, step))
+
+
+def test_wandb_loggers_make_jax_calls(monkeypatch, caplog):
+    """Both packages' loggers send a fake ``wandb`` the same init, log and
+    finish calls; without the package both warn and log nothing."""
+    from vfs_tpu.utils import build_wandb_logger as jax_build_wandb_logger
+    from vfs_tpu_torch.utils import build_wandb_logger
+    hook = dict(type='WandbLoggerHook', init_kwargs=dict(project='vfs',
+                                                         dir='w'))
+    entries = [(dict(mode='train', epoch=1, iter=2, lr=0.05, loss=1.5), 2),
+               (dict(mode='val', epoch=1, **{'J&F-Mean': 0.5}), 4)]
+    calls = []
+    for build in (jax_build_wandb_logger, build_wandb_logger):
+        fake = FakeWandb()
+        monkeypatch.setitem(sys.modules, 'wandb', fake)
+        logger = build(dict(interval=1, hooks=[hook]))
+        assert logger.active
+        for entry, step in entries:
+            logger.log(entry, step=step)
+        logger.finish()
+        logger.finish()
+        calls.append(fake.calls)
+    assert calls[0] == calls[1]
+    assert [c[0] for c in calls[1]] == ['init', 'log', 'log', 'finish']
+    assert build_wandb_logger(dict(interval=1)) is None
+    assert build_wandb_logger(None) is None
+    monkeypatch.setitem(sys.modules, 'wandb', None)  # not installed
+    for build in (jax_build_wandb_logger, build_wandb_logger):
+        logger = build(dict(hooks=[hook]))
+        assert not logger.active
+        logger.log(entries[0][0], step=1)
+        logger.finish()
+
+
+def test_wandb_hook_logs_train_and_val_entries(data, tmp_path, monkeypatch):
+    """With a ``WandbLoggerHook``, train entries go to wandb at the log
+    interval and val entries after each eval, at the update count, then
+    ``finish``; ``--suffix`` moves the wandb dir."""
+    fake = FakeWandb()
+    monkeypatch.setitem(sys.modules, 'wandb', fake)
+    config = _write_config(data, tmp_path, log_config=dict(interval=1, hooks=[
+        dict(type='WandbLoggerHook', init_kwargs=dict(project='p',
+                                                      dir='wdir'))]))
+    state = tools_train.main([config, '--work-dir', str(tmp_path / 'w'),
+                              '--device', 'cpu', '--validate', '--suffix',
+                              's'])
+    assert state.step == 4
+    assert fake.calls[0] == ('init', dict(project='p', dir='wdir-s'))
+    assert fake.calls[-1] == ('finish',)
+    logs = fake.calls[1:-1]
+    modes = [('J&F-Mean' in c[1], c[2]) for c in logs]
+    assert modes == [(False, 1), (False, 2), (True, 2), (False, 3),
+                     (False, 4), (True, 4)]
+    assert all(isinstance(v, (int, float)) for c in logs
+               for v in c[1].values())
 
 
 def test_tools_train_under_torchrun_env_on_two_processes(data, tmp_path):

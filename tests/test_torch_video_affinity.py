@@ -21,6 +21,7 @@ from vfs_tpu.ops.pallas_affinity_video import (pad_for_video_kernel,
                                                video_kernel_geometry,
                                                video_topk_affinity2)
 from vfs_tpu_torch.ops import NEG_INF, propagation as torch_prop
+from vfs_tpu_torch.ops import spatial_neighbor
 from vfs_tpu_torch.ops.video_affinity import (video_topk_affinity,
                                               video_topk_affinity_reference)
 
@@ -201,11 +202,30 @@ def test_propagate_video_short_videos():
     dict(pallas_precision='bfloat16'), dict(neighbor_range=None),
     dict(with_first_neighbor=False)])
 def test_propagate_video_later_slices_raise(kw):
+    """The modes left for later slices raise. The dense tier's cases
+    (``backend='dense'``, ``with_first=False``, ``neighbor_range=None``,
+    ``with_first_neighbor=False``), refused before it was ported, now run
+    and match the JAX package (``tests/test_torch_dense.py`` covers them
+    in full)."""
     feats, seg_first = _propagation_inputs(2, 4, 4, 5, 8, 2)
     cfg = torch_prop.PropagationConfig(**{'neighbor_range': 6, **kw})
-    with pytest.raises(NotImplementedError):
-        torch_prop.propagate_video(torch.from_numpy(feats),
-                                   torch.from_numpy(seg_first), None, cfg)
+    args = (torch.from_numpy(feats), torch.from_numpy(seg_first))
+    if 'pallas_extract' in kw or 'pallas_scores' in kw \
+            or 'pallas_precision' in kw:
+        with pytest.raises(NotImplementedError):
+            torch_prop.propagate_video(*args, None, cfg)
+        return
+    use_local = cfg.neighbor_range is not None and cfg.with_first_neighbor
+    mask = None if cfg.neighbor_range is None or use_local else \
+        spatial_neighbor(4, 5, cfg.neighbor_range)
+    jax_cfg = jax_prop.PropagationConfig(**dict(cfg._asdict(),
+                                                backend='tiled'))
+    ref = jax_prop.propagate_video(
+        jnp.asarray(feats), jnp.asarray(seg_first),
+        None if mask is None else jnp.asarray(mask.numpy()), jax_cfg)
+    out = torch_prop.propagate_video(*args, mask, cfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_propagation_config_fields_match_jax():

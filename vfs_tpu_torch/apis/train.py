@@ -16,10 +16,15 @@ each ``checkpoint_config.interval`` epochs under
 propagation eval of ``data.val`` after each ``evaluation.interval``
 epochs (``EvalHook``, ``best.json``).
 
-Left for later slices, each raising ``NotImplementedError``: on-device
-augmentation (``cfg.device_aug``), ``--profile``, the wandb logger
-(ROADMAP Queue 1 item 4), and eval over several devices or processes
-(item 5).
+``cfg.device_aug`` runs the augmentation chain in the step on the batch's
+device (``ops.device_aug``; the loader ships uint8 staging frames and
+``orig_hw``). ``cfg.profile_steps`` (``--profile N``) traces steps
+[2, 2+N) with ``torch.profiler`` into ``work_dir/profile``. A
+``WandbLoggerHook`` in ``log_config.hooks`` mirrors the JSONL log to wandb
+(``utils.wandb_logger``).
+
+Left for a later slice, raising ``NotImplementedError``: eval over several
+devices or processes (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -39,9 +44,10 @@ from ..core.optimizer import ChainedOptimizer, build_optimizer
 from ..datasets import build_dataloader
 from ..device import DeviceLike, exact_fp32, resolve_device
 from ..models.trackers.sim_siam_tracker import parse_losses
+from ..ops.device_aug import DeviceAugChain, build_device_aug, step_seed
 from ..parallel import (get_rank, get_world_size, reduce_log_vars,
                         wrap_distributed)
-from ..utils import JsonlLogger, get_root_logger
+from ..utils import JsonlLogger, build_wandb_logger, get_root_logger
 
 
 class TrainState(NamedTuple):
@@ -70,19 +76,26 @@ def apply_mixed_precision(cfg) -> bool:
 
 
 def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
-                    norm_cfg: Optional[Dict] = None
-                    ) -> Callable[[np.ndarray], Dict[str, torch.Tensor]]:
-    """The train step: ``step(imgs)`` moves a (B, 2, T, H, W, C) batch to
-    the model's device, runs forward and backward (``model`` may be the
-    ``DistributedDataParallel`` wrapper) and one optimizer update, and
-    returns this process's log vars (tensors on the device; reading them
-    waits for the step).
+                    norm_cfg: Optional[Dict] = None,
+                    device_aug: Optional[DeviceAugChain] = None,
+                    seed: int = 0) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step: ``step(imgs, orig_hw=None)`` moves a (B, 2, T, H, W,
+    C) batch to the model's device, runs forward and backward (``model``
+    may be the ``DistributedDataParallel`` wrapper) and one optimizer
+    update, and returns this process's log vars (tensors on the device;
+    reading them waits for the step).
 
     ``norm_cfg`` (``mean`` / ``std``) takes the uint8 input path: a train
     pipeline with ``Normalize(on_device=True)`` ships uint8 frames and
     the step computes ``(x - mean) / std`` on the device, in fp32, with
-    the pipeline's own constants (``_pipeline_norm_cfg``)."""
+    the pipeline's own constants (``_pipeline_norm_cfg``).
+
+    ``device_aug`` runs the augmentation chain on the uint8 staging
+    frames and their (B, 2) ``orig_hw`` before the forward, in fp32,
+    drawing from a generator on the device seeded from ``(seed, rank,
+    step)``, ``step`` being the optimizer's update count."""
     device = next(model.parameters()).device
+    rank = get_rank()
     mean = std = None
     if norm_cfg is not None:
         mean = torch.as_tensor(np.asarray(norm_cfg['mean'], np.float32),
@@ -90,9 +103,13 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
         std = torch.as_tensor(np.asarray(norm_cfg['std'], np.float32),
                               device=device)
 
-    def train_step(imgs) -> Dict[str, torch.Tensor]:
+    def train_step(imgs, orig_hw=None) -> Dict[str, torch.Tensor]:
         x = torch.as_tensor(imgs).to(device)
-        if x.dtype == torch.uint8:
+        if device_aug is not None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(step_seed(seed, rank, optimizer.count))
+            x = device_aug(x, torch.as_tensor(orig_hw).to(device), generator)
+        elif x.dtype == torch.uint8:
             if mean is None:
                 raise ValueError(
                     'uint8 train batch needs img_norm_cfg (pipeline used '
@@ -140,16 +157,8 @@ def _pipeline_norm_cfg(dataset) -> Optional[Dict]:
     return None
 
 
-def _refuse_later_slices(cfg, validate: bool, local_devices) -> None:
-    """Config keys the JAX trainer honours that this slice leaves out."""
-    if cfg.get('device_aug'):
-        raise _later('cfg.device_aug (on-device augmentation)', 4)
-    if int(cfg.get('profile_steps', 0) or 0) > 0:
-        raise _later('--profile', 4)
-    hooks = (cfg.get('log_config') or {}).get('hooks', []) or []
-    if any(isinstance(h, dict) and h.get('type') == 'WandbLoggerHook'
-           for h in hooks):
-        raise _later('the wandb logger (WandbLoggerHook)', 4)
+def _refuse_later_slices(validate: bool, local_devices) -> None:
+    """Arguments the JAX trainer honours that the port leaves out."""
     if local_devices:
         raise _later('validation over several devices (--local-devices)', 5)
     if validate and get_world_size() > 1:
@@ -164,11 +173,13 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
     otherwise). Returns the final ``TrainState``."""
     logger = logger or get_root_logger()
     device = resolve_device(device)
-    _refuse_later_slices(cfg, validate, local_devices)
+    _refuse_later_slices(validate, local_devices)
     work_dir = cfg.get('work_dir', './work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     rank = get_rank()
     jsonl = JsonlLogger(os.path.join(work_dir, 'train_log.jsonl'))
+    wandb_log = build_wandb_logger(cfg.get('log_config')) if rank == 0 \
+        else None
     seed = cfg.get('seed', 0) or 0
 
     data_cfg = cfg.data
@@ -210,9 +221,18 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
     if cfg.get('fp16') is not None or cfg.get('bf16'):
         logger.info('mixed precision enabled: bf16 backbone, fp32 master '
                     'weights, heads and BatchNorm statistics')
-    train_step = make_train_step(
-        wrap_distributed(model, device), optimizer,
-        _pipeline_norm_cfg(dataset) or cfg.get('img_norm_cfg'))
+    norm_cfg = _pipeline_norm_cfg(dataset) or cfg.get('img_norm_cfg')
+    device_aug = None
+    if cfg.get('device_aug'):
+        da = dict(cfg.device_aug)
+        device_aug = build_device_aug(
+            da['transforms'], da.get('img_norm_cfg') or norm_cfg,
+            out_hw=tuple(da.get('out_hw', (224, 224))))
+        logger.info('on-device augmentation enabled ('
+                    f'{len(da["transforms"])} transforms -> '
+                    f'{device_aug.out_hw})')
+    train_step = make_train_step(wrap_distributed(model, device), optimizer,
+                                 norm_cfg, device_aug, seed)
 
     log_interval = (cfg.get('log_config') or {}).get('interval', 50)
     eval_hook = None
@@ -225,6 +245,10 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             key_indicator=eval_cfg.get('key_indicator'),
             rule=eval_cfg.get('rule'), work_dir=work_dir)
     ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval', 1)
+    # --profile N: a torch.profiler trace of the steps [2, 2+N)
+    profile_steps = max(0, int(cfg.get('profile_steps', 0) or 0))
+    profiler = None
+    steps_run = 0
 
     try:
         for epoch in range(start_epoch, total_epochs):
@@ -232,7 +256,14 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             model.train()
             t_iter = time.time()
             for i, batch in enumerate(loader):
-                log_vars = train_step(batch['imgs'])
+                if profile_steps and steps_run == 2:
+                    profiler = _start_profiler(device)
+                log_vars = train_step(batch['imgs'], batch.get('orig_hw'))
+                steps_run += 1
+                if profiler is not None \
+                        and steps_run >= 2 + profile_steps:
+                    _stop_profiler(profiler, work_dir, device, logger)
+                    profiler = None
                 if (i + 1) % log_interval == 0:
                     log_vars = reduce_log_vars(log_vars)
                     lr = schedule(optimizer.count - 1)
@@ -242,10 +273,12 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                         f'Epoch [{epoch + 1}][{i + 1}/{iters_per_epoch}] '
                         f'lr: {lr:.5f}, time: {dt:.3f}, ' + ', '.join(
                             f'{k}: {v:.4f}' for k, v in log_vars.items()))
+                    entry = dict(mode='train', epoch=epoch + 1,
+                                 iter=i + 1, lr=lr, time=dt, **log_vars)
                     if rank == 0:
-                        jsonl.log(dict(mode='train', epoch=epoch + 1,
-                                       iter=i + 1, lr=lr, time=dt,
-                                       **log_vars))
+                        jsonl.log(entry)
+                    if wandb_log is not None:
+                        wandb_log.log(entry, step=optimizer.count)
             if rank == 0 and ((epoch + 1) % ckpt_interval == 0
                               or epoch + 1 == total_epochs):
                 path = save_checkpoint(ckpt_dir, epoch + 1, dict(
@@ -256,12 +289,50 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             if eval_hook is not None:
                 results = eval_hook.after_epoch(epoch)
                 if results:
-                    jsonl.log(dict(mode='val', epoch=epoch + 1, **{
+                    entry = dict(mode='val', epoch=epoch + 1, **{
                         k: float(v) for k, v in results.items()
-                        if isinstance(v, (int, float))}))
+                        if isinstance(v, (int, float))})
+                    jsonl.log(entry)
+                    if wandb_log is not None:
+                        wandb_log.log(entry, step=optimizer.count)
+        if profiler is not None:  # fewer steps than asked for
+            _stop_profiler(profiler, work_dir, device, logger)
+            profiler = None
     finally:
         loader.close()
+        if profiler is not None:  # a step raised inside the trace
+            profiler.stop()
+    if wandb_log is not None:
+        wandb_log.finish()
     return TrainState(model, optimizer, optimizer.count)
+
+
+def _start_profiler(device: torch.device):
+    """A started ``torch.profiler`` of the host and, on a CUDA device, the
+    card's kernels. A profiler that cannot start raises."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, work_dir: str, device: torch.device,
+                   logger) -> str:
+    """Wait for the traced steps, stop and write the Chrome trace to
+    ``work_dir/profile/trace_rank{rank}.json``; returns its path."""
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    out = os.path.join(work_dir, 'profile')
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f'trace_rank{get_rank()}.json')
+    profiler.export_chrome_trace(path)
+    logger.info(f'profiler trace written to {path}')
+    return path
 
 
 def build_val_eval_fn(cfg, model_getter: Callable[[], nn.Module],

@@ -1,5 +1,6 @@
-from .augmentations import (ColorJitter, Flip, Normalize, RandomGaussianBlur,
-                            RandomGrayScale, RandomResizedCrop, Resize)
+from .augmentations import (ColorJitter, DeviceAug, Flip, Normalize,
+                            RandomGaussianBlur, RandomGrayScale,
+                            RandomResizedCrop, Resize)
 from .compose import Compose
 from .formating import Collect, FormatShape, ToTensor
 from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
@@ -7,7 +8,7 @@ from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
                       SequentialSampleFrames)
 
 __all__ = [
-    'ColorJitter', 'Flip', 'Normalize', 'RandomGaussianBlur',
+    'ColorJitter', 'DeviceAug', 'Flip', 'Normalize', 'RandomGaussianBlur',
     'RandomGrayScale', 'RandomResizedCrop', 'Resize', 'Compose', 'Collect',
     'FormatShape', 'ToTensor', 'Clip2Frame', 'DecordDecode', 'DecordInit',
     'Frame2Clip', 'OpenCVDecode', 'OpenCVInit', 'RawFrameDecode',

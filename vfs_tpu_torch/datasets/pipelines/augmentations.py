@@ -346,3 +346,31 @@ class RandomGaussianBlur:
                 results['imgs'][i] = cv2.GaussianBlur(
                     results['imgs'][i], (0, 0), sigma)
         return results
+
+
+@PIPELINES.register_module()
+class DeviceAug:
+    """Host side of on-device augmentation (``vfs_tpu_torch.ops.device_aug``):
+    resize the decoded frames to a fixed uint8 staging size (cv2
+    ``INTER_LINEAR``), stack them as ``(num_clips, clip_len, Hs, Ws, C)``
+    and record the original frame size as ``orig_hw`` (the device samples
+    its crops in original coordinates). The crop, flip, jitter, grayscale,
+    blur and normalisation of the host pipeline move into
+    ``cfg.device_aug`` and run in the train step."""
+
+    def __init__(self, scale=(320, 256)):
+        self.scale = tuple(scale)  # (W, H), Resize convention
+
+    def __call__(self, results):
+        import cv2
+        imgs = results['imgs']
+        orig_hw = np.asarray(imgs[0].shape[:2], np.int32)
+        w, h = self.scale
+        if imgs[0].shape[:2] != (h, w):
+            imgs = [cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR)
+                    for im in imgs]
+        arr = np.stack(imgs).astype(np.uint8)
+        n = int(results.get('num_clips', 1))
+        results['imgs'] = arr.reshape(n, len(imgs) // n, h, w, arr.shape[-1])
+        results['orig_hw'] = orig_hw
+        return results

@@ -101,8 +101,8 @@ class ResNet(nn.Module):
 
     - a BatchNorm runs on its running statistics when its stage is frozen,
       under ``norm_eval``, and, with ``partial_bn``, everywhere but the
-      stem; the parameters of frozen stages take no gradient (the
-      reference's freeze; the JAX package only switches their BN);
+      stem; the parameters of frozen stages still take gradients and
+      updates, as in the JAX package (the reference stops them too);
     - ``with_cp`` recomputes each residual block in the backward pass
       (``torch.utils.checkpoint``, non-reentrant); the recomputation
       leaves the running statistics alone, so a step updates them once;
@@ -243,8 +243,6 @@ class ResNet(nn.Module):
                 for i in range(1, self.frozen_stages + 1)]
             for m in frozen:
                 m.eval()
-                for p in m.parameters():
-                    p.requires_grad = False
 
     def train(self, mode: bool = True):
         super().train(mode)

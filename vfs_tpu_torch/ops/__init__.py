@@ -1,10 +1,13 @@
-from .affinity import NEG_INF, l2_normalize, spatial_neighbor
+from .affinity import (NEG_INF, compute_affinity, grid_mask, l2_normalize,
+                       propagate, propagate_temporal, spatial_neighbor,
+                       topk_first_index)
+from .attention import local_square_attention, masked_attention_efficient
 from .local_attention import (local_topk_attend, local_topk_attend_cuda,
                               local_topk_attend_reference)
 from .local_attention_v2 import (local_topk_attend_v2,
                                  local_topk_attend_v2_cuda)
-from .propagation import (PropagationConfig, propagate_labels,
-                          propagate_video)
+from .propagation import (PropagationConfig, attend_one_frame,
+                          propagate_labels, propagate_video)
 from .resize import pil_nearest_resize, resize_bilinear, resize_nearest
 from .video_affinity import (video_topk_affinity, video_topk_affinity_cuda,
                              video_topk_affinity_reference)
@@ -12,9 +15,12 @@ from .video_affinity_v1 import (video_topk_affinity_v1,
                                 video_topk_affinity_v1_cuda)
 
 __all__ = [
-    'NEG_INF', 'l2_normalize', 'spatial_neighbor', 'local_topk_attend',
-    'local_topk_attend_cuda', 'local_topk_attend_reference',
-    'local_topk_attend_v2', 'local_topk_attend_v2_cuda', 'PropagationConfig',
+    'NEG_INF', 'compute_affinity', 'grid_mask', 'l2_normalize', 'propagate',
+    'propagate_temporal', 'spatial_neighbor', 'topk_first_index',
+    'local_square_attention', 'masked_attention_efficient',
+    'local_topk_attend', 'local_topk_attend_cuda',
+    'local_topk_attend_reference', 'local_topk_attend_v2',
+    'local_topk_attend_v2_cuda', 'PropagationConfig', 'attend_one_frame',
     'propagate_labels', 'propagate_video', 'pil_nearest_resize',
     'resize_bilinear', 'resize_nearest', 'video_topk_affinity',
     'video_topk_affinity_cuda', 'video_topk_affinity_reference',

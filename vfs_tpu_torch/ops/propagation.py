@@ -2,7 +2,8 @@
 ``vfs_tpu/ops/propagation.py``).
 
 Two engines of the local configuration (``neighbor_range`` set,
-``with_first_neighbor=True``), which every eval config of the repo takes:
+``with_first``, ``with_first_neighbor`` and ``with_norm`` True), which
+every eval config of the repo takes:
 
 - the decoupled two-phase engine (``backend='pallas_video'`` or
   ``'tiled'``):
@@ -22,6 +23,13 @@ Two engines of the local configuration (``neighbor_range`` set,
   ``P + 1`` slots, each step one ``local_topk_attend`` (selection, softmax
   and gather fused).
 
+The other configurations take the dense scan (``_propagate_video_dense``,
+plain PyTorch, as in the JAX package): the non-local masked path
+(``neighbor_range`` None, or ``with_first_neighbor=False``, which exempts
+the first slot from the mask), ``with_first=False`` and ``with_norm=False``;
+each step is ``attend_one_frame``, per-frame top-k candidates merged
+across the bank.
+
 Results match the JAX package's scan tiers, including the reference's
 frame-0 duplication while ``t <= precede_frames`` and its tie order.
 """
@@ -32,7 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .affinity import l2_normalize
+from .affinity import NEG_INF, l2_normalize, spatial_neighbor, \
+    topk_first_index
 from .local_attention import local_topk_attend
 from .video_affinity import video_topk_affinity
 from .video_affinity_v1 import video_topk_affinity_v1
@@ -40,9 +49,11 @@ from .video_affinity_v1 import video_topk_affinity_v1
 
 class PropagationConfig(NamedTuple):
     """The JAX package's fields and defaults, so one ``test_cfg`` drives
-    both packages. ``backend`` ``'pallas_video'`` and ``'tiled'`` both run
-    the decoupled engine (their results are identical in the JAX
-    package); ``'pallas'`` runs the per-step scan.
+    both packages. In the local configuration, ``backend``
+    ``'pallas_video'``, ``'tiled'`` and ``'dense'`` run the decoupled
+    engine (their results are identical in the JAX package, where
+    ``'dense'`` and ``'tiled'`` are one path); ``'pallas'`` runs the
+    per-step scan. ``query_chunk`` sets the dense scan's query chunk.
 
     With ``backend='pallas_video'``, ``video_engine`` picks phase 1's
     kernel: ``'v2'`` the v2 engine, any other value the v1 engine, whose
@@ -53,9 +64,9 @@ class PropagationConfig(NamedTuple):
     in the JAX package, accepted here with no effect: ``pallas_tile``,
     ``pallas_fetch``, ``pallas_store``, ``pallas_matmul``,
     ``pallas_group_frames``, ``pallas_extract`` ``'mask'`` and
-    ``'descent'``, ``pallas_interpret``, ``tile``, ``query_chunk``,
-    ``video_bank_splits``, ``video_sweep_rows``, ``video_pass_mode``,
-    ``video_qpair`` and ``video_compact``."""
+    ``'descent'``, ``pallas_interpret``, ``tile``, ``video_bank_splits``,
+    ``video_sweep_rows``, ``video_pass_mode``, ``video_qpair`` and
+    ``video_compact``."""
     precede_frames: int = 20
     topk: int = 10
     temperature: float = 0.07
@@ -86,18 +97,11 @@ class PropagationConfig(NamedTuple):
 
 
 def _check_supported(cfg: PropagationConfig) -> None:
-    """Raise ``NotImplementedError`` for the configurations a later slice
-    of the port brings (see ROADMAP.md)."""
-    if cfg.backend not in ('pallas', 'pallas_video', 'tiled'):
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} (the dense path) is ported in a later "
-            "slice; use 'pallas', 'pallas_video' or 'tiled'")
-    if not (cfg.neighbor_range is not None and cfg.with_first_neighbor
-            and cfg.with_norm and cfg.with_first):
-        raise NotImplementedError(
-            'only the local decoupled engine is ported (neighbor_range set, '
-            'with_first, with_first_neighbor and with_norm True); the dense '
-            'masked path comes in a later slice')
+    """Raise ``NotImplementedError`` for the modes a later slice of the
+    port brings (see ROADMAP.md), ``ValueError`` for an unknown backend."""
+    if cfg.backend not in ('pallas', 'pallas_video', 'tiled', 'dense'):
+        raise ValueError(f'unknown backend {cfg.backend!r}; use '
+                         "'pallas', 'pallas_video', 'tiled' or 'dense'")
     if cfg.pallas_precision != 'float32':
         raise NotImplementedError(
             "pallas_precision='bfloat16' (bf16 features) is ported in a "
@@ -137,18 +141,30 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
             device the work runs on.
         seg_first: (H, W, K) one-hot (or soft) frame-0 labels at feature
             resolution.
-        mask: unused by the local engine; kept for the JAX signature.
+        mask: (HW, HW) bool [key_pos, query_pos] spatial mask of the dense
+            scan, or None; unused by the local engines. With
+            ``neighbor_range`` set and ``with_first=False`` the dense scan
+            builds the circle mask itself.
         cfg: PropagationConfig.
 
     Returns:
         (T, H, W, K) label logits; frame 0 is ``seg_first``.
     """
-    del mask
     _check_supported(cfg)
     seg_first = seg_first.to(torch.float32)
     if feats.shape[0] < 2:
         return seg_first[None][:feats.shape[0]]
-    feats = l2_normalize(feats.to(torch.float32), dim=-1).contiguous()
+    feats = feats.to(torch.float32)
+    use_local = (cfg.neighbor_range is not None and cfg.with_first_neighbor
+                 and cfg.with_norm)
+    if not (use_local and cfg.with_first):
+        if use_local:
+            mask = spatial_neighbor(feats.shape[1], feats.shape[2],
+                                    cfg.neighbor_range, device=feats.device)
+        elif mask is not None:
+            mask = mask.to(feats.device)
+        return _propagate_video_dense(feats, seg_first, mask, cfg)
+    feats = l2_normalize(feats, dim=-1).contiguous()
     if cfg.backend == 'pallas':
         return _propagate_video_scan(feats, seg_first, cfg)
     radius = float(cfg.neighbor_range // 2)
@@ -193,5 +209,115 @@ def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
         slot = 1 + t % p
         bank_feats[slot] = feats[t]
         bank_vals[slot] = seg
+        out[t] = seg
+    return out
+
+
+def _frame_topk(q_chunk: torch.Tensor, feat: torch.Tensor, seg: torch.Tensor,
+                mask_chunk: Optional[torch.Tensor], valid: torch.Tensor,
+                temperature: float, topk: int):
+    """Top-k candidates of one key frame: ``q_chunk`` (Q, C) and ``feat``
+    (HW, C) (normalised as the config says), ``seg`` (HW, K) values,
+    ``mask_chunk`` (HW, Q) bool or None, ``valid`` () bool. Returns (Q, topk)
+    scores and (Q, topk, K) values, ties to the lowest position."""
+    scores = (q_chunk @ feat.T) / temperature
+    if mask_chunk is not None:
+        scores = torch.where(mask_chunk.T, scores, NEG_INF)
+    scores = torch.where(valid, scores, NEG_INF)
+    top_scores, top_idx = topk_first_index(scores, topk)
+    return top_scores, seg[top_idx]
+
+
+def attend_one_frame(query_feat: torch.Tensor, bank_feats: torch.Tensor,
+                     bank_segs: torch.Tensor, bank_valid: torch.Tensor,
+                     bank_masked: torch.Tensor, mask: Optional[torch.Tensor],
+                     cfg: PropagationConfig) -> torch.Tensor:
+    """Masked top-k attention of one query frame against the bank, in
+    chunks of ``cfg.query_chunk`` queries: each bank slot's top-k
+    candidates merge into a running list (slot order first, so ties go to
+    the lowest (slot, position)), then softmax and the weighted sum.
+
+    Args:
+        query_feat: (H, W, C).
+        bank_feats: (F, H, W, C); bank_segs: (F, H, W, K).
+        bank_valid: (F,) bool, whether each slot holds a live frame.
+        bank_masked: (F,) bool, whether the spatial mask applies to the
+            slot (False: the reference's ``non_mask_len`` exemption).
+        mask: (HW, HW) bool [key_pos, query_pos] or None.
+    Returns:
+        (H, W, K) propagated logits.
+    """
+    f, h, w, c = bank_feats.shape
+    k_classes = bank_segs.shape[-1]
+    hw = h * w
+    q = query_feat.reshape(hw, c)
+    feats = bank_feats.reshape(f, hw, c)
+    segs = bank_segs.reshape(f, hw, k_classes)
+    if cfg.with_norm:
+        q = l2_normalize(q, dim=-1)
+        feats = l2_normalize(feats, dim=-1)
+    chunk = cfg.query_chunk
+    outs = []
+    for start in range(0, hw, chunk):
+        q_c = q[start:start + chunk]
+        m_c = None if mask is None else mask[:, start:start + chunk]
+        best_s = q_c.new_full((q_c.shape[0], cfg.topk), NEG_INF)
+        best_v = q_c.new_zeros((q_c.shape[0], cfg.topk, k_classes))
+        for j in range(f):
+            mc = None if m_c is None else torch.where(bank_masked[j], m_c,
+                                                      True)
+            s, v = _frame_topk(q_c, feats[j], segs[j], mc, bank_valid[j],
+                               cfg.temperature, cfg.topk)
+            best_s, sel = topk_first_index(torch.cat([best_s, s], 1),
+                                           cfg.topk)
+            best_v = torch.gather(torch.cat([best_v, v], 1), 1,
+                                  sel[..., None].expand(-1, -1, k_classes))
+        weights = torch.softmax(best_s, dim=-1)
+        outs.append(torch.einsum('qk,qkc->qc', weights, best_v))
+    return torch.cat(outs, 0).reshape(h, w, k_classes)
+
+
+def _propagate_video_dense(feats: torch.Tensor, seg_first: torch.Tensor,
+                           mask: Optional[torch.Tensor],
+                           cfg: PropagationConfig) -> torch.Tensor:
+    """The JAX package's dense scan: a window ring of ``P`` slots, frame
+    ``f`` in slot ``f % P`` (slot 0 starts as frame 0; slot ``j`` is live
+    for query frame ``t`` iff ``j < t``), with frame 0 prepended as an
+    extra slot under ``with_first`` (its mask waived unless
+    ``with_first_neighbor``). Each step attends (``attend_one_frame``),
+    then the query's slot takes its features and logits.
+
+    Slots not yet live are left out of the bank: their keys score
+    ``NEG_INF`` in the JAX package, which take weight 0 beside any finite
+    score, and every query has one (no mask, the first slot unmasked, or
+    a circle mask that holds the query's own cell)."""
+    t_total, h, w, c = feats.shape
+    p = cfg.precede_frames
+    dev = feats.device
+    if cfg.with_norm:  # normalising once equals normalising each step
+        feats = l2_normalize(feats, dim=-1)
+        cfg = cfg._replace(with_norm=False)
+    ring_feat = feats.new_zeros((p, h, w, c))
+    ring_seg = seg_first.new_zeros((p,) + tuple(seg_first.shape))
+    ring_feat[0] = feats[0]
+    ring_seg[0] = seg_first
+    out = seg_first.new_empty((t_total,) + tuple(seg_first.shape))
+    out[0] = seg_first
+    ones = torch.ones((p,), dtype=torch.bool, device=dev)
+    for t in range(1, t_total):
+        live = min(t, p)
+        bank_feats, bank_segs = ring_feat[:live], ring_seg[:live]
+        valid = torch.arange(live, device=dev) < t
+        masked = ones[:live]
+        if cfg.with_first:
+            bank_feats = torch.cat([feats[:1], bank_feats], 0)
+            bank_segs = torch.cat([seg_first[None], bank_segs], 0)
+            valid = torch.cat([ones[:1], valid], 0)
+            masked = torch.cat([torch.full((1,), cfg.with_first_neighbor,
+                                           device=dev), masked], 0)
+        seg = attend_one_frame(feats[t], bank_feats, bank_segs, valid,
+                               masked, mask, cfg)
+        ring_feat[t % p] = feats[t]
+        ring_seg[t % p] = seg
         out[t] = seg
     return out

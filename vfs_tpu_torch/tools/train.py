@@ -4,7 +4,7 @@ tools/train.py:20-181).
 Usage:
     python -m vfs_tpu_torch.tools.train CONFIG [--work-dir D] [--seed N] \\
         [--auto-resume] [--validate] [--options k=v ...] [--device cpu] \\
-        [--launcher pytorch]
+        [--launcher pytorch] [--profile N] [--disable-wandb]
 
 Runs on CUDA unless ``--device`` says otherwise, and raises when there is
 no GPU and no ``--device cpu``. ``--launcher pytorch`` joins the process
@@ -44,7 +44,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument('--disable-wandb', action='store_true',
                         help='drop any WandbLoggerHook from log_config')
     parser.add_argument('--profile', type=int, default=0, metavar='N',
-                        help='trace train steps [2, 2+N); not ported yet')
+                        help='torch.profiler trace of train steps [2, 2+N) '
+                             'into work_dir/profile')
     parser.add_argument('--compilation-cache', default=None,
                         help="the JAX package's XLA cache directory; "
                              'accepted and ignored (PyTorch runs eagerly)')

@@ -2,9 +2,11 @@ from .config import Config, ConfigDict, parse_option_value, parse_options
 from .logging import JsonlLogger, get_root_logger
 from .misc import add_prefix, collect_env, set_random_seed
 from .registry import Registry, build_from_cfg
+from .wandb_logger import WandbLogger, build_wandb_logger
 
 __all__ = [
     'Config', 'ConfigDict', 'parse_option_value', 'parse_options',
     'JsonlLogger', 'get_root_logger', 'add_prefix', 'collect_env',
-    'set_random_seed', 'Registry', 'build_from_cfg'
+    'set_random_seed', 'Registry', 'build_from_cfg', 'WandbLogger',
+    'build_wandb_logger'
 ]
