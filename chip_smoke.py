@@ -119,12 +119,40 @@ Phases, one JSON line each on stdout:
    retrieval values, the margins and the wall; ``retrieval_margin`` must
    be positive; ``video_topk_affinity`` launches once per val video and
    tracker (24).
-11. kernels: every kernel with its launches on its path, times, bound
+11. bench_cfg: slice 8's path, the JAX bench's eval configuration
+   (bench.py:41,63-72,114-124: bf16 features in rows 1-3, a bf16 backbone,
+   yuv420 transport; P=20, top-10, batch_step 20, neighbor 24 for r18 and
+   36 for r50) on bench.py's three seeded noise videos (80x480x854,
+   60x480x910, 100x480x768) with seeded weights. First rows 1-3's bf16
+   entries at small shapes (C = 8, 16, 72, tie cases), then per depth:
+   rows 1-3 in bf16 at the DAVIS shapes against their plain versions (the
+   fp32 gates), against their fp32 entries on the widened features and
+   row 2 against row 1 (bit for bit), with bf16 and fp32 times in turn and
+   the bound two ways: ``bound_ms`` and ``bound_share`` on the bf16 dense
+   tensor cores (the card's peak for these operands), ``ffma_bound_ms``
+   and ``ffma_share`` on the fp32 CUDA cores (the design's FFMAs); the
+   production eval loop (``single_process_test``) over the three videos,
+   counted (row 1's bf16 entry once per video) and timed warm
+   (``e2e_fps``, peak memory); extraction ms/frame of the bf16 and fp32
+   backbones on the packed frames; bytes a frame, the host pack and the
+   pageable host-to-device copy, yuv420 against RGB; the card's
+   ``yuv420_to_rgb`` against the CPU's; bench.py's two agreement checks
+   on the first 20 frames of video 0 (the fp32 kernel against
+   ``tiled``, which in the port is the same engine, and against a plain
+   phase 1, >= 99.9%; bf16 against fp32 over the floor, 0.97 r18 / 0.98
+   r50); the v1 engine (row 2) and the scan (row 3) in bf16 on those
+   frames, counted, their masks against the v2 run's; and one
+   ``multi_process_test`` in a one-rank NCCL group against
+   ``single_process_test`` on the three videos' first 20 frames.
+12. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
-   path's, the train phase's eval hook's and the learning loop's. (The
+   path's, the train phase's eval hook's, the learning loop's and the
+   bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
+   path and carry a ``bf16`` entry (r18 and r50 numbers of phase 11). (The
    full lines also give the share of the computed pairs the function
    needs, from the core's pass rule. Times of an earlier checkout come
-   from ``ab_kernels.py``, which runs both checkouts in one call.)
+   from ``ab_kernels.py``, which runs both checkouts in one call.) A
+   ``total`` line before it gives the script's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -169,7 +197,14 @@ bf16 ConvBN, where fp32 differs from bf16 by 3e-3 a stage forward).
 ``BF16_REL_L2`` holds them at about
 2.5x those readings above, and at 1e-3 and 1e-2 below, so that a bf16
 step that ran in fp32 fails: two fp32 steps differ by rounding alone
-(the card's and the CPU's gradients by 2e-5).
+(the card's and the CPU's gradients by 2e-5). bench_cfg: a bf16 entry
+widens each value and runs its fp32 entry's fmaf chain (a bf16 product is
+exact in fp32), so it must equal the fp32 entry on the widened features
+bit for bit; against the plain version the fp32 gates hold. The card's
+yuv420 unpack must lie within 1e-3 of the CPU's on the [0, 255] scale
+(the same fp32 operations; no division). The scan's masks in bf16 against
+the v2 engine's on >= 99.9% of pixels (the epilogue sums in the kernel,
+phase 2 in PyTorch); the v1 engine's equal them.
 """
 
 from __future__ import annotations
@@ -2396,12 +2431,490 @@ def phase_learning(smi_line):
     return launches
 
 
+# The JAX bench's eval configuration (bench.py:41,63-72,80-82,114-124),
+# copied: the script imports nothing of the JAX package. Three videos of
+# seeded noise with seven boxes of labels; per depth the test_cfg (bf16
+# features, yuv420 transport) and neighbor range, a bf16 backbone, and the
+# floors of bf16 against fp32 agreement.
+BENCH_VIDEO_SHAPES = [(80, 480, 854), (60, 480, 910), (100, 480, 768)]
+BENCH_NUM_CLASSES = 8
+BENCH_BOXES = [(60, 150, 120, 120), (250, 90, 100, 160), (340, 420, 90, 200),
+               (120, 520, 140, 110), (300, 640, 80, 90), (40, 700, 60, 60),
+               (400, 100, 60, 260)]
+BENCH_MODELS = (('r18', 18, 24, 0.97), ('r50', 50, 36, 0.98))
+BENCH_AGREE_FRAMES = 20
+BENCH_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
+# rows 1-3 in bf16 at small shapes: C = 8 (one 16-byte quad), 16 (a part
+# of a 64-channel cell), 72 (a cell and a part), topk up to 32. Rows 1-2:
+# (T, h, w, C, radius, P, topk); row 3: (h, w, C, radius, validity, topk,
+# K)
+BF16_SMALL_CASES = [(5, 3, 5, 8, 3.0, 4, 5), (6, 13, 45, 16, 5.0, 3, 10),
+                    (4, 10, 37, 72, 12.0, 2, 32)]
+BF16_SMALL_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
+                          (13, 45, 16, 5.0, (1, 0, 1), 10, 4),
+                          (10, 37, 72, 12.0, (1, 1), 32, 4)]
+
+
+def bench_test_cfg(neighbor_range):
+    """bench.py's TEST_CFGS entry for a depth."""
+    return dict(precede_frames=20, topk=10, temperature=0.07,
+                strides=(1, 2, 1, 1), out_indices=(2,),
+                neighbor_range=neighbor_range, with_first=True,
+                with_first_neighbor=True, batch_step=20,
+                pallas_precision='bfloat16', input_format='yuv420')
+
+
+def bench_videos():
+    """bench.py's make_videos: (imgs, first-frame labels, meta) each."""
+    rng = np.random.RandomState(0)
+    videos = []
+    for t_total, h, w in BENCH_VIDEO_SHAPES:
+        imgs = rng.randint(0, 255, (t_total, h, w, 3), np.uint8)
+        seg = np.zeros((h, w), np.uint8)
+        for k, (y, x, bh, bw) in enumerate(
+                BENCH_BOXES[:BENCH_NUM_CLASSES - 1]):
+            seg[y:y + bh, x:min(x + bw, w)] = k + 1
+        meta = dict(original_shape=(h, w), img_norm_cfg=dict(
+            mean=np.array(BENCH_NORM['mean'], np.float32),
+            std=np.array(BENCH_NORM['std'], np.float32)))
+        videos.append((imgs, seg, meta))
+    return videos
+
+
+def bf16_bounds(flops, nbytes_bf16, name):
+    """The bound of a bf16 launch two ways, each the larger of operations
+    over the peak and bytes over the memory rate: ``bound_ms`` on the dense
+    bf16 tensor cores (the card's peak for bf16 products summed in fp32:
+    the roofline of the kernels line) and ``ffma_bound_ms`` on the fp32
+    CUDA cores (the design's own ceiling: its FFMAs)."""
+    ffma_ms, ffma_by = bound_ms(flops, nbytes_bf16, name)
+    _, tbps, bf16_tflops = peaks(name)
+    by_ops = flops / (bf16_tflops * 1e12) * 1e3
+    by_bytes = nbytes_bf16 / (tbps * 1e12) * 1e3
+    return dict(bound_ms=max(by_ops, by_bytes),
+                bound_by='operations' if by_ops >= by_bytes else 'bytes',
+                ffma_bound_ms=ffma_ms, ffma_bound_by=ffma_by)
+
+
+def same_lists(a, b):
+    """Scores and sources of rows t >= 1 equal bit for bit."""
+    import torch
+    return (torch.equal(a[0][1:], b[0][1:])
+            and torch.equal(a[1][1:], b[1][1:]))
+
+
+def bf16_small_checks(dev):
+    """Rows 1-3's bf16 entries at small shapes (BF16_SMALL_CASES,
+    BF16_SMALL_LOCAL_CASES) and on duplicated-frame tie cases: each against
+    its plain version (exact sources on the ties), against its fp32 entry
+    on the widened features (bit for bit) and row 2 against row 1 (bit for
+    bit). Returns the worst max_abs_err and source mismatch."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda)
+
+    def bf16(x):
+        return l2_normalize(torch.tensor(x, dtype=torch.float32, device=dev)
+                            ).to(torch.bfloat16).contiguous()
+
+    worst = [0.0, 0]
+    video = []
+    for t_total, h, w, c, radius, p, topk in BF16_SMALL_CASES:
+        rng = np.random.RandomState(t_total * 1000 + h * 10 + c)
+        video.append((bf16(rng.randn(t_total, h, w, c)), radius, topk, p,
+                      False, f'bf16 small {t_total}x{h}x{w}x{c}'))
+    tie = np.random.RandomState(31).randn(10, 8, 9, 16)
+    tie[3], tie[7] = tie[1], tie[5]
+    video.append((bf16(tie), 3.0, 5, 4, True, 'bf16 tie'))
+    with exact_fp32():
+        for feats, radius, topk, p, exact_src, what in video:
+            plain = video_topk_affinity_reference(feats, radius, 0.07, topk,
+                                                  p)
+            row1 = video_topk_affinity_cuda(feats, radius, 0.07, topk, p)
+            fp32 = video_topk_affinity_cuda(feats.float(), radius, 0.07,
+                                            topk, p)
+            torch.cuda.synchronize()
+            err, mismatch, _ = compare((row1[0][1:], row1[1][1:]),
+                                       (plain[0][1:], plain[1][1:]),
+                                       exact_src, what)
+            if not same_lists(row1, fp32):
+                raise AssertionError(f'{what}: bf16 differs from fp32 on '
+                                     'the widened features')
+            for extract, early_exit in V1_MODES:
+                v1 = video_topk_affinity_v1_cuda(
+                    feats, radius, 0.07, topk, p, early_exit=early_exit,
+                    extract=extract)
+                torch.cuda.synchronize()
+                if not same_lists(v1, row1):
+                    raise AssertionError(f'{what} v1 {extract}/'
+                                         f'{early_exit}: differs from row 1')
+            worst = [max(worst[0], err), max(worst[1], mismatch)]
+        local = []
+        for h, w, c, radius, valid, topk, k in BF16_SMALL_LOCAL_CASES:
+            rng = np.random.RandomState(h * 1000 + w * 10 + c)
+            local.append((bf16(rng.randn(h, w, c)),
+                          bf16(rng.randn(len(valid), h, w, c)),
+                          rng.rand(len(valid), h, w, k), valid, radius, topk,
+                          False, f'bf16 small local {h}x{w}x{c}'))
+        rng = np.random.RandomState(37)
+        bank = rng.randn(4, 7, 9, 16)
+        bank[2] = bank[0]
+        local.append((bf16(rng.randn(7, 9, 16)), bf16(bank),
+                      rng.rand(4, 7, 9, 4), (1, 1, 1, 1), 3.0, 6, True,
+                      'bf16 local tie'))
+        for (query, bank, vals, valid, radius, topk, exact_src,
+             what) in local:
+            vals = torch.tensor(vals, dtype=torch.float32, device=dev)
+            valid = torch.tensor(valid, dtype=torch.int32, device=dev)
+            (err, _, mismatch, _), out = run_local(
+                query, bank, vals, valid, radius, topk, exact_src, what)
+            fp32 = local_topk_attend_cuda(query.float(), bank.float(), vals,
+                                          valid, radius, 0.07, topk)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out, fp32)):
+                raise AssertionError(f'{what}: bf16 differs from fp32 on '
+                                     'the widened features')
+            worst = [max(worst[0], err), max(worst[1], mismatch)]
+    return worst
+
+
+def bf16_full_checks(dev, smi_name, c, radius):
+    """Rows 1-3's bf16 entries at the DAVIS-480p shapes (60x107 cells, P =
+    20, top-10) on random L2-normalised features cast to bf16: rows 1-2 at
+    T = 24 (times also at T = 48), row 3 one step against F = 21 slots (K
+    = 4). Each against its plain version (widened features, cuBLAS fp32,
+    TF32 off) with the fp32 gates, against its fp32 entry on the widened
+    features bit for bit, row 2 against row 1 bit for bit; the bf16 and
+    fp32 entries' times in turn, that of a widening copy and the fp32
+    entry (what a bf16 entry spares), the plain version's, and the bounds
+    (``bf16_bounds``). Returns {row: numbers}."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   local_topk_attend_reference,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda)
+    h, w, p, topk, k_classes = 60, 107, 20, 10, 4
+    g = torch.Generator(device=dev).manual_seed(c + 3)
+    b48 = l2_normalize(torch.randn((48, h, w, c), device=dev, generator=g)
+                       ).to(torch.bfloat16).contiguous()
+    b24 = b48[:24].contiguous()
+    w48, w24 = b48.float(), b24.float()
+    out = {}
+    with exact_fp32():
+        plain = video_topk_affinity_reference(b24, radius, 0.07, topk, p)
+        row1 = video_topk_affinity_cuda(b24, radius, 0.07, topk, p)
+        fp32 = video_topk_affinity_cuda(w24, radius, 0.07, topk, p)
+        v1 = video_topk_affinity_v1_cuda(b24, radius, 0.07, topk, p,
+                                         early_exit=True, extract='perframe')
+        torch.cuda.synchronize()
+        err, mismatch, share = compare((row1[0][1:], row1[1][1:]),
+                                       (plain[0][1:], plain[1][1:]), False,
+                                       f'bf16 full row 1 C={c}')
+        if not same_lists(row1, fp32) or not same_lists(v1, row1):
+            raise AssertionError(f'bf16 full C={c}: row 1 differs from its '
+                                 'fp32 entry or row 2 from row 1')
+        del plain, row1, fp32, v1
+
+        def row1_call(feats):
+            return video_topk_affinity_cuda(feats, radius, 0.07, topk, p)
+
+        def v1_call(feats):
+            return video_topk_affinity_v1_cuda(
+                feats, radius, 0.07, topk, p, early_exit=True,
+                extract='perframe')
+
+        def widen_call(feats):  # the alternative to a bf16 entry
+            return row1_call(feats.float())
+
+        ms = {}
+        for key, fn, feats in (('b24', row1_call, b24),
+                               ('f24', row1_call, w24),
+                               ('wf24', widen_call, b24),
+                               ('b48', row1_call, b48),
+                               ('f48', row1_call, w48),
+                               ('v24', v1_call, b24),
+                               ('v48', v1_call, b48)):
+            ms[key] = cuda_ms(lambda: fn(feats))
+        plain24 = cuda_ms(lambda: video_topk_affinity_reference(
+            b24, radius, 0.07, topk, p), runs=3)
+    (f24, n24), (f48, n48) = [affinity_work(t, h, w, c, radius, topk, p)
+                              for t in (24, 48)]
+    half = 2.0 * h * w * c  # a bf16 frame is half an fp32 one's bytes
+    bd24 = bf16_bounds(f24, n24 - half * 24, smi_name)
+    bd_steady = bf16_bounds((f48 - f24) / 24, (n48 - n24 - half * 24) / 24,
+                            smi_name)
+    for row, k24, k48 in (('row1', ms['b24'], ms['b48']),
+                          ('row2', ms['v24'], ms['v48'])):
+        out[row] = dict(
+            shape=[24, h, w, c], max_abs_err=err, src_mismatch=mismatch,
+            src_mismatch_share=share, ms=k24, ms_per_frame=k24 / 23,
+            steady_ms_per_frame=(k48 - k24) / 24,
+            plain_ms=plain24, plain_ms_per_frame=plain24 / 23,
+            bound_ms_per_frame=bd24['bound_ms'] / 23,
+            ffma_bound_ms_per_frame=bd24['ffma_bound_ms'] / 23,
+            steady_bound_ms_per_frame=bd_steady['bound_ms'],
+            steady_ffma_bound_ms_per_frame=bd_steady['ffma_bound_ms'],
+            bound_share=bd24['bound_ms'] / k24,
+            ffma_share=bd24['ffma_bound_ms'] / k24,
+            steady_bound_share=bd_steady['bound_ms'] * 24 / (k48 - k24),
+            steady_ffma_share=bd_steady['ffma_bound_ms'] * 24 / (k48 - k24),
+            **bd24)
+    out['row1'].update(fp32_ms=ms['f24'], widen_fp32_ms=ms['wf24'],
+                       fp32_ms_per_frame=ms['f24'] / 23,
+                       fp32_steady_ms_per_frame=(ms['f48'] - ms['f24']) / 24)
+    del b48, b24, w48, w24
+    torch.cuda.empty_cache()
+
+    f = p + 1
+    g = torch.Generator(device=dev).manual_seed(c + 4)
+    bank = l2_normalize(torch.randn((f, h, w, c), device=dev, generator=g)
+                        ).to(torch.bfloat16).contiguous()
+    query = l2_normalize(torch.randn((h, w, c), device=dev, generator=g)
+                         ).to(torch.bfloat16).contiguous()
+    vals = torch.rand((f, h, w, k_classes), device=dev, generator=g)
+    valid = torch.ones(f, dtype=torch.int32, device=dev)
+    (err, logit_err, mismatch, share), got = run_local(
+        query, bank, vals, valid, radius, topk, False,
+        f'bf16 full row 3 C={c}')
+    qf, bf = query.float(), bank.float()
+    with exact_fp32():
+        fp32 = local_topk_attend_cuda(qf, bf, vals, valid, radius, 0.07, topk)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, fp32)):
+            raise AssertionError(f'bf16 full row 3 C={c}: differs from its '
+                                 'fp32 entry on the widened features')
+        k_ms = cuda_ms(lambda: local_topk_attend_cuda(
+            query, bank, vals, valid, radius, 0.07, topk))
+        f_ms = cuda_ms(lambda: local_topk_attend_cuda(
+            qf, bf, vals, valid, radius, 0.07, topk))
+        wf_ms = cuda_ms(lambda: local_topk_attend_cuda(
+            query.float(), bank.float(), vals, valid, radius, 0.07, topk))
+        p_ms = cuda_ms(lambda: local_topk_attend_reference(
+            query, bank, vals, valid, radius, 0.07, topk), runs=3)
+    flops, nbytes = step_work(h, w, c, radius, topk, k_classes, f, f)
+    bd = bf16_bounds(flops, nbytes - 2.0 * h * w * c * (1 + f), smi_name)
+    out['row3'] = dict(h=h, w=w, C=c, F=f, K=k_classes, max_abs_err=err,
+                       max_logit_err=logit_err, src_mismatch=mismatch,
+                       src_mismatch_share=share, ms=k_ms, fp32_ms=f_ms,
+                       widen_fp32_ms=wf_ms,
+                       plain_ms=p_ms, bound_share=bd['bound_ms'] / k_ms,
+                       ffma_share=bd['ffma_bound_ms'] / k_ms, **bd)
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def bench_depth(dev, smi_name, name, depth, neighbor_range, floor, videos):
+    """One depth of the bench_cfg phase (module docstring): the kernels in
+    bf16, then the path. Returns the kernel checks' numbers and each row's
+    bf16 launches on the path."""
+    import torch
+    import torch.distributed as dist
+    import vfs_tpu_torch.apis as apis
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda, propagation,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda)
+    from vfs_tpu_torch.ops.yuv import rgb_to_yuv420, yuv420_to_rgb
+
+    c = 256 if depth == 18 else 1024
+    radius = float(neighbor_range // 2)
+    kernels = bf16_full_checks(dev, smi_name, c, radius)
+    test_cfg = bench_test_cfg(neighbor_range)
+
+    def tracker(dtype):
+        model = build_model(dict(type='VanillaTracker', backbone=dict(
+            type='ResNet', depth=depth, out_indices=(3,), dtype=dtype)),
+            test_cfg=dict(test_cfg))
+        model.init_weights(torch.Generator().manual_seed(0))
+        return model
+
+    model = tracker('bfloat16')
+    dataset = [dict(imgs=imgs, ref_seg_map=seg, img_meta=meta)
+               for imgs, seg, meta in videos]
+    frames = sum(v[0].shape[0] for v in videos)
+    apis.single_process_test(model, dataset)  # cold: cuDNN's first calls
+
+    # the path, counted: the production eval loop over the three videos
+    counted = (video_topk_affinity_cuda, video_topk_affinity_v1_cuda,
+               local_topk_attend_cuda)
+    for fn in counted:
+        fn.launches = fn.bf16_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    preds = apis.single_process_test(model, dataset)
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    row1_bf16 = video_topk_affinity_cuda.bf16_launches
+    if row1_bf16 != len(videos) or video_topk_affinity_cuda.launches \
+            != row1_bf16:
+        raise AssertionError(f'{name}: {row1_bf16} bf16 launches of row 1 '
+                             f'for {len(videos)} videos')
+    for (imgs, _, _), pred in zip(videos, preds):
+        if pred.shape != imgs.shape[:3] or pred.dtype != np.uint8 \
+                or pred.max() >= BENCH_NUM_CLASSES:
+            raise AssertionError(f'{name}: bad predictions {pred.shape}')
+
+    # transport and extraction on video 0
+    imgs0, seg0, meta0 = videos[0]
+    t0 = time.time()
+    packed_host = rgb_to_yuv420(imgs0)
+    pack_ms = (time.time() - t0) * 1e3
+    copy_ms = {}
+    for key, host in (('yuv420', packed_host), ('rgb', imgs0)):
+        walls = []
+        for _ in range(3):
+            src = torch.from_numpy(host)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            src.to(dev)
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3)
+        copy_ms[key] = statistics.median(walls)
+    packed = model.preload(imgs0, device=dev)
+    yuv = tuple(packed.hw) + (packed.convention,)
+    mean = torch.tensor(BENCH_NORM['mean'], device=dev)
+    std = torch.tensor(BENCH_NORM['std'], device=dev)
+    rgb_dev = torch.as_tensor(imgs0, device=dev)
+    fp32_model = tracker('float32')
+    fp32_model.backbone.load_state_dict(model.backbone.state_dict())
+    t_total = imgs0.shape[0]
+    ext = {key: cuda_ms(lambda: m._extract_feats(x, 20, mean, std, y),
+                        runs=3) / t_total
+           for key, m, x, y in (('bf16', model, packed.frames, yuv),
+                                ('fp32', fp32_model, packed.frames, yuv),
+                                ('bf16_rgb_input', model, rgb_dev, None))}
+    del fp32_model, rgb_dev
+    torch.cuda.empty_cache()
+    # the card's unpack against the CPU's
+    n = BENCH_AGREE_FRAMES
+    card = yuv420_to_rgb(packed.frames[:n], *yuv).cpu()
+    cpu = yuv420_to_rgb(torch.from_numpy(packed_host[:n]), *yuv)
+    yuv_err = float((card - cpu).abs().max())
+    if yuv_err > 1e-3:
+        raise AssertionError(f'{name}: yuv420_to_rgb card vs CPU {yuv_err}')
+
+    # bench.py's agreement checks on video 0's first 20 frames, and the
+    # v1 engine and the scan in bf16, counted
+    short = imgs0[:n]
+    runs = {}
+    saved = dict(model.test_cfg)
+    for key, over, patch in (
+            ('tiled', dict(backend='tiled'), None),
+            ('fp32', dict(backend='pallas_video',
+                          pallas_precision='float32'), None),
+            ('plain', dict(backend='pallas_video',
+                           pallas_precision='float32'),
+             video_topk_affinity_reference),
+            ('bf16', dict(backend='pallas_video'), None),
+            ('bf16_v1', dict(backend='pallas_video', video_engine='v1',
+                             video_extract='perframe'), None),
+            ('bf16_scan', dict(backend='pallas'), None)):
+        model.test_cfg.update(over)
+        for fn in counted:
+            fn.launches = fn.bf16_launches = 0
+        with contextlib.ExitStack() as stack:
+            if patch is not None:
+                stack.enter_context(patched(propagation,
+                                            'video_topk_affinity',
+                                            lambda _: patch))
+            runs[key] = (model.forward_test(short, seg0, [meta0])[0],
+                         [fn.bf16_launches for fn in counted])
+        model.test_cfg.clear()
+        model.test_cfg.update(saved)
+    agree = {key: float((runs[key][0] == runs[ref][0]).mean())
+             for key, ref in (('tiled', 'fp32'), ('plain', 'fp32'),
+                              ('bf16', 'fp32'), ('bf16_v1', 'bf16'),
+                              ('bf16_scan', 'bf16'))}
+    row2_bf16 = runs['bf16_v1'][1][1]
+    row3_bf16 = runs['bf16_scan'][1][2]
+    if (agree['tiled'] < 0.999 or agree['plain'] < 0.999
+            or agree['bf16'] < floor or agree['bf16_v1'] != 1.0
+            or agree['bf16_scan'] < 0.999 or runs['bf16'][1][0] != 1
+            or row2_bf16 != 1 or row3_bf16 != n - 1):
+        raise AssertionError(f'{name}: agreement {agree}, bf16 launches '
+                             f'{ {k: v[1] for k, v in runs.items()} }')
+
+    # eval over processes: a one-rank NCCL group against the single
+    # process on the three videos' first 20 frames
+    clips = [dict(d, imgs=d['imgs'][:n]) for d in dataset]
+    single = apis.single_process_test(model, clips)
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', rank=0, world_size=1)
+    try:
+        multi = apis.multi_process_test(model, clips)
+    finally:
+        dist.destroy_process_group()
+    if len(multi) != len(single) or not all(
+            np.array_equal(a, b) for a, b in zip(multi, single)):
+        raise AssertionError(f'{name}: multi_process_test differs from '
+                             'single_process_test')
+
+    emit({'phase': 'bench_cfg', 'model': name, 'card': smi_name,
+          'test_cfg': test_cfg, 'backbone_dtype': 'bfloat16',
+          'videos': [list(v[0].shape) for v in videos], 'frames': frames,
+          'e2e_s': e2e_s, 'e2e_fps': frames / e2e_s,
+          'peak_memory_gb': peak_gb,
+          'extract_ms_per_frame': ext,
+          'row1_ms_per_frame': dict(
+              bf16=kernels['row1']['ms_per_frame'],
+              fp32=kernels['row1']['fp32_ms_per_frame'],
+              bf16_steady=kernels['row1']['steady_ms_per_frame'],
+              fp32_steady=kernels['row1']['fp32_steady_ms_per_frame']),
+          'bytes_per_frame': dict(yuv420=int(packed_host[0].nbytes),
+                                  rgb=int(imgs0[0].nbytes)),
+          'host_pack_ms_per_frame': pack_ms / t_total,
+          'copy_ms_per_frame': {k: v / t_total for k, v in copy_ms.items()},
+          'copy': 'pageable, synchronous, in the prefetch thread',
+          'yuv420_card_vs_cpu_max_abs': yuv_err,
+          'agreement': agree, 'bf16_floor': floor,
+          'bf16_path_launches': dict(row1=row1_bf16 + 1, row2=row2_bf16,
+                                     row3=row3_bf16),
+          'multi_process_equal': True, 'kernels': kernels})
+    return kernels, (row1_bf16 + runs['bf16'][1][0], row2_bf16, row3_bf16)
+
+
+def phase_bench_cfg(dev, smi_name):
+    """The JAX bench's eval configuration (module docstring, phase 11) for
+    r18 and r50. Returns {row: its bf16 entry for the kernels line}."""
+    import torch
+    small_err, small_mismatch = bf16_small_checks(dev)
+    emit({'phase': 'bench_cfg', 'small': True, 'max_abs_err': small_err,
+          'src_mismatch': small_mismatch,
+          'cases': [list(c) for c in (BF16_SMALL_CASES
+                                      + BF16_SMALL_LOCAL_CASES)]})
+    videos = bench_videos()
+    out = {row: dict(launches=0) for row in ('row1', 'row2', 'row3')}
+    for name, depth, nr, floor in BENCH_MODELS:
+        kernels, launches = bench_depth(dev, smi_name, name, depth, nr, floor,
+                                        videos)
+        for row, n in zip(('row1', 'row2', 'row3'), launches):
+            out[row]['launches'] += n
+            out[row][name] = kernels[row]
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
     import vfs_tpu_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.time()
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     smi_line = phase_build()
@@ -2415,8 +2928,13 @@ def main():
     row1[0]['launches'] += phase_train(dev, smi_line)
     phase_dense(dev, smi_line)
     row1[0]['launches'] += phase_learning(smi_line)
+    bench = phase_bench_cfg(dev, smi_line)
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
+    for entry, row in ((row1[0], 'row1'), (row2, 'row2'), (row3, 'row3')):
+        entry['launches'] += bench[row]['launches']
+        entry['bf16'] = bench[row]
+    emit({'phase': 'total', 'seconds': time.time() - t_start})
     emit({'kernels': [*row1, row2, row3, v2_entry]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

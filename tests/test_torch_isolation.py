@@ -62,7 +62,7 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.parallel.dist', 'vfs_tpu_torch.ops.device_aug',
              'vfs_tpu_torch.ops.attention',
              'vfs_tpu_torch.utils.wandb_logger',
-             'vfs_tpu_torch.tools.learning_loop'):
+             'vfs_tpu_torch.tools.learning_loop', 'vfs_tpu_torch.ops.yuv'):
     assert name in names, name
 import ab_eval, ab_kernels, chip_smoke, loader_probe
 assert callable(chip_smoke.main) and callable(ab_eval.main)
@@ -80,7 +80,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 66
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -121,11 +121,23 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
 
 
 def test_eval_loop_raises_for_later_slices():
+    """The native decoders stay unported and raise (ROADMAP Queue 1 item
+    5). Eval over several devices and processes, refused before slice 8
+    ported it, runs: on an empty dataset it returns nothing, after
+    replicating the weights per device, without a process group."""
     from vfs_tpu_torch.apis import multi_process_test, single_process_test
-    with pytest.raises(NotImplementedError):
-        single_process_test(None, [], devices=['cuda:0', 'cuda:1'])
-    with pytest.raises(NotImplementedError):
-        multi_process_test(None, [])
-    from vfs_tpu_torch.datasets.pipelines import RawFrameDecode
-    with pytest.raises(NotImplementedError):
-        RawFrameDecode(decoding_backend='native')
+
+    class Tracker:
+        def distribute(self, devices):
+            self.devices = list(devices)
+            return self.devices
+
+    tracker = Tracker()
+    assert single_process_test(tracker, [], devices=['cpu', 'cpu']) == []
+    assert tracker.devices == ['cpu', 'cpu']
+    assert multi_process_test(tracker, [], device='cpu') == []
+    from vfs_tpu_torch.datasets.pipelines import (RawFrameDecode,
+                                                  RawFrameDecodeYUV420)
+    for cls in (RawFrameDecode, RawFrameDecodeYUV420):
+        with pytest.raises(NotImplementedError, match='item 5'):
+            cls(decoding_backend='native')

@@ -136,13 +136,29 @@ def test_forward_test_branches_match_jax(extra, tmp_path, monkeypatch):
 
 
 def test_later_slice_options_raise(trackers):
-    _, port, meta = trackers
+    """The two options refused before slice 8 ported them: ``distribute``
+    gives one backbone per device, the model's own on its device and a copy
+    elsewhere (here the meta device), keeping nothing on the model, and
+    ``forward_test`` runs the one it is handed (the same masks); and
+    ``input_format='yuv420'`` gives the JAX package's yuv420 masks pixel
+    for pixel."""
+    jax_tracker, port, meta = trackers
     imgs, labels = make_video(num_frames=3)
-    with pytest.raises(NotImplementedError):
-        port.distribute(['cuda:0'])
+    ref = port.forward_test(imgs, labels[0], meta, device='cpu')
+    backbones = port.distribute(['cpu', 'cpu'])
+    assert backbones == [port.backbone] * 2 and not port.backbone.training
+    moved = port.distribute(['meta'])[0]
+    assert moved is not port.backbone
+    assert next(moved.parameters()).device == torch.device('meta')
+    out = port.forward_test(imgs, labels[0], meta, device='cpu',
+                            backbone=backbones[0])
+    np.testing.assert_array_equal(out[0], ref[0])
     port.test_cfg['input_format'] = 'yuv420'
+    jax_tracker.test_cfg['input_format'] = 'yuv420'
     try:
-        with pytest.raises(NotImplementedError):
-            port.forward_test(imgs, labels[0], meta, device='cpu')
+        out = port.forward_test(imgs, labels[0], meta, device='cpu')
+        ref = jax_tracker.forward_test(imgs, labels[0], meta)
+        np.testing.assert_array_equal(out[0], ref[0])
     finally:
         port.test_cfg.pop('input_format')
+        jax_tracker.test_cfg.pop('input_format')

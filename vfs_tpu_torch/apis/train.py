@@ -23,8 +23,10 @@ device (``ops.device_aug``; the loader ships uint8 staging frames and
 ``WandbLoggerHook`` in ``log_config.hooks`` mirrors the JSONL log to wandb
 (``utils.wandb_logger``).
 
-Left for a later slice, raising ``NotImplementedError``: eval over several
-devices or processes (ROADMAP Queue 1 item 5).
+The validation eval runs over the processes of the group
+(``multi_process_test``) or, in one process, over ``local_devices``
+(``single_process_test(devices=...)``); rank 0 writes its log entry and
+``best.json``.
 """
 
 from __future__ import annotations
@@ -54,11 +56,6 @@ class TrainState(NamedTuple):
     model: nn.Module
     optimizer: ChainedOptimizer
     step: int
-
-
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is ported in a later slice (ROADMAP Queue 1 item {item})')
 
 
 def apply_mixed_precision(cfg) -> bool:
@@ -157,23 +154,16 @@ def _pipeline_norm_cfg(dataset) -> Optional[Dict]:
     return None
 
 
-def _refuse_later_slices(validate: bool, local_devices) -> None:
-    """Arguments the JAX trainer honours that the port leaves out."""
-    if local_devices:
-        raise _later('validation over several devices (--local-devices)', 5)
-    if validate and get_world_size() > 1:
-        raise _later('validation in a run of several processes', 5)
-
-
 def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                 logger=None, local_devices=None,
                 device: DeviceLike = None) -> TrainState:
     """Train ``model`` (a tracker whose forward returns a loss dict) on
     ``dataset`` per ``cfg`` on ``device`` (CUDA unless the caller says
-    otherwise). Returns the final ``TrainState``."""
+    otherwise). ``local_devices``: devices to round-robin the validation
+    eval's videos over in a run of one process. Returns the final
+    ``TrainState``."""
     logger = logger or get_root_logger()
     device = resolve_device(device)
-    _refuse_later_slices(validate, local_devices)
     work_dir = cfg.get('work_dir', './work_dirs/default')
     os.makedirs(work_dir, exist_ok=True)
     rank = get_rank()
@@ -240,10 +230,12 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
         from ..core.evaluation.eval_hooks import EvalHook
         eval_cfg = dict(cfg.get('evaluation') or {})
         eval_hook = EvalHook(
-            build_val_eval_fn(cfg, lambda: model, device=device),
+            build_val_eval_fn(cfg, lambda: model, device=device,
+                              local_devices=local_devices),
             interval=eval_cfg.get('interval', 1),
             key_indicator=eval_cfg.get('key_indicator'),
-            rule=eval_cfg.get('rule'), work_dir=work_dir)
+            rule=eval_cfg.get('rule'), work_dir=work_dir,
+            save_best=rank == 0)
     ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval', 1)
     # --profile N: a torch.profiler trace of the steps [2, 2+N)
     profile_steps = max(0, int(cfg.get('profile_steps', 0) or 0))
@@ -288,7 +280,7 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                 logger.info(f'checkpoint saved to {path}')
             if eval_hook is not None:
                 results = eval_hook.after_epoch(epoch)
-                if results:
+                if results and rank == 0:
                     entry = dict(mode='val', epoch=epoch + 1, **{
                         k: float(v) for k, v in results.items()
                         if isinstance(v, (int, float))})
@@ -336,16 +328,21 @@ def _stop_profiler(profiler, work_dir: str, device: torch.device,
 
 
 def build_val_eval_fn(cfg, model_getter: Callable[[], nn.Module],
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, local_devices=None):
     """An eval_fn running the propagation eval of ``cfg.data.val`` with the
     current training backbone: its state dict goes into a
     ``VanillaTracker`` built with ``test_cfg`` (test strides and
     out_indices; the weights do not depend on them). A hand-off whose
     ``backbone.*`` keys do not match raises, because a silent miss would
-    evaluate untrained weights."""
+    evaluate untrained weights. In a process group the videos are shared
+    among the processes and the predictions gathered on every rank
+    (``multi_process_test``); in one process, ``local_devices`` (a list
+    of devices) round-robins them over those devices
+    (``single_process_test(devices=...)``), as the JAX package's
+    ``build_val_eval_fn`` does."""
     from ..datasets import build_dataset
     from ..models import build_model
-    from .test import single_process_test
+    from .test import multi_process_test, single_process_test
 
     dataset = build_dataset(cfg.data.val, dict(test_mode=True))
     tracker = build_model(
@@ -366,7 +363,12 @@ def build_val_eval_fn(cfg, model_getter: Callable[[], nn.Module],
                 f'{sorted(set(state) - want)[:4]}); did the tracker rename '
                 'its backbone?')
         tracker.backbone.load_state_dict(state)
-        results = single_process_test(tracker, dataset, device=device)
+        if get_world_size() > 1:
+            results = multi_process_test(tracker, dataset, device=device)
+        else:
+            results = single_process_test(tracker, dataset,
+                                          devices=local_devices,
+                                          device=device)
         metrics = cfg.evaluation.get('metrics', 'davis') \
             if cfg.get('evaluation') else 'davis'
         return dataset.evaluate(results, metrics=metrics)

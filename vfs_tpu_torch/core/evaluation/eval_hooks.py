@@ -20,12 +20,16 @@ LESS_KEYS = ('loss',)
 
 class EvalHook:
     """Runs ``eval_fn() -> dict`` every ``interval`` epochs and tracks the
-    best ``key_indicator``."""
+    best ``key_indicator``; ``save_best=False`` (the ranks other than 0
+    of a run of several processes) tracks it without writing
+    ``best.json``."""
 
     def __init__(self, eval_fn, interval: int = 1,
                  key_indicator: Optional[str] = None,
-                 rule: Optional[str] = None, work_dir: str = '.'):
+                 rule: Optional[str] = None, work_dir: str = '.',
+                 save_best: bool = True):
         self.eval_fn = eval_fn
+        self.save_best = save_best
         self.interval = interval
         self.key_indicator = key_indicator
         self.work_dir = work_dir
@@ -62,6 +66,8 @@ class EvalHook:
             score = float(results[self.key_indicator])
             if self._is_better(score):
                 self.best_score = score
+                if not self.save_best:
+                    return results
                 os.makedirs(self.work_dir, exist_ok=True)
                 with open(self.best_json, 'w') as f:
                     json.dump(dict(best_score=score, best_epoch=epoch + 1,

@@ -19,7 +19,12 @@
 // Outputs: out (h, w, K) fp32, scores (h, w, k) fp32 and src (h, w, k)
 // int64, src = f*h*w + ky*w + kx. Where a query has fewer than k valid keys,
 // the remaining entries are filler: score -1e30 (softmax weight 0) and src =
-// the query's own cell in slot 0.
+// the query's own cell in slot 0. vfs_local_topk_attend_bf16 takes a bf16
+// query and bank (pallas_precision='bfloat16': the JAX scan keeps its bank
+// ring in bf16, vfs_tpu/ops/propagation.py:319-322, and the kernel scores
+// bf16 x bf16 in fp32, pallas_attention.py:430); vals and the epilogue
+// stay fp32. Stage 1 stages bf16 cells and widens them in registers, so
+// its lists equal the fp32 entry's on the widened features bit for bit.
 //
 // Design. Two stages, launched together by the one C entry point.
 // 1. Per slot. One block per (tile of 8 x 32 query cells, slot f) runs the
@@ -56,8 +61,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (vfs_tpu_torch/ops/_build.py does this at first
-// use). Interface: one extern "C" function, launched on the caller's
-// stream; it allocates nothing and returns cudaGetLastError().
+// use). Interface: two extern "C" functions (fp32 and bf16 features),
+// launched on the caller's stream; they allocate nothing and return
+// cudaGetLastError().
 
 #include "window_topk.cuh"
 
@@ -106,6 +112,37 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
+// Both entries: T the feature type of query and bank, whose C must be a
+// multiple of a 16-byte quad's channels (4 fp32, 8 bf16).
+template <class T>
+int entry(const void* query, const void* bank, const void* vals,
+          const void* valid, void* out, void* scores, void* src,
+          void* part_s, void* part_o, int F, int h, int w, int C, int K,
+          int r, const int* band, float inv_tau, int topk, void* stream) {
+  if (F < 1 || F > 65535 || h < 1 || w < 1 || C < wtk::Feat<T>::QUAD ||
+      C % wtk::Feat<T>::QUAD != 0 || K < 1 ||
+      !wtk::check_band(r, band, topk) ||
+      (long long)F * h * w >= INT_MAX ||
+      (long long)F * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g =
+      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
+  const T* q = static_cast<const T*>(query);
+  const T* b = static_cast<const T*>(bank);
+  const int* ok = static_cast<const int*>(valid);
+  float* ps = static_cast<float*>(part_s);
+  int* po = static_cast<int*>(part_o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      wtk::launch_slots<false>(q, b, ok, ps, po, F, g, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  local_topk_merge_kernel<<<(h * w + MT - 1) / MT, MT, 0, st>>>(
+      static_cast<const float*>(vals), ok, ps, po, static_cast<float*>(out),
+      static_cast<float*>(scores), static_cast<long long*>(src), F, h, w, K,
+      r, topk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -120,28 +157,20 @@ int vfs_local_topk_attend(const void* query, const void* bank,
                           void* part_o, int F, int h, int w, int C, int K,
                           int r, const int* band, float inv_tau, int topk,
                           void* stream) {
-  if (F < 1 || F > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
-      K < 1 ||
-      !wtk::check_band(r, band, topk) ||
-      (long long)F * h * w >= INT_MAX ||
-      (long long)F * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g =
-      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
-  const float* q = static_cast<const float*>(query);
-  const float* b = static_cast<const float*>(bank);
-  const int* ok = static_cast<const int*>(valid);
-  float* ps = static_cast<float*>(part_s);
-  int* po = static_cast<int*>(part_o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      wtk::launch_slots<false>(q, b, ok, ps, po, F, g, nullptr, st);
-  if (err != cudaSuccess) return (int)err;
-  local_topk_merge_kernel<<<(h * w + MT - 1) / MT, MT, 0, st>>>(
-      static_cast<const float*>(vals), ok, ps, po, static_cast<float*>(out),
-      static_cast<float*>(scores), static_cast<long long*>(src), F, h, w, K,
-      r, topk);
-  return (int)cudaGetLastError();
+  return entry<float>(query, bank, vals, valid, out, scores, src, part_s,
+                      part_o, F, h, w, C, K, r, band, inv_tau, topk, stream);
+}
+
+// The same with a bf16 query and bank (C a multiple of 8); vals fp32.
+int vfs_local_topk_attend_bf16(const void* query, const void* bank,
+                               const void* vals, const void* valid,
+                               void* out, void* scores, void* src,
+                               void* part_s, void* part_o, int F, int h,
+                               int w, int C, int K, int r, const int* band,
+                               float inv_tau, int topk, void* stream) {
+  return entry<__nv_bfloat16>(query, bank, vals, valid, out, scores, src,
+                              part_s, part_o, F, h, w, C, K, r, band,
+                              inv_tau, topk, stream);
 }
 
 }  // extern "C"

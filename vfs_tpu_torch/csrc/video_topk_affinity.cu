@@ -5,7 +5,11 @@
 // (vfs_tpu/ops/pallas_affinity_video.py:1037, kernel body
 // _make_video2_kernel :736, mask _video2_mask :996).
 //
-// What it computes. feats is (T, h, w, C) fp32, contiguous, L2-normalised.
+// What it computes. feats is (T, h, w, C) fp32 (vfs_video_topk_affinity)
+// or bf16 (vfs_video_topk_affinity_bf16, the JAX package's
+// pallas_precision='bfloat16', feat_dtype at pallas_affinity_video.py:756
+// and :818: bf16 x bf16 products summed in fp32), contiguous,
+// L2-normalised.
 // For every frame t >= 1 and query cell (y, x), the exact top-k of
 //   score = dot(feats[t, y, x], feats[f, ky, kx]) * inv_tau
 // over the bank positions j = 0..P:
@@ -31,19 +35,24 @@
 // under j = 1, so both copies stay in the candidate set as before, at
 // 1/min(t, P+1) less work for those frames. A block walks its frames in j
 // order, so its lists fill from empty only on frame 0. The decode is the
-// core's store_video_lists, shared with row 2.
+// core's store_video_lists, shared with row 2. The bf16 entry stages bf16
+// cells (64 channels a 128-byte cell: half the stage bytes a channel) and
+// widens them in registers; its scores equal the fp32 entry's on the
+// widened features bit for bit (window_topk.cuh, Feature types).
 //
 // Bound (what holds it on an H100 SXM; window_topk.cuh's note has the
 // design's figures): fp32 operations, 2*C FLOPs per (query, in-map circle
 // key, distinct live bank frame): 0.393 ms per frame at r18 (C = 256,
-// radius 12) and 3.356 ms at r50 (C = 1024, radius 18) at 67 TFLOP/s. The
+// radius 12) and 3.356 ms at r50 (C = 1024, radius 18) at 67 TFLOP/s, in
+// either feature type (the scoring is fp32 FFMA on the CUDA cores). The
 // design reads 8.5 FFMA per shared-memory wavefront and about 15.8 FLOP per
 // byte of L2, and 47.9% (r18) / 51.5% (r50) of the pairs it computes count.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (vfs_tpu_torch/ops/_build.py does this at first
-// use). Interface: one extern "C" function, launched on the caller's
-// stream; it allocates nothing and returns cudaGetLastError().
+// use). Interface: two extern "C" functions (fp32 and bf16 features),
+// launched on the caller's stream; they allocate nothing and return
+// cudaGetLastError().
 
 #include "window_topk.cuh"
 
@@ -53,25 +62,26 @@ using wtk::Geometry;
 
 // The bank of query frame t: j = 0 and the live ring slots, frame 0's ring
 // copy folded into j = 0 while t <= P.
+template <class T>
 struct VideoBank {
-  const float* feats;
+  const T* feats;
   size_t frame_stride;
   int t, P;
   bool dup;  // t <= P: ring slot 0 (j = 1) holds frame 0
   __device__ int count() const { return dup ? t : P + 1; }
   __device__ int order_j(int i) const { return dup && i > 0 ? i + 1 : i; }
   __device__ bool twice(int i) const { return dup && i == 0; }
-  __device__ const float* frame(int i) const {
+  __device__ const T* frame(int i) const {
     const int j = order_j(i);
     const int f = j == 0 ? 0 : t - 1 - ((t - 1 - (j - 1)) % P);
     return feats + (size_t)f * frame_stride;
   }
 };
 
-template <int NP, int NKR = wtk::key_rows(NP),
+template <int NP, class T, int NKR = wtk::key_rows(NP),
           int NT = wtk::threads(NP, NKR)>
 __global__ void __launch_bounds__(NT, 1)
-    video_topk_kernel(const float* __restrict__ feats,
+    video_topk_kernel(const T* __restrict__ feats,
                       float* __restrict__ out_s,
                       long long* __restrict__ out_i, int P, Geometry g) {
   extern __shared__ float4 smem4[];
@@ -79,7 +89,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int y0 = (blockIdx.x / g.tiles_x) * wtk::TH;
   const int x0 = (blockIdx.x % g.tiles_x) * wtk::TW;
   const size_t fs = (size_t)g.h * g.w * g.C;
-  const VideoBank bank{feats, fs, t, P, t <= P};
+  const VideoBank<T> bank{feats, fs, t, P, t <= P};
   float* smem = reinterpret_cast<float*>(smem4);
   wtk::run<NP, NKR>(feats + (size_t)t * fs, bank, y0, x0, g, smem);
   __syncthreads();
@@ -87,10 +97,10 @@ __global__ void __launch_bounds__(NT, 1)
                              out_s, out_i);
 }
 
-template <int NP>
-cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
+template <int NP, class F>
+cudaError_t launch(const F* feats, float* out_s, long long* out_i, int T,
                    int P, const Geometry& g, cudaStream_t stream) {
-  auto kernel = video_topk_kernel<NP>;
+  auto kernel = video_topk_kernel<NP, F>;
   const size_t smem = wtk::smem_bytes(g, wtk::key_rows(NP));
   const cudaError_t err = wtk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -98,6 +108,31 @@ cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
   kernel<<<grid, wtk::threads(NP, wtk::key_rows(NP)), smem, stream>>>(
       feats, out_s, out_i, P, g);
   return cudaGetLastError();
+}
+
+// Both entries: F the feature type, whose C must be a multiple of a
+// 16-byte quad's channels (4 fp32, 8 bf16).
+template <class F>
+int entry(const void* feats, void* scores, void* src, int T, int h, int w,
+          int C, int r, const int* band, float inv_tau, int topk, int P,
+          void* stream) {
+  if (T < 2 || T - 1 > 65535 || h < 1 || w < 1 ||
+      C < wtk::Feat<F>::QUAD || C % wtk::Feat<F>::QUAD != 0 || P < 1 ||
+      !wtk::check_band(r, band, topk) ||
+      (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g =
+      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
+  const F* f = static_cast<const F*>(feats);
+  float* s = static_cast<float*>(scores);
+  long long* i = static_cast<long long*>(src);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (wtk::passes(r)) {
+    case 1: return (int)launch<1>(f, s, i, T, P, g, st);
+    case 2: return (int)launch<2>(f, s, i, T, P, g, st);
+    case 3: return (int)launch<3>(f, s, i, T, P, g, st);
+    default: return (int)launch<4>(f, s, i, T, P, g, st);
+  }
 }
 
 }  // namespace
@@ -111,23 +146,17 @@ int vfs_video_topk_affinity(const void* feats, void* scores, void* src,
                             int T, int h, int w, int C, int r,
                             const int* band, float inv_tau, int topk, int P,
                             void* stream) {
-  if (T < 2 || T - 1 > 65535 || h < 1 || w < 1 || C < 4 || C % 4 != 0 ||
-      P < 1 ||
-      !wtk::check_band(r, band, topk) ||
-      (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g =
-      wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
-  const float* f = static_cast<const float*>(feats);
-  float* s = static_cast<float*>(scores);
-  long long* i = static_cast<long long*>(src);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (wtk::passes(r)) {
-    case 1: return (int)launch<1>(f, s, i, T, P, g, st);
-    case 2: return (int)launch<2>(f, s, i, T, P, g, st);
-    case 3: return (int)launch<3>(f, s, i, T, P, g, st);
-    default: return (int)launch<4>(f, s, i, T, P, g, st);
-  }
+  return entry<float>(feats, scores, src, T, h, w, C, r, band, inv_tau, topk,
+                      P, stream);
+}
+
+// The same with bf16 features (C a multiple of 8).
+int vfs_video_topk_affinity_bf16(const void* feats, void* scores, void* src,
+                                 int T, int h, int w, int C, int r,
+                                 const int* band, float inv_tau, int topk,
+                                 int P, void* stream) {
+  return entry<__nv_bfloat16>(feats, scores, src, T, h, w, C, r, band,
+                              inv_tau, topk, P, stream);
 }
 
 }  // extern "C"

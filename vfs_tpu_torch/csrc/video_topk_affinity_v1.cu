@@ -15,7 +15,11 @@
 // live iff s <= t-1) and keys inside the circle and the map; ties to the
 // lowest (j, ky, kx). scores (T, h, w, k) fp32, src (T, h, w, k) int64 =
 // f*h*w + ky*w + kx; fillers score -1e30 with src the query's own cell in
-// frame 0. Rows t = 0 are not written.
+// frame 0. Rows t = 0 are not written. vfs_video_topk_affinity_v1_bf16
+// takes bf16 features (pallas_precision='bfloat16'; the TPU kernel's
+// feat_dtype at :130, :165, :382 and :429): the core stages bf16 cells and
+// widens them in registers, so its lists equal the fp32 entry's on the
+// widened features, and row 1's bf16 lists, bit for bit.
 //
 // Design. Row 1's: a block per (t, tile of 8 x 32 query cells) runs the
 // windowed top-k core (window_topk.cuh: 4 x 4 x 4 register blocks at 8.5
@@ -62,8 +66,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (vfs_tpu_torch/ops/_build.py does this at first
-// use). Interface: one extern "C" function, launched on the caller's
-// stream; it allocates nothing and returns cudaGetLastError().
+// use). Interface: two extern "C" functions (fp32 and bf16 features),
+// launched on the caller's stream; they allocate nothing and return
+// cudaGetLastError().
 
 #include "window_topk.cuh"
 
@@ -75,8 +80,9 @@ using wtk::Geometry;
 // t-2, t-3, ... While t <= P (dup) the walk stops at f = 1 and frame 0
 // stands at j = 0 and, by twice(), at ring slot 0 (j = 1); for t = 1 the
 // one frame, f = t-1, is frame 0.
+template <class T>
 struct RecentBank {
-  const float* feats;
+  const T* feats;
   size_t frame_stride;
   int t, P;
   bool dup;  // t <= P
@@ -89,7 +95,7 @@ struct RecentBank {
     return f == 0 ? 0 : 1 + f % P;
   }
   __device__ bool twice(int i) const { return dup && source(i) == 0; }
-  __device__ const float* frame(int i) const {
+  __device__ const T* frame(int i) const {
     return feats + (size_t)source(i) * frame_stride;
   }
 };
@@ -97,10 +103,10 @@ struct RecentBank {
 // Block b: query frame t = b % (T - 1) + 1 of tile b / (T - 1), t fastest.
 // COUNT: add the warp's merges to merge_count (an instance of its own; the
 // note above says why).
-template <int NP, bool EXIT, bool COUNT, int NKR = wtk::key_rows(NP),
-          int NT = wtk::threads(NP, NKR)>
+template <int NP, bool EXIT, bool COUNT, class F,
+          int NKR = wtk::key_rows(NP), int NT = wtk::threads(NP, NKR)>
 __global__ void __launch_bounds__(NT, 1)
-    video_v1_kernel(const float* __restrict__ feats,
+    video_v1_kernel(const F* __restrict__ feats,
                     float* __restrict__ out_s, long long* __restrict__ out_i,
                     int T, int P, Geometry g,
                     unsigned long long* __restrict__ merge_count) {
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int y0 = (tile / g.tiles_x) * wtk::TH;
   const int x0 = (tile % g.tiles_x) * wtk::TW;
   const size_t fs = (size_t)g.h * g.w * g.C;
-  const RecentBank bank{feats, fs, t, P, t <= P};
+  const RecentBank<F> bank{feats, fs, t, P, t <= P};
   float* smem = reinterpret_cast<float*>(smem4);
   const int merged =
       wtk::run<NP, NKR, EXIT>(feats + (size_t)t * fs, bank, y0, x0, g, smem);
@@ -121,12 +127,12 @@ __global__ void __launch_bounds__(NT, 1)
     atomicAdd(merge_count, (unsigned long long)merged);
 }
 
-template <int NP, bool EXIT>
-cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
+template <int NP, bool EXIT, class F>
+cudaError_t launch(const F* feats, float* out_s, long long* out_i, int T,
                    int P, const Geometry& g, unsigned long long* count,
                    cudaStream_t stream) {
-  auto kernel = count != nullptr ? video_v1_kernel<NP, EXIT, true>
-                                 : video_v1_kernel<NP, EXIT, false>;
+  auto kernel = count != nullptr ? video_v1_kernel<NP, EXIT, true, F>
+                                 : video_v1_kernel<NP, EXIT, false, F>;
   const size_t smem = wtk::smem_bytes(g, wtk::key_rows(NP));
   const cudaError_t err = wtk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -135,8 +141,8 @@ cudaError_t launch(const float* feats, float* out_s, long long* out_i, int T,
   return cudaGetLastError();
 }
 
-template <bool EXIT>
-cudaError_t launch_passes(const float* feats, float* out_s, long long* out_i,
+template <bool EXIT, class F>
+cudaError_t launch_passes(const F* feats, float* out_s, long long* out_i,
                           int T, int P, const Geometry& g,
                           unsigned long long* count, cudaStream_t st) {
   switch (wtk::passes(g.r)) {
@@ -145,6 +151,30 @@ cudaError_t launch_passes(const float* feats, float* out_s, long long* out_i,
     case 3: return launch<3, EXIT>(feats, out_s, out_i, T, P, g, count, st);
     default: return launch<4, EXIT>(feats, out_s, out_i, T, P, g, count, st);
   }
+}
+
+// Both entries: F the feature type, whose C must be a multiple of a
+// 16-byte quad's channels (4 fp32, 8 bf16).
+template <class F>
+int entry(const void* feats, void* scores, void* src, int T, int h, int w,
+          int C, int r, const int* band, float inv_tau, int topk, int P,
+          int early_exit, void* merge_count, void* stream) {
+  const long long blocks = (long long)((h + wtk::TH - 1) / wtk::TH) *
+                           ((w + wtk::TW - 1) / wtk::TW) * (T - 1);
+  if (T < 2 || h < 1 || w < 1 || C < wtk::Feat<F>::QUAD ||
+      C % wtk::Feat<F>::QUAD != 0 || P < 1 ||
+      !wtk::check_band(r, band, topk) || blocks >= INT_MAX ||
+      (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
+  const F* f = static_cast<const F*>(feats);
+  float* s = static_cast<float*>(scores);
+  long long* i = static_cast<long long*>(src);
+  unsigned long long* count = static_cast<unsigned long long*>(merge_count);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(early_exit
+                   ? launch_passes<true>(f, s, i, T, P, g, count, st)
+                   : launch_passes<false>(f, s, i, T, P, g, count, st));
 }
 
 }  // namespace
@@ -161,21 +191,19 @@ int vfs_video_topk_affinity_v1(const void* feats, void* scores, void* src,
                                const int* band, float inv_tau, int topk,
                                int P, int early_exit, void* merge_count,
                                void* stream) {
-  const long long blocks = (long long)((h + wtk::TH - 1) / wtk::TH) *
-                           ((w + wtk::TW - 1) / wtk::TW) * (T - 1);
-  if (T < 2 || h < 1 || w < 1 || C < 4 || C % 4 != 0 || P < 1 ||
-      !wtk::check_band(r, band, topk) || blocks >= INT_MAX ||
-      (long long)(P + 1) * (2 * r + 1) * (2 * r + 1) >= INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g = wtk::make_geometry(h, w, C, r, band, inv_tau, topk);
-  const float* f = static_cast<const float*>(feats);
-  float* s = static_cast<float*>(scores);
-  long long* i = static_cast<long long*>(src);
-  unsigned long long* count = static_cast<unsigned long long*>(merge_count);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(early_exit
-                   ? launch_passes<true>(f, s, i, T, P, g, count, st)
-                   : launch_passes<false>(f, s, i, T, P, g, count, st));
+  return entry<float>(feats, scores, src, T, h, w, C, r, band, inv_tau, topk,
+                      P, early_exit, merge_count, stream);
+}
+
+// The same with bf16 features (C a multiple of 8).
+int vfs_video_topk_affinity_v1_bf16(const void* feats, void* scores,
+                                    void* src, int T, int h, int w, int C,
+                                    int r, const int* band, float inv_tau,
+                                    int topk, int P, int early_exit,
+                                    void* merge_count, void* stream) {
+  return entry<__nv_bfloat16>(feats, scores, src, T, h, w, C, r, band,
+                              inv_tau, topk, P, early_exit, merge_count,
+                              stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,25 @@
 // runs row 3's stages and gives its lists too. Every score is an fmaf
 // chain in ascending channel order from 0, times inv_tau.
 //
+// Feature types. The core stages fp32 or bf16 features (the JAX package's
+// pallas_precision='bfloat16': the bank cast to bf16 after the L2
+// normalisation, scored bf16 x bf16 with fp32 accumulation). A staged cell
+// is 128 bytes either way: 32 fp32 channels or 64 bf16 channels, so a
+// bf16 chunk moves half the bytes per channel from L2 and the stages, the
+// swizzle and the shared-memory budget are unchanged. The inner loop
+// reads a bf16 cell 4 channels (8 bytes) at a time from the same 16-byte
+// quad slots and widens each value in registers (__bfloat1622float2)
+// before the same fmaf chain in ascending channel order. A bf16 x bf16
+// product is exact in fp32, so a bf16 launch gives the scores, lists and
+// tie order of an fp32 launch on the widened features bit for bit.
+// Widening costs one integer operation per channel loaded (92 per 256
+// FFMAs of a thread's block). Tensor cores are not used: a wgmma bf16
+// pre-score sums in another order and needs the exact re-rank of ROADMAP
+// Queue 2 core item 5. A bf16 C must be a multiple of 8 (a 16-byte quad
+// is fully inside or outside the channels; the wrappers raise ValueError
+// otherwise); a C that is not a multiple of 64 leaves the last chunk's
+// missing quads zero-filled, and the loop stops at the last channel.
+//
 // Bound. 2*C FLOPs per (query, in-map circle key, distinct bank frame): at
 // the DAVIS shapes (60 x 107 cells, P = 20) 0.393 ms per frame or step at
 // r18 and 3.356 ms at r50 on the fp32 CUDA cores of an H100 SXM (67
@@ -34,12 +53,14 @@
 //   cells (16 LDS.128) and the 7 key cells its 4 columns x 4 dx touch
 //   (7 LDS.128, 4 live at a time), then runs 256 FFMAs. The warp's lanes
 //   are 8 column groups x 4 dx groups. Cells are stored channel-minor, 32
-//   channels (one 128-byte row) a cell, with the row's 16-byte quads
-//   XOR-swizzled by (cell / 4) mod 8: a query load has 8 distinct cells in
-//   8 distinct bank groups (1 wavefront) and a key load 11 distinct cells
-//   (2 wavefronts). So 16 + 14 = 30 wavefronts feed 256 FFMA
-//   warp-instructions: 8.5 FFMA per wavefront, against 1 in the first
-//   design (one float4 of keys per 4 FMAs, 4 wavefronts per LDS.128).
+//   fp32 or 64 bf16 channels (one 128-byte row) a cell, with the row's
+//   16-byte quads XOR-swizzled by (cell / 4) mod 8: a query load has 8
+//   distinct cells in 8 distinct bank groups (1 wavefront) and a key load
+//   11 distinct cells (2 wavefronts). So 16 + 14 = 30 wavefronts feed 256
+//   FFMA warp-instructions: 8.5 FFMA per wavefront, against 1 in the
+//   first design (one float4 of keys per 4 FMAs, 4 wavefronts per
+//   LDS.128). A bf16 load (LDS.64, half of a quad slot) touches the same
+//   cells and bank groups, 64 and 88 bytes: the same counts.
 // - Wasted entries. A warp's pass is 4 query rows x 32 columns x 16 dx of a
 //   key row. For each key row and row group the block knows the band's
 //   widest half-extent E over the group's rows; a warp whose pass starts
@@ -57,8 +78,9 @@
 //   channels does not fit shared memory), so NKR key rows (4 at r <= 15, 2
 //   at r <= 23) share each staged query chunk, and the tile is 8 rows
 //   tall: about 15.8 FLOP per L2 byte at r18 and at r50 for an interior
-//   tile, against 5.9 and 8.7 for the first design.
-// - Latency. Chunks of 32 channels go through a ring of 2 stages with
+//   tile, against 5.9 and 8.7 for the first design (twice that in bf16).
+// - Latency. Chunks of one cell (32 fp32 or 64 bf16 channels) go through
+//   a ring of 2 stages with
 //   16-byte cp.async (a warp copies 4 whole 128-byte cells); the next
 //   chunk's copy is in flight while the current one is computed, with one
 //   __syncthreads per chunk. One block of 16 (r18) or 12 (r50) warps runs
@@ -99,6 +121,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -115,11 +138,44 @@ constexpr int TW = 32;             // query tile columns
 constexpr int QN = TH * TW;        // queries per block
 constexpr int ROW_GROUPS = TH / 4; // 4 query rows per warp
 constexpr int PASS_DX = 16;        // dx per warp pass: 4 dx groups x 4
-constexpr int CC = 32;             // channels per stage: one 128-byte cell
+constexpr int CW = 32;             // 4-byte words of a staged 128-byte cell
 constexpr int STAGES = 2;
 constexpr int KMAX = 32;
 constexpr int MAX_OFFSET = 31;
 constexpr float NEG_INF = -1e30f;  // filler score (softmax weight 0)
+
+// What the core needs of a feature type: channels a cell (the stage's
+// chunk), channels a 16-byte quad, and load4(): channels 4 * c4 .. + 3 of
+// a staged cell as fp32, from its quad slots `row` (the cell's first
+// float4) XOR-swizzled by sw.
+template <class T>
+struct Feat;
+
+template <>
+struct Feat<float> {
+  static constexpr int CELL = 32;
+  static constexpr int QUAD = 4;
+  __device__ static __forceinline__ float4 load4(const float4* st, int row,
+                                                 int c4, int sw) {
+    return st[row + (c4 ^ sw)];
+  }
+};
+
+template <>
+struct Feat<__nv_bfloat16> {
+  static constexpr int CELL = 64;
+  static constexpr int QUAD = 8;
+  __device__ static __forceinline__ float4 load4(const float4* st, int row,
+                                                 int c4, int sw) {
+    const uint2 v = reinterpret_cast<const uint2*>(
+        st + row + ((c4 >> 1) ^ sw))[c4 & 1];
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
 
 struct Band {
   int e[MAX_OFFSET + 1];  // largest |dx| in the circle for |dy| = 0..r
@@ -157,7 +213,7 @@ __host__ __device__ constexpr int key_rows(int np) {
 }
 
 __host__ __device__ inline size_t stage_floats(const Geometry& g, int nkr) {
-  return (size_t)(nkr * g.key_cells + QN) * CC;
+  return (size_t)(nkr * g.key_cells + QN) * CW;
 }
 
 inline size_t smem_bytes(const Geometry& g, int nkr) {
@@ -211,9 +267,9 @@ __device__ __forceinline__ bool better(float s, int o, float ts, int to) {
   return s > ts || (s == ts && o < to);
 }
 
-// The float4 slot of channel quad `quad` of cell `cell` in a staged region:
-// a cell is one 128-byte row of 8 quads (32 channels), XOR-swizzled by
-// (cell / 4) mod 8.
+// The float4 slot of quad `quad` of cell `cell` in a staged region: a cell
+// is one 128-byte row of 8 quads of 16 bytes, XOR-swizzled by (cell / 4)
+// mod 8.
 __device__ __forceinline__ int slot(int cell, int quad) {
   return (cell << 3) | (quad ^ ((cell >> 2) & 7));
 }
@@ -389,9 +445,9 @@ __device__ __forceinline__ int merge_row(int ky, int oj, bool twice, int y0,
   return merged;
 }
 
-// Bank: the frames a block walks. Needs
+// Bank: the frames a block walks, of the query's feature type T. Needs
 //   int count() const                 number of frames walked
-//   const float* frame(int i) const   frame i's (h, w, C) plane
+//   const T* frame(int i) const       frame i's (h, w, C) plane
 //   int order_j(int i) const          j of frame i in the order key
 //   bool twice(int i) const           frame i also stands at j + 1
 // (row 1's frame 0 while t <= P: scored once, inserted under both j).
@@ -403,10 +459,11 @@ __device__ __forceinline__ int merge_row(int ky, int oj, bool twice, int y0,
 // end in shared memory (lists()); the caller reads them after a
 // __syncthreads(). Returns the (query, key row) merges the calling warp
 // ran (the same in all its lanes).
-template <int NP, int NKR, bool EXIT = true, class Bank>
-__device__ int run(const float* __restrict__ qframe, const Bank& bank,
-                   int y0, int x0, const Geometry& g, float* smem) {
+template <int NP, int NKR, bool EXIT = true, class T, class Bank>
+__device__ int run(const T* __restrict__ qframe, const Bank& bank, int y0,
+                   int x0, const Geometry& g, float* smem) {
   constexpr int NT = threads(NP, NKR);
+  constexpr int CC = Feat<T>::CELL;  // channels a stage
   static_assert(NT >= QN, "merge_row gives each query a lane");
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -444,7 +501,7 @@ __device__ int run(const float* __restrict__ qframe, const Bank& bank,
   const int steps = bank.count() * n_kyg * n_chunks;
 
   // Stage step s: the group's NKR key rows (KC columns each) and the QN
-  // queries, channels [c0, c0 + 32). Thread tid copies quad tid % 8 of
+  // queries, channels [c0, c0 + CC). Thread tid copies quad tid % 8 of
   // cells tid / 8 + k * NT / 8, so a warp copies 4 whole 128-byte cells;
   // quads past C, cells past the map and key rows past ky_end are
   // zero-filled.
@@ -454,12 +511,12 @@ __device__ int run(const float* __restrict__ qframe, const Bank& bank,
       const int chunk = s % n_chunks;
       const int rest = s / n_chunks;
       const int ky0 = ky_begin + (rest % n_kyg) * NKR;
-      const float* kframe = bank.frame(rest / n_kyg);
-      const int c = chunk * CC + 4 * quad;
+      const T* kframe = bank.frame(rest / n_kyg);
+      const int c = chunk * CC + Feat<T>::QUAD * quad;
       const bool c_ok = c < g.C;
       float4* st = reinterpret_cast<float4*>(smem + (s % STAGES) * stage);
-      float4* qst = st + NKR * g.key_cells * (CC / 4);
-      const float* krow = kframe + (size_t)ky0 * g.w * g.C + c;
+      float4* qst = st + NKR * g.key_cells * (CW / 4);
+      const T* krow = kframe + (size_t)ky0 * g.w * g.C + c;
       int krow_i = 0;
       int col = tid >> 3;
       for (int cell = tid >> 3; cell < NKR * KC; cell += NT / 8) {
@@ -470,7 +527,7 @@ __device__ int run(const float* __restrict__ qframe, const Bank& bank,
         const int kx = x0 - r + col;
         const bool ok =
             c_ok && ky0 + krow_i < ky_end && kx >= 0 && kx < g.w;
-        cp_async16(st + krow_i * g.key_cells * (CC / 4) + slot(col, quad),
+        cp_async16(st + krow_i * g.key_cells * (CW / 4) + slot(col, quad),
                    ok ? krow + ((size_t)krow_i * g.w + kx) * g.C : kframe,
                    ok);
         col += NT / 8;
@@ -537,27 +594,29 @@ __device__ int run(const float* __restrict__ qframe, const Bank& bank,
     if (!(WTK_ABLATE & 1) && active) {  // warp-uniform
       const float4* kst =
           reinterpret_cast<const float4*>(smem + (s % STAGES) * stage);
-      const float4* qst = kst + NKR * g.key_cells * (CC / 4);
+      const float4* qst = kst + NKR * g.key_cells * (CW / 4);
       const int n4 = (min(CC, g.C - chunk * CC) + 3) / 4;
       for (int c4 = 0; c4 < n4; ++c4) {
-        // key 4K + j: row krow + j * 8, slot c4 ^ ((K + j / 4) mod 8)
-        const int xk[2] = {c4 ^ ksw, c4 ^ ((ksw + 1) & 7)};
-        const int xq = c4 ^ xg;
+        // key 4K + j: row krow + j * 8, swizzle (K + j / 4) mod 8
+        const int sk[2] = {ksw, (ksw + 1) & 7};
         // keys 0..6 pass through the ring kv[j % 4]: column i reads keys
         // i..i+3, then key i + 4 takes key i's place
         float4 kv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = kst[krow + j * 8 + xk[0]];
+        for (int j = 0; j < 4; ++j)
+          kv[j] = Feat<T>::load4(kst, krow + j * 8, c4, sk[0]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
-            const float4 qv = qst[qrow + (m * TW + i) * 8 + xq];
+            const float4 qv =
+                Feat<T>::load4(qst, qrow + (m * TW + i) * 8, c4, xg);
 #pragma unroll
             for (int d = 0; d < 4; ++d)
               acc[m][i][d] = dot4(qv, kv[(i + d) % 4], acc[m][i][d]);
           }
-          if (i < 3) kv[i] = kst[krow + (i + 4) * 8 + xk[1]];
+          if (i < 3)
+            kv[i] = Feat<T>::load4(kst, krow + (i + 4) * 8, c4, sk[1]);
         }
       }
     }
@@ -655,13 +714,14 @@ __device__ void store_lists(const Lists& L, int p, int y0, int x0,
 }
 
 // One bank slot: rows 3 and 4's first stage.
+template <class T>
 struct SlotBank {
-  const float* frame_;
+  const T* frame_;
   int f;
   __device__ int count() const { return 1; }
   __device__ int order_j(int) const { return f; }
   __device__ bool twice(int) const { return false; }
-  __device__ const float* frame(int) const { return frame_; }
+  __device__ const T* frame(int) const { return frame_; }
 };
 
 // Rows 3 and 4, stage 1: the tile's top-k lists over slot blockIdx.y to
@@ -669,11 +729,10 @@ struct SlotBank {
 // block of an invalid slot returns at once (stage 2 skips the slot too).
 // COUNT: add the warps' (query, key row) merges to merge_count; the
 // uncounted instance carries no count.
-template <int NP, bool COUNT, int NKR = key_rows(NP),
+template <int NP, bool COUNT, class T, int NKR = key_rows(NP),
           int NT = threads(NP, NKR)>
 __global__ void __launch_bounds__(NT, 1)
-    slot_kernel(const float* __restrict__ query,
-                const float* __restrict__ bank,
+    slot_kernel(const T* __restrict__ query, const T* __restrict__ bank,
                 const int* __restrict__ valid, float* __restrict__ part_s,
                 int* __restrict__ part_o, Geometry g,
                 unsigned long long* __restrict__ merge_count) {
@@ -682,7 +741,7 @@ __global__ void __launch_bounds__(NT, 1)
   if (valid[f] == 0) return;  // uniform over the block
   const int y0 = (blockIdx.x / g.tiles_x) * TH;
   const int x0 = (blockIdx.x % g.tiles_x) * TW;
-  const SlotBank slot{bank + (size_t)f * g.h * g.w * g.C, f};
+  const SlotBank<T> slot{bank + (size_t)f * g.h * g.w * g.C, f};
   float* smem = reinterpret_cast<float*>(smem4);
   const int merged = run<NP, NKR>(query, slot, y0, x0, g, smem);
   __syncthreads();
@@ -691,13 +750,13 @@ __global__ void __launch_bounds__(NT, 1)
     atomicAdd(merge_count, (unsigned long long)merged);
 }
 
-template <int NP, bool COUNT>
-cudaError_t launch_slots_np(const float* query, const float* bank,
-                            const int* valid, float* part_s, int* part_o,
-                            int F, const Geometry& g,
+template <int NP, bool COUNT, class T>
+cudaError_t launch_slots_np(const T* query, const T* bank, const int* valid,
+                            float* part_s, int* part_o, int F,
+                            const Geometry& g,
                             unsigned long long* merge_count,
                             cudaStream_t stream) {
-  auto kernel = slot_kernel<NP, COUNT>;
+  auto kernel = slot_kernel<NP, COUNT, T>;
   const size_t smem = smem_bytes(g, key_rows(NP));
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -707,10 +766,11 @@ cudaError_t launch_slots_np(const float* query, const float* bank,
   return cudaGetLastError();
 }
 
-// Launch stage 1 over F slots on stream, for g.r's passes.
-template <bool COUNT>
-cudaError_t launch_slots(const float* query, const float* bank,
-                         const int* valid, float* part_s, int* part_o, int F,
+// Launch stage 1 over F slots on stream, for g.r's passes; T is the
+// features' type (float or __nv_bfloat16).
+template <bool COUNT, class T>
+cudaError_t launch_slots(const T* query, const T* bank, const int* valid,
+                         float* part_s, int* part_o, int F,
                          const Geometry& g, unsigned long long* merge_count,
                          cudaStream_t stream) {
   switch (passes(g.r)) {

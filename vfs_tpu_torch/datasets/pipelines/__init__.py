@@ -4,7 +4,8 @@ from .augmentations import (ColorJitter, DeviceAug, Flip, Normalize,
 from .compose import Compose
 from .formating import Collect, FormatShape, ToTensor
 from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
-                      OpenCVDecode, OpenCVInit, RawFrameDecode, SampleFrames,
+                      OpenCVDecode, OpenCVInit, RawFrameDecode,
+                      RawFrameDecodeYUV420, SampleFrames,
                       SequentialSampleFrames)
 
 __all__ = [
@@ -12,5 +13,5 @@ __all__ = [
     'RandomGrayScale', 'RandomResizedCrop', 'Resize', 'Compose', 'Collect',
     'FormatShape', 'ToTensor', 'Clip2Frame', 'DecordDecode', 'DecordInit',
     'Frame2Clip', 'OpenCVDecode', 'OpenCVInit', 'RawFrameDecode',
-    'SampleFrames', 'SequentialSampleFrames'
+    'RawFrameDecodeYUV420', 'SampleFrames', 'SequentialSampleFrames'
 ]

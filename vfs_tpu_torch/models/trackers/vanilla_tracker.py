@@ -13,17 +13,26 @@ they only served the TPU host link or XLA's compile buckets:
 ``pack_preds``, ``input_format='rgb'``, ``extract_bulk_step``, and the T
 padding of ``preload`` (frames only look backwards, so results on real
 frames do not depend on it; eager PyTorch has no buckets to fill).
-``preload`` copies a video to the card ahead of ``forward_test``.
-``input_format='yuv420'`` and ``distribute`` raise ``NotImplementedError``
-until a later slice.
+``preload`` copies a video to the card ahead of ``forward_test``; with
+``input_format='yuv420'`` it packs uint8 RGB frames to flat planar I420
+on the host first (a ``Yuv420Frames`` from ``RawFrameDecodeYUV420`` is
+shipped as it is), 1.5 bytes a pixel, and ``_extract_feats`` unpacks them
+on the card (``ops.yuv.yuv420_to_rgb``) ahead of the normalisation.
+A bf16 backbone (``backbone.dtype='bfloat16'``) runs its convolutions
+under bf16 autocast, also inside the exact fp32 mode of the eval, and its
+features are cast to fp32 at the seam, as in the JAX package.
+``distribute`` gives one backbone for each of several devices, which
+``apis.single_process_test(devices=...)`` holds for one run and hands to
+``forward_test``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import os.path as osp
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ from ...device import DeviceLike, exact_fp32, resolve_device
 from ...ops.affinity import spatial_neighbor
 from ...ops.propagation import PropagationConfig, propagate_video
 from ...ops.resize import pil_nearest_resize, resize_bilinear
+from ...ops.yuv import Yuv420Frames, rgb_to_yuv420, yuv420_to_rgb
 from .. import builder
 from ..backbones.resnet import ResNetBlockwise
 from ..common.utils import normalize_logit
@@ -84,6 +94,15 @@ def make_propagation_config(test_cfg: Dict, h: int, w: int):
         video_qpair=int(test_cfg.get('video_qpair', 0)),
         video_compact=bool(test_cfg.get('video_compact', True)))
     return cfg, mask
+
+
+class PackedFrames(NamedTuple):
+    """A video as flat planar I420, ``frames`` (T, He*We*3/2) uint8 on its
+    device, with the frames' ``hw`` and YUV ``convention``: what
+    ``preload`` returns under ``input_format='yuv420'``."""
+    frames: torch.Tensor
+    hw: Tuple[int, int]
+    convention: str
 
 
 def decode_predictions(seg_logits: torch.Tensor, out_hw: Tuple[int, int],
@@ -151,25 +170,60 @@ class VanillaTracker(nn.Module):
             out *= s
         return out
 
-    def distribute(self, devices):
-        raise NotImplementedError(
-            'multi-GPU eval (distribute) is ported in a later slice')
+    def distribute(self, devices) -> List[nn.Module]:
+        """One backbone for each entry of ``devices`` (JAX ``distribute``),
+        to hand to ``forward_test`` as ``backbone`` so that worker threads
+        of several devices share no module: the model's own backbone on the
+        device it sits on, a copy of its current weights on each other
+        device (a device named twice gets the same module). Nothing is kept
+        on the model: the copies live as long as the caller holds them, so
+        later weights are never shadowed by earlier ones."""
+        own = next(self.backbone.parameters()).device
+        by_device: Dict[torch.device, nn.Module] = {}
+        out = []
+        for d in devices:
+            dev = resolve_device(d)
+            if dev.type == 'cuda' and dev.index is None:
+                dev = torch.device('cuda', torch.cuda.current_device())
+            if dev not in by_device:
+                by_device[dev] = self._prepare(
+                    self.backbone if dev == own
+                    else copy.deepcopy(self.backbone).to(dev), dev)
+            out.append(by_device[dev])
+        return out
+
+    @staticmethod
+    def _prepare(backbone: nn.Module, dev: torch.device) -> nn.Module:
+        backbone.eval()
+        if dev.type == 'cuda':
+            backbone.to(memory_format=torch.channels_last)
+        return backbone
 
     # -- stages -----------------------------------------------------------
     def _extract_feats(self, imgs: torch.Tensor, batch_step: int,
                        norm_mean: Optional[torch.Tensor] = None,
-                       norm_std: Optional[torch.Tensor] = None
+                       norm_std: Optional[torch.Tensor] = None,
+                       yuv: Optional[Tuple[int, int, str]] = None,
+                       backbone: Optional[nn.Module] = None
                        ) -> Tuple[torch.Tensor, ...]:
-        """imgs (T, H, W, 3) on the model's device -> tuple of (T, h, w, c)
-        fp32 feature banks, ``batch_step`` frames per backbone call. uint8
-        frames are normalised on the device."""
+        """imgs (T, H, W, 3) -> tuple of (T, h, w, c) fp32 feature banks
+        on imgs' device, ``batch_step`` frames per backbone call. uint8
+        frames are normalised on the device; with ``yuv = (H, W,
+        convention)``, imgs is flat planar I420 (T, He*We*3/2) uint8,
+        unpacked to RGB on the device first. ``backbone``: a copy on imgs'
+        device (``distribute``); the model's own, moved there, if None."""
+        if backbone is None:
+            self.to(imgs.device)
+            backbone = self._prepare(self.backbone, imgs.device)
         parts = []
         with torch.no_grad(), exact_fp32():
             for i in range(0, imgs.shape[0], batch_step):
                 chunk = imgs[i:i + batch_step]
-                if chunk.dtype == torch.uint8:
+                if yuv is not None:
+                    chunk = (yuv420_to_rgb(chunk, *yuv) - norm_mean) / norm_std
+                elif chunk.dtype == torch.uint8:
                     chunk = (chunk.to(torch.float32) - norm_mean) / norm_std
-                outs = self.backbone(chunk)
+                outs = backbone(chunk)
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 parts.append(tuple(o.to(torch.float32) for o in outs))
         return tuple(torch.cat(p, 0) for p in zip(*parts))
@@ -185,39 +239,63 @@ class VanillaTracker(nn.Module):
                     seg_logits)
 
     # -- orchestration ----------------------------------------------------
-    def preload(self, imgs, device: DeviceLike = None) -> torch.Tensor:
+    def preload(self, imgs, device: DeviceLike = None
+                ) -> Union[torch.Tensor, PackedFrames]:
         """Copy a video's frames ((T, H, W, 3) numpy or tensor) to
         ``device`` (CUDA unless the caller says otherwise) and return them;
-        ``forward_test`` takes the result in place of the frames. The copy
-        is synchronous, so a prefetch thread that calls this hands over
-        frames that are already on the device."""
+        ``forward_test`` takes the result in place of the frames. Under
+        ``input_format='yuv420'``, uint8 RGB frames on the host are packed
+        to flat planar I420 first (``rgb_to_yuv420``, studio swing), and a
+        ``Yuv420Frames`` is shipped as it is: the result is then a
+        ``PackedFrames``. The copy is synchronous (from pageable host
+        memory), so a prefetch thread that calls this hands over frames
+        that are already on the device."""
+        dev = resolve_device(device)
+        if isinstance(imgs, PackedFrames):
+            return imgs._replace(frames=imgs.frames.to(dev))
+        if isinstance(imgs, Yuv420Frames):
+            return PackedFrames(
+                torch.as_tensor(np.ascontiguousarray(imgs.view(np.ndarray)))
+                .to(dev), imgs.hw, imgs.convention)
+        if self.test_cfg.get('input_format', 'rgb') == 'yuv420':
+            host = (imgs.numpy() if torch.is_tensor(imgs)
+                    and imgs.device.type == 'cpu' else imgs)
+            if isinstance(host, np.ndarray) and host.dtype == np.uint8 \
+                    and host.ndim == 4 and host.shape[-1] == 3:
+                return PackedFrames(
+                    torch.from_numpy(rgb_to_yuv420(host)).to(dev),
+                    tuple(host.shape[1:3]), 'studio')
         host = imgs if torch.is_tensor(imgs) else torch.as_tensor(
             np.ascontiguousarray(imgs))
-        return host.to(resolve_device(device))
+        return host.to(dev)
 
     def forward_test(self, imgs, ref_seg_map: np.ndarray,
                      img_meta: List[Dict[str, Any]],
-                     defer_fetch: bool = False, device: DeviceLike = None):
+                     defer_fetch: bool = False, device: DeviceLike = None,
+                     backbone: Optional[nn.Module] = None):
         """Propagate ``ref_seg_map`` (H0, W0 int labels, or (H0, W0, K) soft
         labels) through ``imgs`` ((T, H, W, 3) normalised float RGB, or
-        uint8 with ``img_norm_cfg`` in the meta; numpy or a tensor, as
-        ``preload`` returns). Runs on CUDA unless ``device`` says
-        otherwise. Returns the per-feature list of (T, H0, W0) uint8
-        predictions with frame 0 = the input labels (soft labels:
+        uint8 with ``img_norm_cfg`` in the meta; numpy, a tensor, a
+        ``Yuv420Frames``, or what ``preload`` returns). Runs on CUDA unless
+        ``device`` says otherwise. Returns the per-feature list of (T, H0,
+        W0) uint8 predictions with frame 0 = the input labels (soft labels:
         (T, K, H0, W0) heatmaps); ``defer_fetch`` returns a thunk that
-        gives the same list."""
+        gives the same list. ``backbone``: the weights to run, on
+        ``device`` (an entry of ``distribute``'s list); the model's own
+        if None."""
         test_cfg = self.test_cfg
-        if test_cfg.get('input_format', 'rgb') == 'yuv420':
-            raise NotImplementedError(
-                "input_format='yuv420' is ported in a later slice")
+        yuv = None
+        if isinstance(imgs, (PackedFrames, Yuv420Frames)) or test_cfg.get(
+                'input_format', 'rgb') == 'yuv420':
+            imgs = self.preload(imgs, device)
+        if isinstance(imgs, PackedFrames):
+            yuv = tuple(imgs.hw) + (imgs.convention,)
+            imgs = imgs.frames
         imgs = torch.as_tensor(
             np.asarray(imgs) if not torch.is_tensor(imgs) else imgs).to(
                 resolve_device(device))
         dev = imgs.device
         batch_step = int(test_cfg.get('batch_step', 20))
-        self.to(dev).eval()
-        if dev.type == 'cuda':
-            self.backbone.to(memory_format=torch.channels_last)
 
         norm_mean = norm_std = None
         if imgs.dtype == torch.uint8:
@@ -230,7 +308,8 @@ class VanillaTracker(nn.Module):
                 np.asarray(norm_cfg['std'], np.float32), device=dev)
         else:
             imgs = imgs.to(torch.float32)
-        feats = self._extract_feats(imgs, batch_step, norm_mean, norm_std)
+        feats = self._extract_feats(imgs, batch_step, norm_mean, norm_std,
+                                    yuv, backbone)
 
         original_shape = tuple(img_meta[0]['original_shape'][:2])
         input_onehot = ref_seg_map.ndim == 3  # (H, W, K) soft labels

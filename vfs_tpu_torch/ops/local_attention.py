@@ -7,8 +7,10 @@ PyTorch counterpart of ``vfs_tpu/ops/pallas_attention.py``
 The TPU kernel's padded layout (``pad_for_pallas``), tiles, 128-lane
 padding and copy modes are not part of the contract; the results are:
 
-- ``query`` (h, w, C) and ``bank_feats`` (F, h, w, C) fp32, L2-normalised;
-  ``bank_vals`` (F, h, w, K) fp32; ``bank_valid`` (F,) bool or int.
+- ``query`` (h, w, C) and ``bank_feats`` (F, h, w, C) fp32, or both bf16
+  (``pallas_precision='bfloat16'``: products summed in fp32),
+  L2-normalised; ``bank_vals`` (F, h, w, K) fp32; ``bank_valid`` (F,) bool
+  or int.
 - For every query cell, the exact top-k of ``dot(q, key) *
   float32(1 / temperature)`` over the valid slots and the keys inside the
   circle ``float(dy^2 + dx^2) < radius^2`` and inside the map. Ties go to
@@ -21,7 +23,9 @@ padding and copy modes are not part of the contract; the results are:
 
 A CPU tensor takes the plain version, ``local_topk_attend_reference``; a
 CUDA tensor launches the hand-written kernel
-(``vfs_tpu_torch/csrc/local_topk_attend.cu``) or raises.
+(``vfs_tpu_torch/csrc/local_topk_attend.cu``, its bf16 entry for bf16
+features) or raises. The plain version widens bf16 features to fp32 and
+runs the fp32 path, which gives the kernel's bf16 scores.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from . import _build
 from .affinity import NEG_INF
-from .video_affinity import circle_offsets
+from .video_affinity import check_feature_dtype, circle_offsets
 from .window_geometry import plan_args, window_plan
 
 KERNEL_NAME = 'local_topk_attend'
@@ -46,10 +50,11 @@ def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
                                 bank_valid: torch.Tensor, radius: float,
                                 temperature: float, topk: int) -> Result:
     """Plain PyTorch version of the kernel: dense per-slot score matrices
-    (fp32; on CUDA call it under ``exact_fp32``), the window gathered in
-    ``(slot, dy, dx)`` order, selection by a stable descending sort
-    (``torch.topk``'s tie order is unspecified), softmax and the weighted
-    sum of the gathered values."""
+    (fp32, bf16 features widened first; on CUDA call it under
+    ``exact_fp32``), the window gathered in ``(slot, dy, dx)`` order,
+    selection by a stable descending sort (``torch.topk``'s tie order is
+    unspecified), softmax and the weighted sum of the gathered values."""
+    query, bank_feats = query.float(), bank_feats.float()
     f_total, h, w, c = bank_feats.shape
     k_classes = bank_vals.shape[-1]
     dev = query.device
@@ -89,16 +94,19 @@ def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
-    fn = lib.vfs_local_topk_attend
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.vfs_local_topk_attend, lib.vfs_local_topk_attend_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def check_operands(query, bank_feats, bank_vals, bank_valid):
-    """Raise on operands the CUDA kernels of this contract do not take."""
+def check_operands(query, bank_feats, bank_vals, bank_valid,
+                   feat_dtypes=(torch.float32,)):
+    """Raise on operands the CUDA kernels of this contract do not take:
+    ``query`` and ``bank_feats`` of one type in ``feat_dtypes``,
+    ``bank_vals`` fp32."""
     dev = query.device
     if dev.type != 'cuda':
         raise ValueError(f'expected CUDA tensors, got {dev}')
@@ -106,10 +114,14 @@ def check_operands(query, bank_feats, bank_vals, bank_valid):
                     ('bank_valid', bank_valid)):
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, query on {dev}')
+    if query.dtype not in feat_dtypes or bank_feats.dtype != query.dtype:
+        raise TypeError(f'expected query and bank_feats of one type in '
+                        f'{feat_dtypes}, got {query.dtype} and '
+                        f'{bank_feats.dtype}')
+    if bank_vals.dtype != torch.float32:
+        raise TypeError(f'expected float32 bank_vals, got {bank_vals.dtype}')
     for name, t in (('query', query), ('bank_feats', bank_feats),
                     ('bank_vals', bank_vals)):
-        if t.dtype != torch.float32:
-            raise TypeError(f'expected float32 {name}, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous, got strides '
                              f'{t.stride()}')
@@ -124,21 +136,22 @@ def check_operands(query, bank_feats, bank_vals, bank_valid):
     if bank_valid.shape != bank_feats.shape[:1]:
         raise ValueError(f'expected bank_valid (F,), got '
                          f'{tuple(bank_valid.shape)}')
-    c = query.shape[-1]
-    if c % 4 or query.data_ptr() % 16 or bank_feats.data_ptr() % 16:
-        raise ValueError('the kernel reads float4 vectors: C must be a '
-                         'multiple of 4 and the data 16-byte aligned')
+    check_feature_dtype('query', query)
+    check_feature_dtype('bank_feats', bank_feats)
 
 
 def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                            bank_vals: torch.Tensor, bank_valid: torch.Tensor,
                            radius: float, temperature: float,
                            topk: int) -> Result:
-    """Launch the CUDA kernel on ``query``'s device and current stream.
-    ``local_topk_attend_cuda.launches`` counts the launches. Raises on a
-    radius or top-k the kernel does not take before anything else."""
+    """Launch the CUDA kernel on ``query``'s device and current stream (its
+    bf16 entry for a bf16 query and bank). ``local_topk_attend_cuda
+    .launches`` counts the launches, ``.bf16_launches`` those of the bf16
+    entry. Raises on a radius or top-k the kernel does not take before
+    anything else."""
     plan = window_plan(radius, topk)
-    check_operands(query, bank_feats, bank_vals, bank_valid)
+    check_operands(query, bank_feats, bank_vals, bank_valid,
+                   (torch.float32, torch.bfloat16))
     f_total, h, w, c = bank_feats.shape
     k_classes = bank_vals.shape[-1]
     if not 1 <= f_total <= 65535:
@@ -155,21 +168,25 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
     part_o = torch.empty((f_total, h, w, topk), dtype=torch.int32,
                          device=query.device)
     lib = _library()
+    bf16 = query.dtype == torch.bfloat16
+    fn = lib.vfs_local_topk_attend_bf16 if bf16 else lib.vfs_local_topk_attend
     with torch.cuda.device(query.device):
-        err = lib.vfs_local_topk_attend(
-            query.data_ptr(), bank_feats.data_ptr(), bank_vals.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), scores.data_ptr(),
-            src.data_ptr(), part_s.data_ptr(), part_o.data_ptr(), f_total, h,
-            w, c, k_classes, *plan_args(plan), 1.0 / temperature, topk,
-            torch.cuda.current_stream().cuda_stream)
+        err = fn(query.data_ptr(), bank_feats.data_ptr(),
+                 bank_vals.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                 scores.data_ptr(), src.data_ptr(), part_s.data_ptr(),
+                 part_o.data_ptr(), f_total, h, w, c, k_classes,
+                 *plan_args(plan), 1.0 / temperature, topk,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')
     local_topk_attend_cuda.launches += 1
+    local_topk_attend_cuda.bf16_launches += bf16
     return out, scores, src
 
 
 local_topk_attend_cuda.launches = 0
+local_topk_attend_cuda.bf16_launches = 0
 
 
 def local_topk_attend(query: torch.Tensor, bank_feats: torch.Tensor,

@@ -66,7 +66,9 @@ class PropagationConfig(NamedTuple):
     ``pallas_group_frames``, ``pallas_extract`` ``'mask'`` and
     ``'descent'``, ``pallas_interpret``, ``tile``, ``video_bank_splits``,
     ``video_sweep_rows``, ``video_pass_mode``, ``video_qpair`` and
-    ``video_compact``."""
+    ``video_compact``. ``pallas_precision`` (``'float32'`` or
+    ``'bfloat16'``) sets the feature type of the ``'pallas'`` and
+    ``'pallas_video'`` paths (module docstring)."""
     precede_frames: int = 20
     topk: int = 10
     temperature: float = 0.07
@@ -96,16 +98,21 @@ class PropagationConfig(NamedTuple):
     video_compact: bool = True
 
 
+# the paths on which pallas_precision casts the features
+PALLAS_BACKENDS = ('pallas', 'pallas_video')
+
+
 def _check_supported(cfg: PropagationConfig) -> None:
     """Raise ``NotImplementedError`` for the modes a later slice of the
-    port brings (see ROADMAP.md), ``ValueError`` for an unknown backend."""
+    port brings (see ROADMAP.md), ``ValueError`` for an unknown backend
+    or feature type."""
     if cfg.backend not in ('pallas', 'pallas_video', 'tiled', 'dense'):
         raise ValueError(f'unknown backend {cfg.backend!r}; use '
                          "'pallas', 'pallas_video', 'tiled' or 'dense'")
-    if cfg.pallas_precision != 'float32':
-        raise NotImplementedError(
-            "pallas_precision='bfloat16' (bf16 features) is ported in a "
-            'later slice')
+    if cfg.backend in PALLAS_BACKENDS and cfg.pallas_precision not in (
+            'float32', 'bfloat16'):
+        raise ValueError("pallas_precision must be 'float32' or "
+                         f"'bfloat16', got {cfg.pallas_precision!r}")
     if cfg.backend == 'pallas' and (cfg.pallas_extract == 'packed'
                                     or cfg.pallas_scores != 'float32'):
         raise NotImplementedError(
@@ -164,7 +171,10 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
         elif mask is not None:
             mask = mask.to(feats.device)
         return _propagate_video_dense(feats, seg_first, mask, cfg)
-    feats = l2_normalize(feats, dim=-1).contiguous()
+    feats = l2_normalize(feats, dim=-1)
+    if cfg.backend in PALLAS_BACKENDS and cfg.pallas_precision == 'bfloat16':
+        feats = feats.to(torch.bfloat16)
+    feats = feats.contiguous()
     if cfg.backend == 'pallas':
         return _propagate_video_scan(feats, seg_first, cfg)
     radius = float(cfg.neighbor_range // 2)
@@ -186,7 +196,9 @@ def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
     the ring, frame ``f`` in slot ``1 + f % P`` (slot 1 starts as frame 0,
     so frame 0 is a key twice while ``t <= P``); slot ``1 + j`` is valid
     iff ``j < t``. Each step attends, then its slot takes the query's
-    features and logits. The bank is updated in place."""
+    features and logits. The bank is updated in place; its features have
+    ``feats``' type (bf16 under ``pallas_precision='bfloat16'``), its
+    values are fp32."""
     t_total, h, w, _ = feats.shape
     p = cfg.precede_frames
     dev = feats.device

@@ -6,8 +6,9 @@ TPU kernel's layout tricks (VMEM key ring, query-frame pairing, compact
 lanes, bank splits, 128-lane padding) are not part of the contract; the
 results are:
 
-- ``feats`` is ``(T, h, w, C)`` fp32, contiguous and already
-  L2-normalised.
+- ``feats`` is ``(T, h, w, C)`` fp32 or bf16 (the JAX package's
+  ``pallas_precision='bfloat16'``: bf16 features, products summed in
+  fp32), contiguous and already L2-normalised.
 - For every frame ``t >= 1`` and query cell, the exact top-k of
   ``dot(q, key) * float32(1 / temperature)`` over the bank positions
   ``j = 0..P``: ``j = 0`` is frame 0; ``j = s + 1`` is ring slot ``s``,
@@ -22,7 +23,10 @@ results are:
 
 A CPU tensor takes the plain version, ``video_topk_affinity_reference``;
 a CUDA tensor launches the hand-written kernel
-(``vfs_tpu_torch/csrc/video_topk_affinity.cu``) or raises.
+(``vfs_tpu_torch/csrc/video_topk_affinity.cu``, its bf16 entry for bf16
+features) or raises. The plain version widens bf16 features to fp32 and
+runs the fp32 path: a bf16 product is exact in fp32, so the kernel's bf16
+scores are its fp32 scores on the widened features.
 """
 
 from __future__ import annotations
@@ -67,9 +71,11 @@ def video_topk_affinity_reference(feats: torch.Tensor, radius: float,
                                   temperature: float, topk: int,
                                   precede_frames: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: dense per-frame score matrices,
-    the window gathered in ``(j, dy, dx)`` order, selection by a stable
-    descending sort (``torch.topk``'s tie order is unspecified)."""
+    """Plain PyTorch version of the kernel: dense per-frame score matrices
+    (bf16 features widened to fp32 first), the window gathered in ``(j,
+    dy, dx)`` order, selection by a stable descending sort
+    (``torch.topk``'s tie order is unspecified)."""
+    feats = feats.float()
     t_total, h, w, c = feats.shape
     dev = feats.device
     hw = h * w
@@ -115,27 +121,42 @@ def video_topk_affinity_reference(feats: torch.Tensor, radius: float,
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
-    fn = lib.vfs_video_topk_affinity
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.vfs_video_topk_affinity, lib.vfs_video_topk_affinity_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+# channels of one 16-byte vector: the kernels stage whole vectors, so C is
+# a multiple of it
+QUAD_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def check_feature_dtype(name: str, t: torch.Tensor) -> None:
+    """Raise ``TypeError`` unless ``t`` is fp32 or bf16, and
+    ``ValueError`` unless C (its last dim) is a multiple of a 16-byte
+    vector's channels (4 fp32, 8 bf16) and its data 16-byte aligned."""
+    quad = QUAD_CHANNELS.get(t.dtype)
+    if quad is None:
+        raise TypeError(f'expected float32 or bfloat16 {name}, got '
+                        f'{t.dtype}')
+    if t.shape[-1] % quad or t.data_ptr() % 16:
+        raise ValueError(f'the kernel reads 16-byte vectors: C of {name} '
+                         f'must be a multiple of {quad} for {t.dtype} and '
+                         'the data 16-byte aligned')
 
 
 def check_features(feats: torch.Tensor, precede_frames: int) -> None:
     """Raise on features the CUDA kernels of this contract do not take."""
     if feats.device.type != 'cuda':
         raise ValueError(f'expected a CUDA tensor, got {feats.device}')
-    if feats.dtype != torch.float32:
-        raise TypeError(f'expected float32 features, got {feats.dtype}')
     if feats.dim() != 4 or not feats.is_contiguous():
         raise ValueError('expected contiguous (T, h, w, C) features, got '
                          f'shape {tuple(feats.shape)} strides '
                          f'{feats.stride()}')
-    if feats.shape[-1] % 4 or feats.data_ptr() % 16:
-        raise ValueError('the kernel reads float4 vectors: C must be a '
-                         'multiple of 4 and the data 16-byte aligned')
+    check_feature_dtype('features', feats)
     if precede_frames < 1:
         raise ValueError('precede_frames must be >= 1')
 
@@ -144,9 +165,11 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
                              temperature: float, topk: int,
                              precede_frames: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``feats``' device and current stream.
-    ``video_topk_affinity_cuda.launches`` counts the launches. Raises on a
-    radius or top-k the kernel does not take before anything else."""
+    """Launch the CUDA kernel on ``feats``' device and current stream (its
+    bf16 entry for bf16 features). ``video_topk_affinity_cuda.launches``
+    counts the launches, ``.bf16_launches`` those of the bf16 entry.
+    Raises on a radius or top-k the kernel does not take before anything
+    else."""
     plan = window_plan(radius, topk)
     check_features(feats, precede_frames)
     t_total, h, w, c = feats.shape
@@ -159,19 +182,23 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
     if t_total < 2:
         return scores, src
     lib = _library()
+    bf16 = feats.dtype == torch.bfloat16
+    fn = (lib.vfs_video_topk_affinity_bf16 if bf16
+          else lib.vfs_video_topk_affinity)
     with torch.cuda.device(feats.device):
-        err = lib.vfs_video_topk_affinity(
-            feats.data_ptr(), scores.data_ptr(), src.data_ptr(), t_total, h,
-            w, c, *plan_args(plan), 1.0 / temperature, topk,
-            precede_frames, torch.cuda.current_stream().cuda_stream)
+        err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
+                 t_total, h, w, c, *plan_args(plan), 1.0 / temperature, topk,
+                 precede_frames, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')
     video_topk_affinity_cuda.launches += 1
+    video_topk_affinity_cuda.bf16_launches += bf16
     return scores, src
 
 
 video_topk_affinity_cuda.launches = 0
+video_topk_affinity_cuda.bf16_launches = 0
 
 
 def video_topk_affinity(feats: torch.Tensor, radius: float,

@@ -21,8 +21,9 @@ Options, as in the JAX function:
   but an explicit ``bank_splits > 1`` with ``'perframe'`` raises
   ``ValueError`` where the JAX function raises.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+Features are fp32 or bf16 (``pallas_precision='bfloat16'``), as for
+``video_affinity``. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel (its bf16 entry for bf16 features) or raises.
 """
 
 from __future__ import annotations
@@ -51,11 +52,12 @@ def check_v1_options(extract: str, bank_splits: Optional[int]) -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
-    fn = lib.vfs_video_topk_affinity_v1
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_float] + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.vfs_video_topk_affinity_v1,
+               lib.vfs_video_topk_affinity_v1_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_float] + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -66,8 +68,10 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
                                 bank_splits: Optional[int] = None,
                                 merge_count: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``feats``' device and current stream.
-    ``video_topk_affinity_v1_cuda.launches`` counts the launches;
+    """Launch the CUDA kernel on ``feats``' device and current stream (its
+    bf16 entry for bf16 features).
+    ``video_topk_affinity_v1_cuda.launches`` counts the launches and
+    ``.bf16_launches`` those of the bf16 entry;
     ``merge_count``, a one-element int64 tensor on the same device, adds
     the (query, key row) list merges the kernel ran. Raises on a radius or
     top-k the kernel does not take before anything else but the options."""
@@ -85,20 +89,24 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
     if t_total < 2:
         return scores, src
     lib = _library()
+    bf16 = feats.dtype == torch.bfloat16
+    fn = (lib.vfs_video_topk_affinity_v1_bf16 if bf16
+          else lib.vfs_video_topk_affinity_v1)
     with torch.cuda.device(feats.device):
-        err = lib.vfs_video_topk_affinity_v1(
-            feats.data_ptr(), scores.data_ptr(), src.data_ptr(), t_total, h,
-            w, c, *plan_args(plan), 1.0 / temperature, topk, precede_frames,
-            int(early_exit and extract == 'perframe'), count,
-            torch.cuda.current_stream().cuda_stream)
+        err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
+                 t_total, h, w, c, *plan_args(plan), 1.0 / temperature, topk,
+                 precede_frames, int(early_exit and extract == 'perframe'),
+                 count, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')
     video_topk_affinity_v1_cuda.launches += 1
+    video_topk_affinity_v1_cuda.bf16_launches += bf16
     return scores, src
 
 
 video_topk_affinity_v1_cuda.launches = 0
+video_topk_affinity_v1_cuda.bf16_launches = 0
 
 
 def video_topk_affinity_v1(feats: torch.Tensor, radius: float,

@@ -18,6 +18,8 @@ import argparse
 import os
 from typing import Optional, Sequence
 
+from .test import local_devices_arg, local_devices
+
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description='Train a model')
@@ -30,9 +32,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument('--seed', type=int, default=0, help='random seed')
     parser.add_argument('--validate', action='store_true',
                         help='run the propagation eval each epoch')
-    parser.add_argument('--local-devices', default='1',
-                        help='devices to shard --validate eval over; only 1 '
-                             'in this slice of the port')
+    parser.add_argument('--local-devices', default='1', type=local_devices_arg,
+                        help="round-robin the --validate eval's videos over "
+                             "N local devices ('all': every CUDA device)")
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'pytorch'],
                         help="'pytorch': torchrun's environment")
@@ -118,11 +120,15 @@ def main(argv: Optional[Sequence[str]] = None):
     dataset = build_dataset(cfg.data.train)
     logger.info(f'Start training: {len(dataset)} samples, '
                 f'{cfg.total_epochs} epochs')
-    local_devices = None
-    if args.local_devices != '1':
-        local_devices = args.local_devices
+    eval_devices = None
+    if args.validate and args.local_devices != '1':
+        eval_devices = local_devices(args.local_devices, device)
+        if len(eval_devices) > 1:
+            logger.info(f'validation over {len(eval_devices)} devices')
+        else:
+            eval_devices = None
     return train_model(model, dataset, cfg, validate=args.validate,
-                       logger=logger, local_devices=local_devices,
+                       logger=logger, local_devices=eval_devices,
                        device=device)
 
 
