@@ -1,7 +1,8 @@
-"""vfs_tpu_torch stands alone: it imports neither jax/flax/optax nor
-vfs_tpu, its entry points never drop to the CPU quietly, and importing the
-kernel module needs neither nvcc nor a GPU (kernels build at their first
-CUDA call)."""
+"""vfs_tpu_torch and the SiamFC port (projects/siamfc/siamfc_tpu_torch,
+train_siamfc_torch.py) stand alone: they import neither jax/flax/optax
+nor vfs_tpu nor siamfc_tpu, their entry points never drop to the CPU
+quietly, and importing the kernel module needs neither nvcc nor a GPU
+(kernels build at their first CUDA call)."""
 
 import os
 import os.path as osp
@@ -24,7 +25,8 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _BLOCKED_IMPORT = r'''
 import importlib.abc, pkgutil, sys
 
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vfs_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vfs_tpu',
+           'siamfc_tpu')
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -64,6 +66,19 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.utils.wandb_logger',
              'vfs_tpu_torch.tools.learning_loop', 'vfs_tpu_torch.ops.yuv'):
     assert name in names, name
+# the SiamFC port and its CLI are walked the same way
+sys.path.insert(0, 'projects/siamfc')
+import siamfc_tpu_torch
+siamfc = [m.name for m in pkgutil.walk_packages(siamfc_tpu_torch.__path__,
+                                                 'siamfc_tpu_torch.')]
+for name in siamfc:
+    __import__(name)
+for name in ('checkpoint', 'datasets', 'default_config', 'device_crops',
+             'heads', 'losses', 'ops', 'otb', 'tracker'):
+    assert f'siamfc_tpu_torch.{name}' in siamfc, name
+import train_siamfc_torch
+assert callable(train_siamfc_torch.main)
+names += siamfc
 import ab_eval, ab_kernels, chip_smoke, loader_probe
 assert callable(chip_smoke.main) and callable(ab_eval.main)
 assert callable(ab_kernels.main) and callable(loader_probe.main)
@@ -80,7 +95,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 67
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -97,6 +112,25 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         model.forward_test(imgs, np.zeros((32, 32), np.int64),
                            [dict(original_shape=(32, 32))])
     assert vfs_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_siamfc_tracker_raises_without_gpu(monkeypatch):
+    """``TrackerSiamFC`` and the SiamFC CLI take the card unless told
+    ``device='cpu'``; with no GPU they raise, and never track on the CPU
+    quietly."""
+    sys.path.insert(0, osp.join(ROOT, 'projects', 'siamfc'))
+    from siamfc_tpu_torch import TrackerSiamFC, default_cfg
+
+    import train_siamfc_torch
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrackerSiamFC(dict(default_cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_siamfc_torch.main([osp.join(
+            ROOT, 'configs', 'r18_nc_sgd_cos_100e_r2_1xNx8_k400.py'),
+            '--otb-root', osp.join(ROOT, 'no_such_dir')])
+    assert TrackerSiamFC(dict(default_cfg), device='cpu').device == \
+        torch.device('cpu')
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_without_building():

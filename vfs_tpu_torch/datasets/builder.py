@@ -9,7 +9,8 @@ remain for small worker counts and unpicklable datasets. The index stream
 is the JAX package's: a permutation seeded ``seed + epoch``, padded by
 wrapping to a multiple of the shard count, shard ``i`` taking every
 ``num_shards``-th index from ``i``; process workers seed ``np.random`` and
-``random`` with ``seed + worker ordinal``.
+``random`` with ``seed + worker ordinal``, and hand that seed to the
+dataset's ``seed_worker`` where it has one.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ def _proc_init(dataset, seed, ordinal_counter):
     # offsets, MultiScaleCrop choices — reference worker_init_fn seeds
     # both streams)
     random.seed(worker_seed)
+    # a dataset that draws from a state of its own takes the seed too
+    seed_worker = getattr(dataset, 'seed_worker', None)
+    if seed_worker is not None:
+        seed_worker(worker_seed)
 
 
 def _proc_fetch(indices):
