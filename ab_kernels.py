@@ -4,6 +4,7 @@ each other, or this checkout's rows 1 and 3 against their ablations.
 
     python3 ab_kernels.py DIR_A DIR_B
     python3 ab_kernels.py --ablate
+    python3 ab_kernels.py --modes
 
 Every mode uses the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
 (60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
@@ -14,11 +15,14 @@ L2-normalised features made on the card) and times, with
   with the tau exit on, ``'perframe'``, and off, ``'sweep'``) at T=24 and
   T=48, milliseconds per launch;
 - rows 3 (``local_topk_attend``) and 4 (``local_topk_attend_v2``) for one
-  step against a full bank of 21 slots (K=4).
+  step against a full bank of 21 slots (K=4);
+- rows 1-3's bf16 entries on the same features cast to bf16 (``_bf16``
+  keys).
 
 ``DIR_A DIR_B`` runs each checkout's own package in its own process, in
 the order A, B, B, A (``ab_eval.run_ab``). The child calls each row with
-arguments that older checkouts accept too (no counters). It prints one
+arguments that older checkouts accept too (no counters; the bf16 rows
+need a checkout from slice 8 on). It prints one
 JSON line per run with the checkout, the times and a SHA-256 of each
 row's outputs (scores and sources, T=48, for rows 1 and 2, both row 2
 settings; logits, scores and sources for rows 3 and 4), then one line
@@ -29,6 +33,12 @@ and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
 (``ABLATIONS``), then times them in the order full, each ablation, full.
 An ablated kernel's outputs are wrong; only its time is read. It prints
 one JSON line per variant.
+
+``--modes`` times row 3's inexact mode entries (``scores='bfloat16'``
+and ``extract='packed'``, fp32 and bf16 features) against row 3's exact
+fp32 entry on the same step, in the order exact, each mode, each mode
+again in reverse, exact; one JSON line per width with each entry's
+median ms and its ratio to the exact entry.
 
 Every mode ends with the card's name and power limit as ``nvidia-smi``
 gives them. Needs one card.
@@ -82,8 +92,13 @@ def make_inputs(dev, c):
                                      generator=g)).contiguous()
     vals = torch.rand((SLOTS, H, W, K_CLASSES), device=dev, generator=g)
     valid = torch.ones(SLOTS, dtype=torch.int32, device=dev)
+    feats48_bf16 = feats48.to(torch.bfloat16)
     return dict(feats48=feats48, feats24=feats48[:24].contiguous(),
-                step=(query, bank, vals, valid))
+                feats48_bf16=feats48_bf16,
+                feats24_bf16=feats48_bf16[:24].contiguous(),
+                step=(query, bank, vals, valid),
+                step_bf16=(query.to(torch.bfloat16),
+                           bank.to(torch.bfloat16), vals, valid))
 
 
 def time_kernels(inputs, radius, cuda_ms, rows=ROWS, hashes=False):
@@ -91,13 +106,13 @@ def time_kernels(inputs, radius, cuda_ms, rows=ROWS, hashes=False):
     outputs' SHA-256."""
     from vfs_tpu_torch import ops
 
-    def row1(t):
-        return ops.video_topk_affinity_cuda(inputs[f'feats{t}'], radius,
-                                            0.07, TOPK, P)
+    def row1(t, feat=''):
+        return ops.video_topk_affinity_cuda(inputs[f'feats{t}{feat}'],
+                                            radius, 0.07, TOPK, P)
 
     def row2(extract, early_exit):
-        return lambda t: ops.video_topk_affinity_v1_cuda(
-            inputs[f'feats{t}'], radius, 0.07, TOPK, P,
+        return lambda t, feat='': ops.video_topk_affinity_v1_cuda(
+            inputs[f'feats{t}{feat}'], radius, 0.07, TOPK, P,
             early_exit=early_exit, extract=extract)
 
     video = [(1, 'row1', row1),
@@ -106,23 +121,25 @@ def time_kernels(inputs, radius, cuda_ms, rows=ROWS, hashes=False):
     step = [(3, 'row3', ops.local_topk_attend_cuda),
             (4, 'row4', ops.local_topk_attend_v2_cuda)]
     out = {}
-    for row, key, fn in video:
-        if row not in rows:
-            continue
-        t24, t48 = cuda_ms(lambda: fn(24)), cuda_ms(lambda: fn(48))
-        out.update({f'{key}_ms_T24': t24, f'{key}_ms_T48': t48,
-                    f'{key}_ms_per_frame_T24': t24 / 23,
-                    f'{key}_steady_ms_per_frame': (t48 - t24) / 24})
-        if hashes:
-            out[f'{key}_sha256'] = digest(fn(48))
-    for row, key, fn in step:
-        if row not in rows:
-            continue
-        out[f'{key}_ms_per_step'] = cuda_ms(
-            lambda: fn(*inputs['step'], radius, 0.07, TOPK))
-        if hashes:
-            out[f'{key}_sha256'] = digest(
-                fn(*inputs['step'], radius, 0.07, TOPK))
+    for feat in ('', '_bf16'):
+        for row, key, fn in video:
+            if row not in rows:
+                continue
+            key += feat
+            t24 = cuda_ms(lambda: fn(24, feat))
+            t48 = cuda_ms(lambda: fn(48, feat))
+            out.update({f'{key}_ms_T24': t24, f'{key}_ms_T48': t48,
+                        f'{key}_ms_per_frame_T24': t24 / 23,
+                        f'{key}_steady_ms_per_frame': (t48 - t24) / 24})
+            if hashes:
+                out[f'{key}_sha256'] = digest(fn(48, feat))
+        for row, key, fn in step:
+            if row not in rows or (feat and row == 4):  # row 4: fp32 only
+                continue
+            args = (*inputs['step' + feat], radius, 0.07, TOPK)
+            out[f'{key}{feat}_ms_per_step'] = cuda_ms(lambda: fn(*args))
+            if hashes:
+                out[f'{key}{feat}_sha256'] = digest(fn(*args))
     return out
 
 
@@ -140,6 +157,40 @@ def child():
                                       chip_smoke.cuda_ms, hashes=True)
             torch.cuda.empty_cache()
     print(json.dumps(out))
+
+
+def modes():
+    """Row 3's mode entries against its exact fp32 entry, in turns."""
+    import statistics
+
+    import chip_smoke
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import local_topk_attend_cuda
+    entries = {'exact': ('step', {}),
+               **{f'{name}{feat}': ('step' + feat, kw)
+                  for feat in ('', '_bf16')
+                  for name, kw in chip_smoke.LOCAL_MODES}}
+    order = list(entries) + list(entries)[:0:-1] + ['exact']
+    dev = torch.device('cuda', 0)
+    with exact_fp32():
+        for model, c, radius in chip_smoke.MODELS:
+            inputs = make_inputs(dev, c)
+            runs = {}
+            for name in order:
+                key, kw = entries[name]
+                runs.setdefault(name, []).append(chip_smoke.cuda_ms(
+                    lambda: local_topk_attend_cuda(
+                        *inputs[key], radius, 0.07, TOPK, **kw)))
+            ms = {n: statistics.median(r) for n, r in runs.items()}
+            print(json.dumps({'model': model, 'ms_per_step': ms,
+                              'runs': runs,
+                              'vs_exact': {n: v / ms['exact'] - 1.0
+                                           for n, v in ms.items()}}),
+                  flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+    print(chip_smoke.card_line())
 
 
 def ablate():
@@ -217,12 +268,15 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('checkouts', nargs='*')
     parser.add_argument('--ablate', action='store_true')
+    parser.add_argument('--modes', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
         return child()
     if args.ablate:
         return ablate()
+    if args.modes:
+        return modes()
     if len(args.checkouts) != 2:
         parser.error('give two checkouts or --ablate')
     import ab_eval

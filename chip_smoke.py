@@ -25,6 +25,12 @@ Phases, one JSON line each on stdout:
    (query, key row) pairs. ``local_topk_attend_v2`` over
    ``local_topk_attend``'s cases and a wider radius; both on banks of
    mostly invalid slots (one valid slot of 21, 17 of 21, none at all).
+   Row 3's mode entries (slice 10: bf16 scores and packed, each with fp32
+   and bf16 features) over row 3's small, edge and sparse cases and a
+   duplicated-frame tie case, against their plain versions
+   (``compare_mode``) and, with bf16 features, against the mode's fp32
+   entry on the widened features bit for bit; packed with bf16 scores
+   must raise.
 3. full: every kernel at the r18 (C=256, radius 12) and r50 (C=1024,
    radius 18) DAVIS-480p shapes (60x107 cells, P=20, top-10) with
    CUDA-event timings (median of 5 after a warm-up), the work, the bound
@@ -35,7 +41,11 @@ Phases, one JSON line each on stdout:
    slots, K=4). ``local_topk_attend_v2``'s path is its op entry point,
    called once per model with its count set to 0 before; it is also held
    against ``local_topk_attend``'s kernel, which computes the same
-   function. Rows 2 and 4 must equal rows 1 and 3 bit for bit.
+   function. Rows 2 and 4 must equal rows 1 and 3 bit for bit. Row 3's
+   mode entries on the same step: the mode gates, their ms beside the
+   exact fp32 entry's in turn, the plain version's, the bound and its
+   share, and the packed re-score's time apart (the merge kernel's
+   profiler time, packed against exact).
 4. main: slice 1's path, DAVIS label-propagation eval of the r18 model of
    configs/r18_nc_sgd_cos_100e_r2_1xNx8_k400.py at full width with seeded
    random weights, on a synthetic 48x480x854 two-object video, through
@@ -52,7 +62,12 @@ Phases, one JSON line each on stdout:
    must agree with the same command under ``backend=pallas_video`` and, on
    one video, with a run whose per-step attention is the plain version.
    The counted run's stage times come from CUDA events around
-   ``VanillaTracker._extract_feats`` and ``propagate_video``.
+   ``VanillaTracker._extract_feats`` and ``propagate_video``. Then the
+   same command with ``test_cfg.pallas_extract=packed`` and with
+   ``test_cfg.pallas_scores=bfloat16``: each mode's entry launches once
+   per step, and the masks agree with the exact run's on
+   ``MODE_AGREEMENT``'s share of pixels (0.999 packed, 0.99 bf16
+   scores).
 6. pose: slice 3's JHMDB path, pose-keypoint propagation with PCK of the
    r18 model (full width, seeded random weights as a ``.pth``) through
    ``python -m vfs_tpu_torch.tools.test --eval pck`` in-process, with
@@ -173,11 +188,21 @@ Phases, one JSON line each on stdout:
    loss finite, ``epoch_1`` written, only head parameters changed; one
    head step on the card against the CPU (B=2, the train phase's
    tolerances) and the step's ms. The phase adds no kernel.
-13. kernels: every kernel with its launches on its path, times, bound
+13. analysis: slice 10's CLIs, ``vfs_tpu_torch.tools.analysis``, each
+   once in-process at full width and cut depth (``phase_analysis``):
+   ``bench_kernel`` at the r18 and r50 shapes (``BENCH_KERNEL_FRAMES``
+   frames; no variant may fail; packed and bf16-score argmax agreement
+   against ``pallas_fp32`` over ``MODE_AGREEMENT``), ``profile_kernel``,
+   ``bench_track``'s five modes on the siamfc fixture (boxes within
+   2.0 px of ``host_seq``), ``bench_extract``, ``get_flops``,
+   ``benchmark``, ``bench_pretrain`` (5 steps) and ``analyze_logs``.
+14. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
    path's, the train phase's eval hook's, the learning loop's and the
    bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
-   path and carry a ``bf16`` entry (r18 and r50 numbers of phase 11). (The
+   path and carry a ``bf16`` entry (r18 and r50 numbers of phase 11);
+   row 3 also carries ``scores_bf16`` and ``packed`` entries (launches on
+   the eval path, numbers of phase 3), whose launches add to its own. (The
    full lines also give the share of the computed pairs the function
    needs, from the core's pass rule. Times of an earlier checkout come
    from ``ab_kernels.py``, which runs both checkouts in one call.) A
@@ -316,6 +341,31 @@ SOME_OF_21 = tuple(int(f not in (2, 6, 11, 17)) for f in range(21))
 SPARSE_LOCAL_CASES = [(9, 40, 8, 5.0, ONE_OF_21, 10, 4),
                       (9, 40, 8, 5.0, SOME_OF_21, 10, 4),
                       (5, 6, 8, 3.0, (0, 0), 5, 4)]
+
+
+# row 3's inexact modes (slice 10): an entry's name in the kernels line
+# and local_topk_attend's keywords. Sources of kernel and plain version
+# must agree on MODE_SRC_SHARE of the entries: a score within ~1e-6 of a
+# bf16 midpoint or a packed quantisation boundary may round apart in the
+# two summation orders and change a selection. A bf16 score that rounds
+# apart, its source the same, must lie within BF16_FLIP_EPS of the
+# midpoint of the two roundings.
+LOCAL_MODES = (('scores_bf16', dict(scores='bfloat16')),
+               ('packed', dict(extract='packed')))
+MODE_SRC_SHARE = 1e-3
+BF16_FLIP_EPS = 1e-5
+# bench_kernel's argmax agreement against pallas_fp32 in the analysis
+# phase: packed and bf16 scores (the JAX package's own tests gate 1.0 and
+# 0.99 at their small shapes, test_pallas_kernel.py:89,150); packed on
+# bf16 features at the bf16 features' own floor (bench.py:80-82, r50's),
+# since its differences from the fp32 scan are those of bf16mm
+MODE_AGREEMENT = dict(pallas_packed=0.999, pallas_bf16=0.99,
+                      pallas_bf16mm_packed=0.98)
+# the analysis phase's depth: bench_kernel's frames, then, cut to keep the
+# script's time, profile_kernel's (24 in the first full run), bench_track's
+# frames a sequence (the siamfc fixture has 50) and bench_extract's frames
+BENCH_KERNEL_FRAMES = 24
+ANALYSIS_FRAMES, ANALYSIS_TRACK_FRAMES, ANALYSIS_EXTRACT_FRAMES = 12, 20, 20
 
 
 def emit(obj):
@@ -550,6 +600,123 @@ def run_local_v2(query, bank, vals, valid, radius, topk, exact_src, what):
     return nums, out
 
 
+def compare_mode(kernel, plain, exact_src, what, query, bank, mode):
+    """A row 3 mode's kernel vs its plain version (logits, scores,
+    sources): sources on MODE_SRC_SHARE of the entries (all of them on the
+    tie cases); where a cell's sources agree, scores and logits at rtol
+    1e-5 / atol 1e-5, but for bf16 scores that round apart at a midpoint
+    (BF16_FLIP_EPS of the exact fp64 score), whose cells are counted and
+    left out of the logits check. Returns (max |score diff|, max |logit
+    diff|, differing sources, their share, rounding flips)."""
+    import torch
+    (ko, ks, ki), (po, ps, pi) = kernel, plain
+    if not (torch.isfinite(ko).all() and torch.isfinite(ks).all()):
+        raise AssertionError(f'{what}: non-finite kernel outputs')
+    mismatch = int((ki != pi).sum())
+    share = mismatch / max(1, ki.numel())
+    if (exact_src and mismatch) or share > MODE_SRC_SHARE:
+        raise AssertionError(f'{what}: {mismatch} sources differ ({share})')
+    same = (ki == pi).all(-1)
+    flips = same[..., None] & ~torch.isclose(ks, ps, rtol=1e-5, atol=1e-5)
+    n_flips = int(flips.sum())
+    if n_flips:
+        if mode.get('scores') != 'bfloat16':
+            raise AssertionError(f'{what}: scores differ')
+        h, w, c = query.shape
+        cells = torch.nonzero(flips)
+        q = query.reshape(h * w, c).double()[cells[:, 0] * w + cells[:, 1]]
+        k = bank.reshape(-1, c).double()[ki[flips]]
+        exact = (q * k).sum(-1) * float(np.float32(1 / 0.07))
+        mid = (ks[flips].double() + ps[flips].double()) / 2
+        if not bool(((exact - mid).abs() < BF16_FLIP_EPS).all()):
+            raise AssertionError(f'{what}: bf16 scores differ away from a '
+                                 'rounding midpoint')
+        same &= ~flips.any(-1)
+    err = float((ks - ps)[same].abs().max()) if same.any() else 0.0
+    logit_err = float((ko - po)[same].abs().max()) if same.any() else 0.0
+    if not torch.allclose(ko[same], po[same], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f'{what}: logits differ, max abs err '
+                             f'{logit_err}')
+    return err, logit_err, mismatch, share, n_flips
+
+
+def run_local_mode(query, bank, vals, valid, radius, topk, exact_src, what,
+                   mode):
+    """A row 3 mode's kernel vs its plain version (TF32 off); with bf16
+    features also vs the mode's fp32 entry on the widened features, bit
+    for bit. Returns compare_mode's numbers and the kernel's outputs."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
+                                   local_topk_attend_reference)
+    args = (query, bank, vals, valid, radius, 0.07, topk)
+    with exact_fp32():
+        out_k = local_topk_attend_cuda(*args, **mode)
+        out_p = local_topk_attend_reference(*args, **mode)
+        widened = None
+        if query.dtype == torch.bfloat16:
+            widened = local_topk_attend_cuda(query.float(), bank.float(),
+                                             *args[2:], **mode)
+    torch.cuda.synchronize()
+    if widened is not None and not all(
+            torch.equal(a, b) for a, b in zip(out_k, widened)):
+        raise AssertionError(f'{what}: bf16 features differ from the fp32 '
+                             'entry on the widened features')
+    return compare_mode(out_k, out_p, exact_src, what, query, bank,
+                        mode), out_k
+
+
+def phase_small_modes(dev, tensor):
+    """Row 3's four mode entries (LOCAL_MODES x fp32 / bf16 features)
+    against their plain versions over row 3's small matrix, its edge and
+    sparse-bank cases (bf16 features where C is a multiple of 8) and a
+    duplicated-frame tie case (exact sources); packed with bf16 scores
+    raises."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize, local_topk_attend_cuda
+    cases = []
+    for h, w, c, radius, valid, topk, k in (LOCAL_CASES + EDGE_LOCAL_CASES
+                                            + SPARSE_LOCAL_CASES):
+        rng = np.random.RandomState(h * 100 + w + c)
+        f = len(valid)
+        cases.append((rng.randn(h, w, c), rng.randn(f, h, w, c),
+                      rng.rand(f, h, w, k), valid, radius, topk, False,
+                      [h, w, c, radius, f, sum(valid), topk, k]))
+    rng = np.random.RandomState(41)
+    tie = rng.randn(5, 8, 9, 16)
+    tie[2], tie[4] = tie[0], tie[1]
+    cases.append((rng.randn(8, 9, 16), tie, rng.rand(5, 8, 9, 4),
+                  (1, 1, 1, 1, 1), 3.0, 8, True, 'tie'))
+    for name, mode in LOCAL_MODES:
+        for feat in (torch.float32, torch.bfloat16):
+            results = []
+            for q, b, v, valid, radius, topk, exact_src, row in cases:
+                if feat == torch.bfloat16 and q.shape[-1] % 8:
+                    continue
+                query = l2_normalize(tensor(q)).to(feat).contiguous()
+                bank = l2_normalize(tensor(b)).to(feat).contiguous()
+                nums, _ = run_local_mode(
+                    query, bank, tensor(v), tensor(valid, torch.int32),
+                    radius, topk, exact_src, f'small {name} {feat} {row}',
+                    mode)
+                results.append([row, *nums])
+            emit({'phase': 'small', 'kernel': LOCAL_INFO['name'],
+                  'mode': name, 'features': str(feat).split('.')[-1],
+                  'columns': ['case', 'max_abs_err', 'max_logit_err',
+                              'src_mismatch', 'src_mismatch_share',
+                              'bf16_rounding_flips'],
+                  'cases': results})
+    q = tensor(np.zeros((4, 5, 8)))
+    try:
+        local_topk_attend_cuda(q, q[None], tensor(np.zeros((1, 4, 5, 2))),
+                               tensor([1], torch.int32), 3.0, 0.07, 4,
+                               scores='bfloat16', extract='packed')
+    except ValueError:
+        pass
+    else:
+        raise AssertionError('packed with bf16 scores did not raise')
+
+
 def phase_small(dev):
     import torch
     from vfs_tpu_torch.ops import l2_normalize
@@ -614,6 +781,7 @@ def phase_small(dev):
                        'src_mismatch': mismatch}})
     phase_small_edges(dev, tensor)
     phase_small_perframe(dev, tensor)
+    phase_small_modes(dev, tensor)
 
 
 def phase_small_edges(dev, tensor):
@@ -844,6 +1012,109 @@ def phase_full(dev, smi_name):
         torch.cuda.empty_cache()
     emit({'phase': 'full', 'kernel': LOCAL_INFO['name'], **out})
     return out['r50'], row1_plain
+
+
+def merge_ms(fn, steps=3):
+    """Mean CUDA ms of row 3's merge kernel (stage 2) per launch over
+    ``steps`` calls of ``fn``, from torch.profiler's kernel times (one
+    warm-up step inside the profiler first: its device tracer may miss
+    the kernels launched as it starts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        for _ in range(steps + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total, calls = 0.0, 0
+    for e in prof.key_averages():
+        if 'local_topk_merge_kernel' in e.key and \
+                e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total
+            calls += e.count
+    if total <= 0 or not calls:
+        raise AssertionError('the profiler saw no merge kernel')
+    return total / 1e3 / calls
+
+
+def phase_full_modes(dev, smi_name):
+    """Row 3's mode entries at the r18 and r50 DAVIS shapes (one step
+    against a full bank of 21 random slots, K = 4; the full phase's
+    inputs): each against its plain version (the mode gates), CUDA-event
+    ms of the mode, of row 3's exact fp32 entry in turn and of the plain
+    version, the bound (row 3's work; bf16 features two ways, as
+    bf16_bounds) and its share; and the packed re-score apart: the merge
+    kernel's profiler time, packed against exact. Returns {mode: {model:
+    numbers}}."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   local_topk_attend_reference)
+    h, w, p, topk, k_classes = 60, 107, 20, 10, 4
+    f = p + 1
+    out = {name: {} for name, _ in LOCAL_MODES}
+    for model, c, radius in MODELS:
+        g = torch.Generator(device=dev).manual_seed(c + 1)
+        bank = l2_normalize(torch.randn((f, h, w, c), device=dev,
+                                        generator=g)).contiguous()
+        query = l2_normalize(torch.randn((h, w, c), device=dev,
+                                         generator=g)).contiguous()
+        vals = torch.rand((f, h, w, k_classes), device=dev, generator=g)
+        valid = torch.ones(f, dtype=torch.int32, device=dev)
+        flops, nbytes = step_work(h, w, c, radius, topk, k_classes, f, f)
+        b_ms, b_by = bound_ms(flops, nbytes, smi_name)
+        bd = bf16_bounds(flops, nbytes - 2.0 * h * w * c * (1 + f), smi_name)
+        for name, mode in LOCAL_MODES:
+            res = {}
+            for feat in (torch.float32, torch.bfloat16):
+                q, b = query.to(feat), bank.to(feat)
+                nums, _ = run_local_mode(q, b, vals, valid, radius, topk,
+                                         False, f'full {name} {model} '
+                                         f'{feat}', mode)
+
+                def call(fn, **kw):
+                    return fn(q, b, vals, valid, radius, 0.07, topk, **kw)
+
+                with exact_fp32():
+                    ms = cuda_ms(lambda: call(local_topk_attend_cuda,
+                                              **mode))
+                    exact_ms = cuda_ms(lambda: call(local_topk_attend_cuda))
+                    ms2 = cuda_ms(lambda: call(local_topk_attend_cuda,
+                                               **mode))
+                    plain_ms = cuda_ms(lambda: call(
+                        local_topk_attend_reference, **mode), runs=3)
+                kernel_ms = statistics.median([ms, ms2])
+                err, logit_err, mismatch, share, flips = nums
+                row = dict(max_abs_err=err, max_logit_err=logit_err,
+                           src_mismatch=mismatch, src_mismatch_share=share,
+                           bf16_rounding_flips=flips, ms=kernel_ms,
+                           ms_runs=[ms, ms2], exact_entry_ms=exact_ms,
+                           vs_exact=kernel_ms / exact_ms - 1.0,
+                           plain_ms=plain_ms, gflop=flops / 1e9)
+                if feat == torch.float32:
+                    row.update(bound_ms=b_ms, bound_by=b_by,
+                               bound_share=b_ms / kernel_ms)
+                else:
+                    row.update(bound_share=bd['bound_ms'] / kernel_ms,
+                               ffma_share=bd['ffma_bound_ms'] / kernel_ms,
+                               **bd)
+                if name == 'packed':
+                    with exact_fp32():
+                        pm = merge_ms(lambda: call(local_topk_attend_cuda,
+                                                   **mode))
+                        em = merge_ms(lambda: call(local_topk_attend_cuda))
+                    row.update(merge_ms=pm, exact_merge_ms=em,
+                               rescore_ms=pm - em)
+                res['fp32' if feat == torch.float32 else 'bf16'] = row
+            out[name][model] = dict(h=h, w=w, C=c, radius=radius, F=f,
+                                    topk=topk, K=k_classes, **res)
+        del bank, query, vals
+        torch.cuda.empty_cache()
+    emit({'phase': 'full', 'kernel': LOCAL_INFO['name'], 'modes': out})
+    return out
 
 
 def phase_full_v1(dev, smi_name, plain_ms):
@@ -1296,10 +1567,11 @@ def phase_eval(local_full):
         (img_root, ann_root, (list_all, list_one), shape,
          ckpt) = write_eval_inputs(root)
 
-        def run(backend, ann_file, name):
+        def run(backend, ann_file, name, options=()):
             out = os.path.join(root, f'{name}.npz')
             jf = tools_test.main(eval_argv(root, img_root, ann_root,
-                                           ann_file, ckpt, backend, out))
+                                           ann_file, ckpt, backend, out)
+                                 + list(options))
             with np.load(out) as saved:
                 masks = [saved[f'arr_{i}'] for i in range(len(saved.files))]
             return jf, masks
@@ -1322,6 +1594,22 @@ def phase_eval(local_full):
             with patched(propagation, 'local_topk_attend',
                          lambda _: local_topk_attend_reference):
                 _, masks_plain = run('pallas', list_one, 'plain')
+            # row 3's inexact modes through the same CLI, counted
+            modes = {}
+            for name, option, counter in (
+                    ('packed', 'test_cfg.pallas_extract=packed',
+                     'packed_launches'),
+                    ('scores_bf16', 'test_cfg.pallas_scores=bfloat16',
+                     'scores_bf16_launches')):
+                setattr(local_topk_attend_cuda, counter, 0)
+                jf_mode, masks_mode = run('pallas', list_all, name, [option])
+                modes[name] = dict(
+                    option=option,
+                    launches=getattr(local_topk_attend_cuda, counter),
+                    eval_s=walls[-1],
+                    mask_agree_exact=float(np.mean([
+                        (a == b).mean() for a, b in zip(masks, masks_mode)])),
+                    **{k: float(v) for k, v in jf_mode.items()})
 
         frames = sum(m.shape[0] for m in masks)
         steps = sum(m.shape[0] - 1 for m in masks)
@@ -1340,6 +1628,14 @@ def phase_eval(local_full):
                 f'{agree_plain} (plain per-step) < 0.999')
         if not 0.0 <= jf['J&F-Mean'] <= 1.0:
             raise AssertionError(f"J&F {jf['J&F-Mean']} out of range")
+        for name, mode in modes.items():
+            floor = MODE_AGREEMENT['pallas_' + ('packed' if name == 'packed'
+                                                else 'bf16')]
+            if mode['launches'] != steps or mode['mask_agree_exact'] < floor:
+                raise AssertionError(f'{name} eval: {mode["launches"]} '
+                                     f'launches for {steps} steps, masks '
+                                     f'agree with the exact run on '
+                                     f"{mode['mask_agree_exact']} < {floor}")
     emit({'phase': 'eval', 'config': os.path.relpath(CONFIG_R50, ROOT),
           'backend': 'pallas', 'videos': len(masks), 'frames': frames,
           'first_call_s': first_s, 'eval_s': eval_s,
@@ -1349,8 +1645,8 @@ def phase_eval(local_full):
           'mask_agree_pallas_video': agree_video,
           'mask_agree_plain_per_step': agree_plain,
           'kernel_launches': launches, 'steps': steps,
-          **{k: float(v) for k, v in jf.items()}})
-    return dict(**LOCAL_INFO, launches=launches,
+          **{k: float(v) for k, v in jf.items()}, 'modes': modes})
+    return modes, dict(**LOCAL_INFO, launches=launches,
                 max_abs_err=local_full['max_abs_err'],
                 src_mismatch=local_full['src_mismatch'],
                 ms=local_full['kernel_ms_per_step'],
@@ -1696,46 +1992,11 @@ BF16_LOSS_ATOL = 1e-3
 
 
 def write_k400(root):
-    """A Kinetics-layout set under ``root``: ``K400_CLIPS`` MJPG ``.avi``
-    clips (OpenCV writes MJPG without FFmpeg) of ``K400_FRAMES`` frames of
-    ``K400_HW``, a blocky textured background with a disc moving across
-    it, each from its own seed, and the list file. Every frame of every
-    clip must read back through cv2. Returns the list file's path."""
-    import cv2
-    n, t_total, (h, w) = K400_CLIPS, K400_FRAMES, K400_HW
-    lines = []
-    yy, xx = np.mgrid[:h, :w]
-    for v in range(n):
-        rng = np.random.RandomState(100 + v)
-        base = rng.randint(0, 255, (h // 16 + 1, w // 16 + 1, 3))
-        base = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w]
-        colour = rng.randint(0, 255, 3)
-        name = f'clip{v:03d}.avi'
-        writer = cv2.VideoWriter(os.path.join(root, name),
-                                 cv2.VideoWriter_fourcc(*'MJPG'), 25,
-                                 (w, h))
-        for t in range(t_total):
-            img = base.copy()
-            cy, cx = 60 + 6 * t, 40 + 15 * t
-            img[(yy - cy)**2 + (xx - cx)**2 < 45**2] = colour
-            writer.write(img.astype(np.uint8))
-        writer.release()
-        cap = cv2.VideoCapture(os.path.join(root, name))
-        read = 0
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            read += frame.shape == (h, w, 3)
-        cap.release()
-        if read != t_total:
-            raise AssertionError(f'{name}: cv2 read back {read} of '
-                                 f'{t_total} frames')
-        lines.append(f'{name} {v % 400}\n')
-    ann = os.path.join(root, 'k400_train_list.txt')
-    with open(ann, 'w') as f:
-        f.writelines(lines)
-    return ann
+    """``K400_CLIPS`` Kinetics-layout MJPG clips of ``K400_FRAMES`` frames
+    of ``K400_HW`` under ``root`` (``tools.analysis.fixtures.write_k400``,
+    which ``bench_pretrain`` also writes). Returns the list file's path."""
+    from vfs_tpu_torch.tools.analysis.fixtures import write_k400 as write
+    return write(root, K400_CLIPS, K400_FRAMES, K400_HW)
 
 
 def train_flops(model, frames_hw, n_frames):
@@ -2939,7 +3200,8 @@ def phase_bench_cfg(dev, smi_name):
 
 # The siamfc phase (module docstring, phase 12): bench.py's tracking block
 # (bench.py:84-88,410-451) and its fixture (tools/analysis/bench_track.py
-# make_fixture), copied: the script imports nothing of the JAX package.
+# make_fixture, copied into siamfc_tpu_torch.fixtures): the script imports
+# nothing of the JAX package.
 # bench.py's 20-fps floor is a TPU figure and is not carried. Its
 # precision floor, 0.95, is not met by the JAX package's own seeded
 # weights on this fixture (0.755 in its last recorded bench run,
@@ -2967,34 +3229,6 @@ PROBE_TIMED_STEPS = 10
 # 1.8e-6 from the fp64 one (the CPU's 1.3e-7) on an H100, past the
 # train phase's 1e-6; the gradients keep the train phase's bound.
 PROBE_LOSS_RTOL = 1e-5
-
-
-def make_track_fixture(root, n_seqs, n_frames, hw):
-    """OTB-layout moving-square sequences (tools/analysis/bench_track.py
-    make_fixture); box size/motion scaled to the frame so the crop geometry
-    (context margin, search region) matches real OTB magnitudes."""
-    import cv2
-    h, w = hw
-    rng = np.random.RandomState(7)
-    side = max(h // 6, 24)
-    for s in range(n_seqs):
-        seq = os.path.join(root, f'Seq{s}', 'img')
-        os.makedirs(seq, exist_ok=True)
-        base = rng.randint(0, 60, (h, w, 3), np.uint8)
-        color = rng.randint(140, 255, 3).tolist()
-        x0, y0 = rng.randint(10, w // 3), rng.randint(10, h // 3)
-        dx, dy = rng.randint(1, 4), rng.randint(1, 3)
-        boxes = []
-        for t in range(n_frames):
-            img = base.copy()
-            x = min(x0 + dx * t, w - side - 1)
-            y = min(y0 + dy * t, h - side - 1)
-            img[y:y + side, x:x + side] = color
-            cv2.imwrite(os.path.join(seq, f'{t + 1:04}.jpg'),
-                        img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 95])
-            boxes.append([x + 1, y + 1, side, side])
-        np.savetxt(os.path.join(root, f'Seq{s}', 'groundtruth_rect.txt'),
-                   np.array(boxes), fmt='%d', delimiter=',')
 
 
 def make_got10k(root, n_seqs, n_frames, hw):
@@ -3366,6 +3600,7 @@ def phase_siamfc(dev, smi_line):
     if SIAMFC_DIR not in sys.path:
         sys.path.insert(0, SIAMFC_DIR)
     from siamfc_tpu_torch import default_cfg
+    from siamfc_tpu_torch.fixtures import make_otb_fixture
     t0 = time.time()
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
@@ -3374,7 +3609,7 @@ def phase_siamfc(dev, smi_line):
         torch.save(siamfc_tracker(cfg, 'cpu', None).net.backbone.state_dict(),
                    pth)
         otb = os.path.join(root, 'otb')
-        make_track_fixture(otb, TRACK_SEQS, TRACK_FRAMES, TRACK_HW)
+        make_otb_fixture(otb, TRACK_SEQS, TRACK_FRAMES, TRACK_HW)
         tracking, tracker, pairs = measure_tracking(cfg, dev, pth, otb)
         split = frame_split(tracker, pairs)
         card_cpu = card_cpu_tracking(cfg, dev, pth, pairs)
@@ -3390,6 +3625,96 @@ def phase_siamfc(dev, smi_line):
           'seconds': time.time() - t0})
 
 
+def phase_analysis(dev, smi_line):
+    """Slice 10's analysis CLIs (``vfs_tpu_torch.tools.analysis``), each
+    once in-process on the card at full width and cut depth (the
+    ANALYSIS_* constants): bench_kernel at the r18 and r50 shapes (no
+    variant may fail;
+    MODE_AGREEMENT's argmax agreement against pallas_fp32), profile_kernel
+    (r18, two repeats), bench_track in its five modes on bench.py's
+    tracking fixture's shape (every device and batch mode within
+    TRACK_GATES['box_agreement_px'] of host_seq), bench_extract,
+    get_flops (r18, r50), benchmark (the eval phase's r50 DAVIS set, one
+    video after a warm-up), bench_pretrain (the r18 config, 5 steps, on
+    K400_CLIPS clips) and analyze_logs (cal_train_time; plot_curve where
+    matplotlib is installed, whose version the line gives)."""
+    from vfs_tpu_torch.ops import local_topk_attend_cuda
+    from vfs_tpu_torch.tools.analysis import (analyze_logs, bench_extract,
+                                              bench_kernel, bench_pretrain,
+                                              bench_track, benchmark,
+                                              get_flops, profile_kernel)
+    from vfs_tpu_torch.utils import JsonlLogger
+    t0 = time.time()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        for model, c, radius in MODELS:
+            before = local_topk_attend_cuda.packed_launches
+            res = bench_kernel.main(['--frames', str(BENCH_KERNEL_FRAMES),
+                                     '--channels', str(c), '--radius',
+                                     str(int(radius))])
+            if res['failed'] or local_topk_attend_cuda.packed_launches \
+                    == before:
+                raise AssertionError(f'bench_kernel {model}: {res}')
+            for name, floor in MODE_AGREEMENT.items():
+                if res['agreement'][name] < floor:
+                    raise AssertionError(f'bench_kernel {model}: {name} '
+                                         f'agrees on {res["agreement"][name]}'
+                                         f' < {floor}')
+            emit({'phase': 'analysis', 'cli': 'bench_kernel', 'model': model,
+                  'card': smi_line, **res})
+        res = profile_kernel.main(['--repeats', '2', '--frames',
+                                   str(ANALYSIS_FRAMES), '--out',
+                                   os.path.join(root, 'prof')])
+        emit({'phase': 'analysis', 'cli': 'profile_kernel', **res})
+        res = bench_track.main(['--seqs', str(TRACK_SEQS), '--frames',
+                                str(ANALYSIS_TRACK_FRAMES), '--hw',
+                                *map(str, TRACK_HW),
+                                '--batch', str(TRACK_BATCH), '--root',
+                                os.path.join(root, 'otb')])
+        worst = max(m['box_vs_host_seq_px'] for n, m in res['modes'].items()
+                    if n != 'host_seq')
+        if worst > TRACK_GATES['box_agreement_px']:
+            raise AssertionError(f'bench_track: boxes {worst} px from '
+                                 f'host_seq: {res}')
+        emit({'phase': 'analysis', 'cli': 'bench_track', **res})
+        res = bench_extract.main(['--frames', str(ANALYSIS_EXTRACT_FRAMES),
+                                  '--steps', '10', '20'])
+        emit({'phase': 'analysis', 'cli': 'bench_extract', **res})
+        for config in (CONFIG, CONFIG_R50):
+            res = get_flops.main([config])
+            emit({'phase': 'analysis', 'cli': 'get_flops',
+                  'config': os.path.relpath(config, ROOT), **res})
+        img_root, ann_root, (list_all, _), _, ckpt = write_eval_inputs(root)
+        data = eval_argv(root, img_root, ann_root, list_all, ckpt, 'pallas',
+                         os.path.join(root, 'unused.npz'))
+        data = data[data.index('--options') + 1:]
+        res = benchmark.main([CONFIG_R50, ckpt, '--num-videos', '1',
+                              '--options', *data])
+        emit({'phase': 'analysis', 'cli': 'benchmark', **res})
+        res = bench_pretrain.main(['--steps', '5', '--num-videos',
+                                   str(K400_CLIPS), '--data-dir',
+                                   os.path.join(root, 'k400')])
+        emit({'phase': 'analysis', 'cli': 'bench_pretrain', **res})
+        log = os.path.join(root, 'train_log.jsonl')
+        for i, dt in enumerate((0.5, 0.25, 0.75)):
+            JsonlLogger(log).log(dict(mode='train', iter=i + 1, time=dt,
+                                      loss=2.0 - 0.1 * i))
+        times = analyze_logs.main(['cal_train_time', log])[log]
+        try:
+            import matplotlib
+            version = matplotlib.__version__
+        except ImportError:
+            version = None
+        if version is not None:
+            analyze_logs.main(['plot_curve', log, '--out',
+                               os.path.join(root, 'curve.png')])
+        emit({'phase': 'analysis', 'cli': 'analyze_logs',
+              'cal_train_time': times, 'matplotlib': version})
+    out['seconds'] = time.time() - t0
+    emit({'phase': 'analysis', 'seconds': out['seconds']})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3402,10 +3727,11 @@ def main():
     smi_line = phase_build()
     phase_small(dev)
     local_full, plain_ms = phase_full(dev, smi_line)
+    modes_full = phase_full_modes(dev, smi_line)
     v1_full = phase_full_v1(dev, smi_line, plain_ms)
     v2_entry = phase_full_v2(dev, smi_line)
     row1 = phase_main(dev, smi_line)
-    row3 = phase_eval(local_full)
+    eval_modes, row3 = phase_eval(local_full)
     v1_launches = phase_pose() + phase_vip()
     row1[0]['launches'] += phase_train(dev, smi_line)
     phase_dense(dev, smi_line)
@@ -3414,9 +3740,14 @@ def main():
     phase_siamfc(dev, smi_line)
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
+    phase_analysis(dev, smi_line)
     for entry, row in ((row1[0], 'row1'), (row2, 'row2'), (row3, 'row3')):
         entry['launches'] += bench[row]['launches']
         entry['bf16'] = bench[row]
+    for name, _ in LOCAL_MODES:  # launched on the eval path
+        row3['launches'] += eval_modes[name]['launches']
+        row3[name] = dict(launches=eval_modes[name]['launches'],
+                          **modes_full[name])
     emit({'phase': 'total', 'seconds': time.time() - t_start})
     emit({'kernels': [*row1, row2, row3, v2_entry]})
     emit({'ok': True, 'device': {'platform': 'gpu',

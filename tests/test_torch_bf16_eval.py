@@ -43,6 +43,7 @@ from vfs_tpu_torch.ops import propagation as torch_prop
 from vfs_tpu_torch.ops.local_attention import local_topk_attend
 from vfs_tpu_torch.ops.video_affinity import video_topk_affinity
 
+from test_torch_local_attention_modes import _valid_keys
 from test_torch_resnet import jax_resnet_variables
 from test_torch_video_affinity import _jax_affinity
 
@@ -155,12 +156,22 @@ def test_tiled_and_dense_ignore_the_knob(backend):
 
 
 def test_unknown_precision_raises_on_pallas_paths():
+    """An unknown feature type raises; the scan's bf16 scores, refused
+    before slice 10 ported them, run with bf16 features and match the JAX
+    package's interpret-mode scan (every query keeps >= k valid keys:
+    frame 0's slot alone holds >= 9 in-map keys of a corner's circle of
+    radius 3, against top-4; tests/test_torch_local_attention_modes.py
+    covers the modes in full)."""
     feats, seg_first = _inputs(1)
     with pytest.raises(ValueError, match='pallas_precision'):
         _port(feats, seg_first, backend='pallas_video',
               pallas_precision='float16')
-    with pytest.raises(NotImplementedError):
-        _port(feats, seg_first, backend='pallas', pallas_scores='bfloat16')
+    assert (_valid_keys(6, 7, 3, [1]) >= COMMON['topk']).all()
+    kw = dict(backend='pallas', pallas_scores='bfloat16',
+              pallas_precision='bfloat16')
+    out, ref = _port(feats, seg_first, **kw), _jax(feats, seg_first, **kw)
+    assert (ref.argmax(-1) == out.argmax(-1)).mean() == 1.0
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
 
 
 def _rel(a, b):

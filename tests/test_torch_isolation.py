@@ -64,7 +64,12 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.parallel.dist', 'vfs_tpu_torch.ops.device_aug',
              'vfs_tpu_torch.ops.attention',
              'vfs_tpu_torch.utils.wandb_logger',
-             'vfs_tpu_torch.tools.learning_loop', 'vfs_tpu_torch.ops.yuv'):
+             'vfs_tpu_torch.tools.learning_loop', 'vfs_tpu_torch.ops.yuv',
+             *(f'vfs_tpu_torch.tools.analysis.{m}' for m in (
+                 'bench_kernel', 'profile_kernel', 'bench_extract',
+                 'benchmark', 'get_flops', 'bench_processing',
+                 'bench_pretrain', 'bench_track', 'analyze_logs',
+                 'common', 'fixtures'))):
     assert name in names, name
 # the SiamFC port and its CLI are walked the same way
 sys.path.insert(0, 'projects/siamfc')
@@ -74,7 +79,7 @@ siamfc = [m.name for m in pkgutil.walk_packages(siamfc_tpu_torch.__path__,
 for name in siamfc:
     __import__(name)
 for name in ('checkpoint', 'datasets', 'default_config', 'device_crops',
-             'heads', 'losses', 'ops', 'otb', 'tracker'):
+             'fixtures', 'heads', 'losses', 'ops', 'otb', 'tracker'):
     assert f'siamfc_tpu_torch.{name}' in siamfc, name
 import train_siamfc_torch
 assert callable(train_siamfc_torch.main)
@@ -95,7 +100,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9 + 13
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -112,6 +117,25 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         model.forward_test(imgs, np.zeros((32, 32), np.int64),
                            [dict(original_shape=(32, 32))])
     assert vfs_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+
+
+CONFIG = osp.join(ROOT, 'configs', 'r18_nc_sgd_cos_100e_r2_1xNx8_k400.py')
+
+
+@pytest.mark.parametrize('name,argv', [
+    ('bench_kernel', []), ('profile_kernel', []), ('bench_extract', []),
+    ('benchmark', [CONFIG, 'no_such.pth']), ('get_flops', [CONFIG]),
+    ('bench_pretrain', [CONFIG]), ('bench_track', ['--root', 'no_such_dir']),
+])
+def test_analysis_clis_raise_without_gpu(name, argv, monkeypatch):
+    """Each analysis CLI with a device runs on the card unless given
+    ``--device cpu``; with no GPU it raises before any work."""
+    import importlib
+    cli = importlib.import_module(f'vfs_tpu_torch.tools.analysis.{name}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.parse_args(argv + ['--device', 'cpu']).device == 'cpu'
 
 
 def test_siamfc_tracker_raises_without_gpu(monkeypatch):

@@ -25,6 +25,8 @@ from vfs_tpu_torch.ops import spatial_neighbor
 from vfs_tpu_torch.ops.video_affinity import (video_topk_affinity,
                                               video_topk_affinity_reference)
 
+from test_torch_local_attention_modes import _valid_keys
+
 torch.set_num_threads(1)
 
 
@@ -202,19 +204,34 @@ def test_propagate_video_short_videos():
     dict(pallas_precision='bfloat16'), dict(neighbor_range=None),
     dict(with_first_neighbor=False)])
 def test_propagate_video_later_slices_raise(kw):
-    """The modes left for later slices raise. The dense tier's cases
-    (``backend='dense'``, ``with_first=False``, ``neighbor_range=None``,
-    ``with_first_neighbor=False``), refused before it was ported, now run
-    and match the JAX package (``tests/test_torch_dense.py`` covers them
-    in full); so does ``pallas_precision='bfloat16'`` since slice 8, here
-    on the default ``tiled`` backend, which ignores it in both packages
-    (``tests/test_torch_bf16_eval.py`` covers the Pallas paths)."""
+    """The modes once left for later slices now run and match the JAX
+    package. The dense tier's cases (``backend='dense'``,
+    ``with_first=False``, ``neighbor_range=None``,
+    ``with_first_neighbor=False``; ``tests/test_torch_dense.py`` covers
+    them in full); ``pallas_precision='bfloat16'`` since slice 8, here on
+    the default ``tiled`` backend, which ignores it in both packages
+    (``tests/test_torch_bf16_eval.py`` covers the Pallas paths); the
+    scan's ``pallas_extract='packed'`` and ``pallas_scores='bfloat16'``
+    since slice 10, against the JAX package's interpret-mode scan (every
+    query keeps >= k valid keys: from t = 1 frame 0 stands in two live
+    slots, each with >= 9 in-map keys of a corner's circle, against
+    top-10; ``tests/test_torch_local_attention_modes.py`` covers them in
+    full)."""
     feats, seg_first = _propagation_inputs(2, 4, 4, 5, 8, 2)
     cfg = torch_prop.PropagationConfig(**{'neighbor_range': 6, **kw})
     args = (torch.from_numpy(feats), torch.from_numpy(seg_first))
     if 'pallas_extract' in kw or 'pallas_scores' in kw:
-        with pytest.raises(NotImplementedError):
-            torch_prop.propagate_video(*args, None, cfg)
+        assert (_valid_keys(4, 5, 3, [1, 1]) >= cfg.topk).all()
+        ref = jax_prop.propagate_video(
+            jnp.asarray(feats), jnp.asarray(seg_first), None,
+            jax_prop.PropagationConfig(**dict(cfg._asdict(),
+                                              pallas_interpret=True,
+                                              pallas_tile=(4, 8))))
+        out = torch_prop.propagate_video(*args, None, cfg)
+        assert (np.argmax(np.asarray(ref), -1)
+                == np.argmax(out.numpy(), -1)).mean() == 1.0
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-5)
         return
     use_local = cfg.neighbor_range is not None and cfg.with_first_neighbor
     mask = None if cfg.neighbor_range is None or use_local else \

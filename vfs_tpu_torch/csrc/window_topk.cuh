@@ -101,6 +101,19 @@
 //   extraction), and every query with in-band candidates is merged: the
 //   same lists, more merges.
 //
+// Score keys. run<..., S> keys its lists by score_key<S>(score): the score
+// itself (Sel::Exact, every row's exact mode) or one of row 3's inexact
+// selections (pallas_attention.py's scores_dtype='bfloat16' and
+// extract_mode='packed'): Sel::Bf16 rounds the score to bf16 (round to
+// nearest even, as astype(bf16)); Sel::Packed quantises it to
+// rint(clip(s, -15, 15) * PACKED_SCALE), held as a float (JAX packs the
+// same integer into an int32 beside 0xFFFF - its flat key column; that
+// column runs in (slot, ky, kx) order, so the order key breaks its ties as
+// the pack does). The key is applied where a warp writes its scores to the
+// score buffer; the tau exit, the merges and better() then run unchanged
+// on it. JAX's pack wraps int32 at s >= 14.99977 (qs = 32768); at tau =
+// 0.07 with unit features |s| <= 14.29, and the key does not emulate it.
+//
 // Interface for the kernels that include it: run() leaves the tile's lists
 // in shared memory (lists()); the caller reads them after __syncthreads().
 // It returns the (query, key row) merges its warp ran, for a counter.
@@ -261,6 +274,22 @@ template <class K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+enum class Sel { Exact, Bf16, Packed };
+// fp32(65536 / 30), as JAX rounds pallas_attention.PACKED_SCALE
+constexpr float PACKED_SCALE = 0x1.111112p+11f;
+
+template <Sel S>
+__device__ __forceinline__ float score_key(float s) {
+  if constexpr (S == Sel::Bf16) {
+    return __bfloat162float(__float2bfloat16_rn(s));
+  } else if constexpr (S == Sel::Packed) {
+    // a plain multiply (no FMA contraction), rounded half to even
+    return rintf(__fmul_rn(fminf(fmaxf(s, -15.f), 15.f), PACKED_SCALE));
+  } else {
+    return s;
+  }
 }
 
 __device__ __forceinline__ bool better(float s, int o, float ts, int to) {
@@ -454,12 +483,13 @@ __device__ __forceinline__ int merge_row(int ky, int oj, bool twice, int y0,
 //
 // NP: passes per row group; NKR: key rows staged together, which share
 // each staged query chunk; EXIT: merge_row's check against the lists' last
-// entries. The block has threads(NP, NKR) >= QN threads; each warp
+// entries; S: the lists' score key (score_key). The block has threads(NP, NKR) >= QN threads; each warp
 // computes one (row group, pass, key row) of each group. The tile's lists
 // end in shared memory (lists()); the caller reads them after a
 // __syncthreads(). Returns the (query, key row) merges the calling warp
 // ran (the same in all its lanes).
-template <int NP, int NKR, bool EXIT = true, class T, class Bank>
+template <int NP, int NKR, bool EXIT = true, Sel S = Sel::Exact, class T,
+          class Bank>
 __device__ int run(const T* __restrict__ qframe, const Bank& bank, int y0,
                    int x0, const Geometry& g, float* smem) {
   constexpr int NT = threads(NP, NKR);
@@ -640,10 +670,10 @@ __device__ int run(const T* __restrict__ qframe, const Bank& bank, int y0,
             const int q = (4 * rg + m) * TW + 4 * xg + i;
             *reinterpret_cast<float4*>(sbuf + q * g.score_width +
                                        PASS_DX * pass + 4 * dg) =
-                make_float4(acc[m][i][0] * g.inv_tau,
-                            acc[m][i][1] * g.inv_tau,
-                            acc[m][i][2] * g.inv_tau,
-                            acc[m][i][3] * g.inv_tau);
+                make_float4(score_key<S>(acc[m][i][0] * g.inv_tau),
+                            score_key<S>(acc[m][i][1] * g.inv_tau),
+                            score_key<S>(acc[m][i][2] * g.inv_tau),
+                            score_key<S>(acc[m][i][3] * g.inv_tau));
           }
       }
       __syncthreads();
@@ -728,9 +758,9 @@ struct SlotBank {
 // part_s / part_o (F, h*w, topk); empty entries are (-inf, INT_MAX). A
 // block of an invalid slot returns at once (stage 2 skips the slot too).
 // COUNT: add the warps' (query, key row) merges to merge_count; the
-// uncounted instance carries no count.
-template <int NP, bool COUNT, class T, int NKR = key_rows(NP),
-          int NT = threads(NP, NKR)>
+// uncounted instance carries no count. S: the lists' score key.
+template <int NP, bool COUNT, class T, Sel S = Sel::Exact,
+          int NKR = key_rows(NP), int NT = threads(NP, NKR)>
 __global__ void __launch_bounds__(NT, 1)
     slot_kernel(const T* __restrict__ query, const T* __restrict__ bank,
                 const int* __restrict__ valid, float* __restrict__ part_s,
@@ -743,20 +773,20 @@ __global__ void __launch_bounds__(NT, 1)
   const int x0 = (blockIdx.x % g.tiles_x) * TW;
   const SlotBank<T> slot{bank + (size_t)f * g.h * g.w * g.C, f};
   float* smem = reinterpret_cast<float*>(smem4);
-  const int merged = run<NP, NKR>(query, slot, y0, x0, g, smem);
+  const int merged = run<NP, NKR, true, S>(query, slot, y0, x0, g, smem);
   __syncthreads();
   store_lists<NT>(lists(g, smem, NKR), f, y0, x0, g, part_s, part_o);
   if (COUNT && (threadIdx.x & 31) == 0)
     atomicAdd(merge_count, (unsigned long long)merged);
 }
 
-template <int NP, bool COUNT, class T>
+template <int NP, bool COUNT, Sel S, class T>
 cudaError_t launch_slots_np(const T* query, const T* bank, const int* valid,
                             float* part_s, int* part_o, int F,
                             const Geometry& g,
                             unsigned long long* merge_count,
                             cudaStream_t stream) {
-  auto kernel = slot_kernel<NP, COUNT, T>;
+  auto kernel = slot_kernel<NP, COUNT, T, S>;
   const size_t smem = smem_bytes(g, key_rows(NP));
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -767,25 +797,25 @@ cudaError_t launch_slots_np(const T* query, const T* bank, const int* valid,
 }
 
 // Launch stage 1 over F slots on stream, for g.r's passes; T is the
-// features' type (float or __nv_bfloat16).
-template <bool COUNT, class T>
+// features' type (float or __nv_bfloat16), S the lists' score key.
+template <bool COUNT, Sel S = Sel::Exact, class T>
 cudaError_t launch_slots(const T* query, const T* bank, const int* valid,
                          float* part_s, int* part_o, int F,
                          const Geometry& g, unsigned long long* merge_count,
                          cudaStream_t stream) {
   switch (passes(g.r)) {
-    case 1: return launch_slots_np<1, COUNT>(query, bank, valid, part_s,
-                                             part_o, F, g, merge_count,
-                                             stream);
-    case 2: return launch_slots_np<2, COUNT>(query, bank, valid, part_s,
-                                             part_o, F, g, merge_count,
-                                             stream);
-    case 3: return launch_slots_np<3, COUNT>(query, bank, valid, part_s,
-                                             part_o, F, g, merge_count,
-                                             stream);
-    default: return launch_slots_np<4, COUNT>(query, bank, valid, part_s,
-                                              part_o, F, g, merge_count,
-                                              stream);
+    case 1: return launch_slots_np<1, COUNT, S>(query, bank, valid, part_s,
+                                                part_o, F, g, merge_count,
+                                                stream);
+    case 2: return launch_slots_np<2, COUNT, S>(query, bank, valid, part_s,
+                                                part_o, F, g, merge_count,
+                                                stream);
+    case 3: return launch_slots_np<3, COUNT, S>(query, bank, valid, part_s,
+                                                part_o, F, g, merge_count,
+                                                stream);
+    default: return launch_slots_np<4, COUNT, S>(query, bank, valid, part_s,
+                                                 part_o, F, g, merge_count,
+                                                 stream);
   }
 }
 

@@ -21,11 +21,32 @@ padding and copy modes are not part of the contract; the results are:
   than ``k`` valid keys the rest are filler: score ``NEG_INF`` (softmax
   weight 0) and ``src`` = the query's own cell in slot 0.
 
+Two inexact modes of the TPU kernel select by a coarser key
+(``pallas_attention.py:46-83``, ``:314-340``, ``:553-568``):
+
+- ``scores='bfloat16'`` (``scores_dtype``): the scores rounded to bf16
+  (round to nearest even) are selected by and softmaxed, and returned.
+- ``extract='packed'`` (``extract_mode``): selection by the scores
+  quantised to ``round(clip(s, -15, 15) * 65536 / 30)`` (half to even),
+  ties to the lowest ``(slot, ky, kx)``; then the ``k`` picks are
+  re-scored exactly, and the softmax takes, and ``scores`` returns, the
+  exact scores (no longer sorted). JAX packs the quantised score and the
+  flat key index into one int32 and so refuses more than 65536 keys a
+  TPU tile; the port does not pack and has no such limit. JAX's pack
+  wraps at ``s >= 14.99977``, which unit features at ``temperature=0.07``
+  (``|s| <= 14.29``) never reach; the port does not emulate the wrap.
+  Where a query has fewer than ``k`` valid keys JAX's packed mode picks
+  masked keys at coordinates clipped in its tile layout; the port keeps
+  its filler.
+
+``extract='mask'`` and ``'descent'`` are exact (TPU layout choices).
+Packed with bf16 scores raises ``ValueError``, as in the JAX package.
+
 A CPU tensor takes the plain version, ``local_topk_attend_reference``; a
 CUDA tensor launches the hand-written kernel
-(``vfs_tpu_torch/csrc/local_topk_attend.cu``, its bf16 entry for bf16
-features) or raises. The plain version widens bf16 features to fp32 and
-runs the fp32 path, which gives the kernel's bf16 scores.
+(``vfs_tpu_torch/csrc/local_topk_attend.cu``: one entry per mode and
+feature type) or raises. The plain version widens bf16 features to fp32
+and runs the fp32 path, which gives the kernel's bf16 scores.
 """
 
 from __future__ import annotations
@@ -44,16 +65,50 @@ KERNEL_NAME = 'local_topk_attend'
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+SCORES = ('float32', 'bfloat16')
+EXTRACTS = ('mask', 'descent', 'packed')
+# pallas_attention.PACKED_SCALE; score_key rounds it to fp32 as JAX does
+PACKED_SCALE = 65536.0 / 30.0
+
+
+def check_mode(scores: str, extract: str) -> None:
+    """Raise ``ValueError`` on a mode the TPU kernel refuses."""
+    if extract not in EXTRACTS:
+        raise ValueError(f"extract must be 'mask', 'descent' or 'packed', "
+                         f'got {extract!r}')
+    if scores not in SCORES:
+        raise ValueError(f"scores must be 'float32' or 'bfloat16', got "
+                         f'{scores!r}')
+    if extract == 'packed' and scores != 'float32':
+        raise ValueError("extract='packed' requires scores='float32'")
+
+
+def score_key(s: torch.Tensor, scores: str, extract: str) -> torch.Tensor:
+    """The fp32 key the selection sorts by (window_topk.cuh's
+    ``score_key``): the score, its bf16 rounding, or its packed
+    quantisation held as a float."""
+    if extract == 'packed':
+        scale = torch.tensor(PACKED_SCALE, dtype=torch.float32,
+                             device=s.device)
+        return torch.round(torch.clamp(s, -15.0, 15.0) * scale)
+    if scores == 'bfloat16':
+        return s.to(torch.bfloat16).to(torch.float32)
+    return s
+
 
 def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
                                 bank_vals: torch.Tensor,
                                 bank_valid: torch.Tensor, radius: float,
-                                temperature: float, topk: int) -> Result:
+                                temperature: float, topk: int,
+                                scores: str = 'float32',
+                                extract: str = 'mask') -> Result:
     """Plain PyTorch version of the kernel: dense per-slot score matrices
     (fp32, bf16 features widened first; on CUDA call it under
     ``exact_fp32``), the window gathered in ``(slot, dy, dx)`` order,
-    selection by a stable descending sort (``torch.topk``'s tie order is
-    unspecified), softmax and the weighted sum of the gathered values."""
+    selection by a stable descending sort of the mode's key (``torch.topk``'s
+    tie order is unspecified), softmax and the weighted sum of the
+    gathered values. Packed re-scores its picks by a gathered dot."""
+    check_mode(scores, extract)
     query, bank_feats = query.float(), bank_feats.float()
     f_total, h, w, c = bank_feats.shape
     k_classes = bank_vals.shape[-1]
@@ -78,13 +133,18 @@ def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
         cand_src.append(f * hw + key_pos)
         ok.append(inb & valid[f])
     ok = torch.cat(ok, 1)
-    cand = torch.where(ok, torch.cat(cand, 1), neg)
+    cand = torch.where(ok, score_key(torch.cat(cand, 1), scores, extract),
+                       neg)
     order = torch.sort(cand, dim=1, descending=True,
                        stable=True).indices[:, :topk]
     sel_ok = ok.gather(1, order)
-    top_s = torch.where(sel_ok, cand.gather(1, order), neg)
     top_src = torch.where(sel_ok, torch.cat(cand_src, 1).gather(1, order),
                           own)
+    if extract == 'packed':
+        keys = bank_feats.reshape(f_total * hw, c)[top_src]  # (hw, k, C)
+        cand = (keys @ q[:, :, None])[..., 0] * inv_tau
+        order = torch.arange(topk, device=dev).expand(hw, topk)
+    top_s = torch.where(sel_ok, cand.gather(1, order), neg)
     weights = torch.softmax(top_s, dim=-1)
     vals = bank_vals.reshape(f_total * hw, k_classes)[top_src]
     out = (weights[..., None] * vals).sum(1)
@@ -92,13 +152,24 @@ def local_topk_attend_reference(query: torch.Tensor, bank_feats: torch.Tensor,
             top_src.view(h, w, topk))
 
 
+def entry_name(scores: str, extract: str, feat_dtype: torch.dtype) -> str:
+    """The C entry of a mode and feature type."""
+    mode = ('_packed' if extract == 'packed' else
+            '_scores_bf16' if scores == 'bfloat16' else '')
+    feat = '_bf16' if feat_dtype == torch.bfloat16 else ''
+    return f'vfs_local_topk_attend{mode}{feat}'
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
-    for fn in (lib.vfs_local_topk_attend, lib.vfs_local_topk_attend_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for scores, extract in (('float32', 'mask'), ('bfloat16', 'mask'),
+                            ('float32', 'packed')):
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = getattr(lib, entry_name(scores, extract, dtype))
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -143,12 +214,16 @@ def check_operands(query, bank_feats, bank_vals, bank_valid,
 def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                            bank_vals: torch.Tensor, bank_valid: torch.Tensor,
                            radius: float, temperature: float,
-                           topk: int) -> Result:
-    """Launch the CUDA kernel on ``query``'s device and current stream (its
-    bf16 entry for a bf16 query and bank). ``local_topk_attend_cuda
-    .launches`` counts the launches, ``.bf16_launches`` those of the bf16
-    entry. Raises on a radius or top-k the kernel does not take before
+                           topk: int, scores: str = 'float32',
+                           extract: str = 'mask') -> Result:
+    """Launch the CUDA kernel on ``query``'s device and current stream:
+    the entry of the mode and of the feature type (bf16 for a bf16 query
+    and bank). ``local_topk_attend_cuda.launches`` counts the launches,
+    ``.bf16_launches`` those with bf16 features, ``.scores_bf16_launches``
+    those with bf16 scores and ``.packed_launches`` the packed ones.
+    Raises on a mode, radius or top-k the kernel does not take before
     anything else."""
+    check_mode(scores, extract)
     plan = window_plan(radius, topk)
     check_operands(query, bank_feats, bank_vals, bank_valid,
                    (torch.float32, torch.bfloat16))
@@ -159,21 +234,19 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
     valid = bank_valid.to(torch.int32).contiguous()
     out = torch.empty((h, w, k_classes), dtype=torch.float32,
                       device=query.device)
-    scores = torch.empty((h, w, topk), dtype=torch.float32,
-                         device=query.device)
+    top_s = torch.empty((h, w, topk), dtype=torch.float32,
+                        device=query.device)
     src = torch.empty((h, w, topk), dtype=torch.int64, device=query.device)
     # scratch: each slot's top-k lists, merged by the kernel's second stage
     part_s = torch.empty((f_total, h, w, topk), dtype=torch.float32,
                          device=query.device)
     part_o = torch.empty((f_total, h, w, topk), dtype=torch.int32,
                          device=query.device)
-    lib = _library()
-    bf16 = query.dtype == torch.bfloat16
-    fn = lib.vfs_local_topk_attend_bf16 if bf16 else lib.vfs_local_topk_attend
+    fn = getattr(_library(), entry_name(scores, extract, query.dtype))
     with torch.cuda.device(query.device):
         err = fn(query.data_ptr(), bank_feats.data_ptr(),
                  bank_vals.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                 scores.data_ptr(), src.data_ptr(), part_s.data_ptr(),
+                 top_s.data_ptr(), src.data_ptr(), part_s.data_ptr(),
                  part_o.data_ptr(), f_total, h, w, c, k_classes,
                  *plan_args(plan), 1.0 / temperature, topk,
                  torch.cuda.current_stream().cuda_stream)
@@ -181,22 +254,26 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
         raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')
     local_topk_attend_cuda.launches += 1
-    local_topk_attend_cuda.bf16_launches += bf16
-    return out, scores, src
+    local_topk_attend_cuda.bf16_launches += query.dtype == torch.bfloat16
+    local_topk_attend_cuda.scores_bf16_launches += scores == 'bfloat16'
+    local_topk_attend_cuda.packed_launches += extract == 'packed'
+    return out, top_s, src
 
 
 local_topk_attend_cuda.launches = 0
 local_topk_attend_cuda.bf16_launches = 0
+local_topk_attend_cuda.scores_bf16_launches = 0
+local_topk_attend_cuda.packed_launches = 0
 
 
 def local_topk_attend(query: torch.Tensor, bank_feats: torch.Tensor,
                       bank_vals: torch.Tensor, bank_valid: torch.Tensor,
-                      radius: float, temperature: float, topk: int) -> Result:
+                      radius: float, temperature: float, topk: int,
+                      scores: str = 'float32',
+                      extract: str = 'mask') -> Result:
     """Masked top-k local attention (module docstring). CPU tensors take
     the plain version; CUDA tensors the kernel."""
-    if query.device.type == 'cpu':
-        return local_topk_attend_reference(query, bank_feats, bank_vals,
-                                           bank_valid, radius, temperature,
-                                           topk)
-    return local_topk_attend_cuda(query, bank_feats, bank_vals, bank_valid,
-                                  radius, temperature, topk)
+    fn = (local_topk_attend_reference if query.device.type == 'cpu'
+          else local_topk_attend_cuda)
+    return fn(query, bank_feats, bank_vals, bank_valid, radius, temperature,
+              topk, scores, extract)

@@ -21,7 +21,9 @@ every eval config of the repo takes:
 
 - the per-step scan (``backend='pallas'``): a frame loop over a bank of
   ``P + 1`` slots, each step one ``local_topk_attend`` (selection, softmax
-  and gather fused).
+  and gather fused), in the mode ``pallas_scores`` and ``pallas_extract``
+  give (the exact one by default; ``'bfloat16'`` scores and ``'packed'``
+  select by a coarser key, as the JAX package's scan does).
 
 The other configurations take the dense scan (``_propagate_video_dense``,
 plain PyTorch, as in the JAX package): the non-local masked path
@@ -42,7 +44,7 @@ import torch
 
 from .affinity import NEG_INF, l2_normalize, spatial_neighbor, \
     topk_first_index
-from .local_attention import local_topk_attend
+from .local_attention import check_mode, local_topk_attend
 from .video_affinity import video_topk_affinity
 from .video_affinity_v1 import video_topk_affinity_v1
 
@@ -60,11 +62,17 @@ class PropagationConfig(NamedTuple):
     ``video_extract`` (``'sweep'`` or ``'perframe'``, else ``ValueError``)
     and ``video_early_exit`` reach its kernel; an explicit
     ``video_bank_splits > 1`` with ``'perframe'`` raises ``ValueError``,
-    as in the JAX package. The rest are TPU layout keys, exact either way
-    in the JAX package, accepted here with no effect: ``pallas_tile``,
-    ``pallas_fetch``, ``pallas_store``, ``pallas_matmul``,
-    ``pallas_group_frames``, ``pallas_extract`` ``'mask'`` and
-    ``'descent'``, ``pallas_interpret``, ``tile``, ``video_bank_splits``,
+    as in the JAX package. With ``backend='pallas'``, ``pallas_scores``
+    (``'float32'`` or ``'bfloat16'``) and ``pallas_extract`` (``'mask'``,
+    ``'descent'`` or ``'packed'``) pick the scan kernel's mode
+    (``local_attention``'s ``scores`` and ``extract``; ``'mask'`` and
+    ``'descent'`` are both exact); other values, and ``'packed'`` with
+    ``'bfloat16'`` scores, raise ``ValueError`` as in the JAX package. The
+    other backends ignore them, as the JAX package's do. The rest are TPU
+    layout keys, exact either way in the JAX package, accepted here with
+    no effect: ``pallas_tile``, ``pallas_fetch``, ``pallas_store``,
+    ``pallas_matmul``, ``pallas_group_frames``, ``pallas_interpret``,
+    ``tile``, ``video_bank_splits``,
     ``video_sweep_rows``, ``video_pass_mode``, ``video_qpair`` and
     ``video_compact``. ``pallas_precision`` (``'float32'`` or
     ``'bfloat16'``) sets the feature type of the ``'pallas'`` and
@@ -103,9 +111,8 @@ PALLAS_BACKENDS = ('pallas', 'pallas_video')
 
 
 def _check_supported(cfg: PropagationConfig) -> None:
-    """Raise ``NotImplementedError`` for the modes a later slice of the
-    port brings (see ROADMAP.md), ``ValueError`` for an unknown backend
-    or feature type."""
+    """Raise ``ValueError`` for an unknown backend, feature type or scan
+    kernel mode."""
     if cfg.backend not in ('pallas', 'pallas_video', 'tiled', 'dense'):
         raise ValueError(f'unknown backend {cfg.backend!r}; use '
                          "'pallas', 'pallas_video', 'tiled' or 'dense'")
@@ -113,11 +120,8 @@ def _check_supported(cfg: PropagationConfig) -> None:
             'float32', 'bfloat16'):
         raise ValueError("pallas_precision must be 'float32' or "
                          f"'bfloat16', got {cfg.pallas_precision!r}")
-    if cfg.backend == 'pallas' and (cfg.pallas_extract == 'packed'
-                                    or cfg.pallas_scores != 'float32'):
-        raise NotImplementedError(
-            "pallas_extract='packed' and pallas_scores='bfloat16' (inexact "
-            'selection) are ported in a later slice')
+    if cfg.backend == 'pallas':
+        check_mode(cfg.pallas_scores, cfg.pallas_extract)
 
 
 def propagate_labels(scores: torch.Tensor, src: torch.Tensor,
@@ -217,7 +221,8 @@ def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
     radius = float(cfg.neighbor_range // 2)
     for t in range(1, t_total):
         seg = local_topk_attend(feats[t], bank_feats, bank_vals, valid[t],
-                                radius, cfg.temperature, cfg.topk)[0]
+                                radius, cfg.temperature, cfg.topk,
+                                cfg.pallas_scores, cfg.pallas_extract)[0]
         slot = 1 + t % p
         bank_feats[slot] = feats[t]
         bank_vals[slot] = seg
