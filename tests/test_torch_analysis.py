@@ -146,3 +146,113 @@ def test_analyze_logs_plot_without_matplotlib_raises(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, 'matplotlib', None)
     with pytest.raises(RuntimeError, match='matplotlib'):
         analyze_logs.main(['plot_curve', log])
+
+
+def _jax_bench_pretrain():
+    sys.path.insert(0, ROOT)
+    from tools.analysis import bench_pretrain as jax_tool
+    return jax_tool
+
+
+def test_bench_pretrain_defaults_equal_jax(monkeypatch):
+    """Every option the JAX tool has defaults as it does there:
+    ``--video-frames`` 100, ``--video-hw`` 256 340, ``--staging`` 256 320."""
+    from vfs_tpu_torch.tools.analysis import bench_pretrain
+    monkeypatch.setattr(sys, 'argv', ['bench_pretrain.py'])
+    ref = vars(_jax_bench_pretrain().parse_args())
+    ours = vars(bench_pretrain.parse_args([]))
+    assert set(ref) <= set(ours)
+    for key, value in ref.items():
+        if key == 'config':
+            assert osp.samefile(ours[key], value)
+        else:
+            assert tuple(np.atleast_1d(ours[key])) == \
+                tuple(np.atleast_1d(value)), key
+    assert ours['video_frames'] == 100 and ours['device_aug'] is False
+    assert tuple(ours['staging']) == (256, 320)
+    assert tuple(ours['video_hw']) == (256, 340)
+
+
+@pytest.mark.parametrize('config', [
+    'configs/r18_nc_sgd_cos_100e_r2_1xNx8_k400.py',
+    'configs/r18_sgd_cos_100e_r2_1xNx8_k400.py',
+    'configs/r18_sgd_cos_100e_r2_1xNx8_k400_deviceaug.py',
+    'misordered',
+])
+def test_split_device_aug_pipeline_equals_jax(config):
+    """The host/device split of a train pipeline equals the JAX tool's: the
+    r18 host-aug configs (geometric only, and with the photometric
+    chain), the ``_deviceaug`` config (already split: as it is, no device
+    part), and a pipeline with a host-only step after device steps, which
+    both refuse (tests/test_ops/test_device_aug.py:327-355)."""
+    from vfs_tpu_torch.tools.analysis.bench_pretrain import \
+        split_device_aug_pipeline
+    jax_split = _jax_bench_pretrain().split_device_aug_pipeline
+    if config == 'misordered':
+        pipe = [dict(type='DecordInit'), dict(type='DecordDecode'),
+                dict(type='Resize', scale=(-1, 256), keep_ratio=True),
+                dict(type='RandomResizedCrop'),
+                dict(type='Resize', scale=(224, 224), keep_ratio=False),
+                dict(type='Flip', flip_ratio=0.5),
+                dict(type='RandomErasing'),
+                dict(type='Normalize', mean=[0] * 3, std=[1] * 3)]
+        for split in (jax_split, split_device_aug_pipeline):
+            with pytest.raises(ValueError, match='RandomErasing'):
+                split(pipe, (256, 320))
+        host, device = split_device_aug_pipeline(pipe[:6], (256, 320))
+        assert [t['type'] for t in host] == [
+            'DecordInit', 'DecordDecode', 'Resize', 'DeviceAug', 'Collect']
+        assert host[2]['keep_ratio'] is True
+        assert [t['type'] for t in device] == ['RandomResizedCrop', 'Resize',
+                                               'Flip']
+        return
+    cfg = JaxConfig.fromfile(osp.join(ROOT, config))
+    train = cfg.data['train']
+    pipe = [dict(t) for t in train.get('dataset', train)['pipeline']]
+    ours = split_device_aug_pipeline(pipe, (240, 300))
+    ref = jax_split(pipe, (240, 300))
+    assert ours == ref
+    if 'deviceaug' in config:
+        assert ours[1] is None and ours[0] == pipe
+    else:
+        assert ours[0][-2] == dict(type='DeviceAug', scale=(300, 240))
+        assert [t['type'] for t in ours[1]][:3] == [
+            'RandomResizedCrop', 'Resize', 'Flip']
+
+
+def test_bench_pretrain_device_aug_on_the_cpu(tmp_path, capsys):
+    """``--device-aug --device cpu``: the r18 train pipeline at a test size
+    split at its crop, 24x32 staging frames cropped to 32x32 in the step,
+    two steps; the three rates come out and the line names the clips'
+    container."""
+    from test_torch_train_data import NORM, train_pipeline
+    from test_torch_train_step import MODEL_CFG, TRAIN_CFG
+    from vfs_tpu_torch.tools.analysis import bench_pretrain
+    from vfs_tpu_torch.tools.analysis.fixtures import clip_format, write_k400
+    data = tmp_path / 'k400'
+    data.mkdir()
+    ann = write_k400(str(data), 2, 4, (48, 64))
+    cfg = dict(model=MODEL_CFG, train_cfg=TRAIN_CFG, seed=0,
+               img_norm_cfg=dict(NORM),
+               data=dict(videos_per_gpu=2, workers_per_gpu=0,
+                         train=dict(type='VideoDataset', ann_file=ann,
+                                    data_prefix=str(data),
+                                    pipeline=train_pipeline(
+                                        'DecordInit', 'DecordDecode'))),
+               optimizer=dict(type='SGD', lr=0.05, momentum=0.9,
+                              weight_decay=1e-4),
+               lr_config=dict(policy='CosineAnnealing', min_lr=0,
+                              by_epoch=False))
+    config = tmp_path / 'cfg.py'
+    config.write_text(''.join(f'{k} = {v!r}\n' for k, v in cfg.items()))
+    res = bench_pretrain.main([str(config), '--device', 'cpu', '--steps',
+                               '2', '--data-dir', str(data), '--device-aug',
+                               '--staging', '24', '32'])
+    for key in ('loader_samples_per_s', 'device_steps_per_s',
+                'e2e_steps_per_s'):
+        assert res[key] > 0, key
+    assert res['device_aug'] is True
+    assert res['container'] == clip_format(str(tmp_path))[0] == 'mp4'
+    out = capsys.readouterr().out
+    assert 'device-aug: 3 transforms' in out and '(32, 32)' in out
+    assert f'clips: mp4 in {data}' in out

@@ -75,14 +75,17 @@ def test_bench_pretrain(train_config, capsys):
     assert 'loader-only' in out and 'end-to-end' in out
 
 
-def test_bench_pretrain_refuses_device_aug_configs():
-    """The JAX tool's --device-aug is not ported: the _deviceaug config
-    raises before any work."""
+def test_bench_pretrain_refuses_device_aug_configs(tmp_path):
+    """A config whose augmentations run on the device (the _deviceaug
+    config) needs ``--device-aug``: without it the tool raises once the
+    clips are there, before any loader or step work."""
     config = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
                       'configs',
                       'r18_sgd_cos_100e_r2_1xNx8_k400_deviceaug.py')
-    with pytest.raises(NotImplementedError, match='device_aug'):
-        bench_pretrain.main([config, '--device', 'cpu'])
+    with pytest.raises(ValueError, match='--device-aug'):
+        bench_pretrain.main([config, '--device', 'cpu', '--num-videos', '1',
+                             '--video-frames', '2', '--video-hw', '32', '48',
+                             '--data-dir', str(tmp_path)])
 
 
 def test_bench_track_modes_agree(tmp_path, capsys):

@@ -65,6 +65,10 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.ops.attention',
              'vfs_tpu_torch.utils.wandb_logger',
              'vfs_tpu_torch.tools.learning_loop', 'vfs_tpu_torch.ops.yuv',
+             'vfs_tpu_torch.tools.demo', 'vfs_tpu_torch.tools.publish_model',
+             'vfs_tpu_torch.tools.convert_to_pretrained',
+             'vfs_tpu_torch.tools.data.build_rawframes',
+             'vfs_tpu_torch.datasets.native_loader',
              *(f'vfs_tpu_torch.tools.analysis.{m}' for m in (
                  'bench_kernel', 'profile_kernel', 'bench_extract',
                  'benchmark', 'get_flops', 'bench_processing',
@@ -179,9 +183,11 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
 
 
 def test_eval_loop_raises_for_later_slices():
-    """The native decoders stay unported and raise (ROADMAP Queue 1 item
-    5). Eval over several devices and processes, refused before slice 8
-    ported it, runs: on an empty dataset it returns nothing, after
+    """Recognition metrics come with a later slice and raise naming ROADMAP
+    Queue 1 item 7. The native decoders, refused before slice 11 ported
+    them, build at their first decode: their steps construct without a
+    compiler. Eval over several devices and processes, refused before
+    slice 8 ported it, runs: on an empty dataset it returns nothing, after
     replicating the weights per device, without a process group."""
     from vfs_tpu_torch.apis import multi_process_test, single_process_test
 
@@ -194,8 +200,10 @@ def test_eval_loop_raises_for_later_slices():
     assert single_process_test(tracker, [], devices=['cpu', 'cpu']) == []
     assert tracker.devices == ['cpu', 'cpu']
     assert multi_process_test(tracker, [], device='cpu') == []
+    from vfs_tpu_torch.datasets import VideoDataset
     from vfs_tpu_torch.datasets.pipelines import (RawFrameDecode,
                                                   RawFrameDecodeYUV420)
     for cls in (RawFrameDecode, RawFrameDecodeYUV420):
-        with pytest.raises(NotImplementedError, match='item 5'):
-            cls(decoding_backend='native')
+        assert cls(decoding_backend='native').decoding_backend == 'native'
+    with pytest.raises(NotImplementedError, match='item 7'):
+        VideoDataset.evaluate(None, [])

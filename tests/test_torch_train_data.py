@@ -147,8 +147,8 @@ def test_random_transforms_match_jax(cfg):
 @pytest.mark.parametrize('init,decode', [('OpenCVInit', 'OpenCVDecode'),
                                          ('DecordInit', 'DecordDecode')])
 def test_video_decoders_match_jax(videos, init, decode):
-    """The port decodes with cv2 under both names; the JAX package's decord
-    names take its native FFmpeg decoder here, with equal frames."""
+    """Both packages decode with cv2 under the OpenCV names and with their
+    native FFmpeg decoders under the decord names, with equal frames."""
     path = osp.join(osp.dirname(videos), 'vid1.mp4')
     inds = np.array([0, 5, 5, 11, 3, 40])  # past the end: the last frame
     outs = []

@@ -4,14 +4,15 @@ from .augmentations import (ColorJitter, DeviceAug, Flip, Normalize,
 from .compose import Compose
 from .formating import Collect, FormatShape, ToTensor
 from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
-                      OpenCVDecode, OpenCVInit, RawFrameDecode,
-                      RawFrameDecodeYUV420, SampleFrames,
-                      SequentialSampleFrames)
+                      FrameSelector, OpenCVDecode, OpenCVInit, PyAVDecode,
+                      PyAVInit, RawFrameDecode, RawFrameDecodeYUV420,
+                      SampleFrames, SequentialSampleFrames)
 
 __all__ = [
     'ColorJitter', 'DeviceAug', 'Flip', 'Normalize', 'RandomGaussianBlur',
     'RandomGrayScale', 'RandomResizedCrop', 'Resize', 'Compose', 'Collect',
     'FormatShape', 'ToTensor', 'Clip2Frame', 'DecordDecode', 'DecordInit',
-    'Frame2Clip', 'OpenCVDecode', 'OpenCVInit', 'RawFrameDecode',
+    'Frame2Clip', 'FrameSelector', 'OpenCVDecode', 'OpenCVInit',
+    'PyAVDecode', 'PyAVInit', 'RawFrameDecode',
     'RawFrameDecodeYUV420', 'SampleFrames', 'SequentialSampleFrames'
 ]

@@ -1,5 +1,6 @@
-"""Frame samplers and decoders (host-side numpy, cv2 and PIL; counterpart
-of ``vfs_tpu/datasets/pipelines/loading.py``, reference:
+"""Frame samplers and decoders (host-side numpy, cv2, PIL and the native
+libjpeg / FFmpeg decoders of ``datasets.native_loader``; counterpart of
+``vfs_tpu/datasets/pipelines/loading.py``, reference:
 mmaction/datasets/pipelines/loading.py). The train samplers draw from
 ``np.random`` in the JAX package's order, so equal seeds give equal
 frames."""
@@ -214,58 +215,102 @@ class OpenCVDecode:
 
 @PIPELINES.register_module()
 class DecordInit(OpenCVInit):
-    """The reference's decord init, on cv2 (the JAX package's native
-    FFmpeg decoder is not part of the port; its cv2 fallback is)."""
+    """The reference's decord init (loading.py:801-838) on the native
+    FFmpeg decoder (``datasets.native_loader``): container metadata only,
+    no handle kept open, so loader processes share no decoder state. The
+    reader is ``('native', filename, (h, w))``, with ``total_frames`` and
+    ``avg_fps`` from the probe. Where the decoder cannot build or probe
+    the file, the cv2 reader of ``OpenCVInit``."""
 
     def __init__(self, io_backend='disk', num_threads=1, **kwargs):
         super().__init__(io_backend=io_backend)
         self.num_threads = num_threads
 
+    def __call__(self, results):
+        from ..native_loader import probe_video
+        probed = probe_video(results['filename'])
+        if probed is None:
+            return super().__call__(results)
+        num_frames, height, width, fps = probed
+        results['video_reader'] = ('native', results['filename'],
+                                   (height, width))
+        results['total_frames'] = num_frames
+        results['avg_fps'] = fps
+        return results
+
 
 @PIPELINES.register_module()
 class DecordDecode(OpenCVDecode):
-    """The reference's decord decode, on cv2 (see ``DecordInit``)."""
+    """The reference's decord ``get_batch`` (loading.py:840-880) on the
+    native decoder: each unique index decoded once after a keyframe seek,
+    gathered back to the sampled order. ``IOError`` if the native decode
+    fails after a native init; the cv2 decode of ``OpenCVDecode`` after a
+    cv2 init."""
+
+    def __call__(self, results):
+        reader = results.get('video_reader')
+        if not (isinstance(reader, tuple) and reader[0] == 'native'):
+            return super().__call__(results)
+        from ..native_loader import decode_video_indices
+        frame_inds = np.asarray(results['frame_inds']).reshape(-1)
+        batch = decode_video_indices(reader[1], frame_inds, out_hw=reader[2])
+        if batch is None:
+            raise IOError(f'native decode failed for {reader[1]}')
+        results['video_reader'] = None
+        results['imgs'] = list(batch)
+        results['original_shape'] = batch.shape[1:3]
+        results['img_shape'] = batch.shape[1:3]
+        return results
 
 
 @PIPELINES.register_module()
 class RawFrameDecode:
-    """Load frames from a directory of JPEGs with cv2; also loads the
-    first-frame annotation into ``ref_seg_map`` (reference
-    loading.py:977-1069): a palette PNG (``seg_map``, read with PIL), or,
-    for JHMDB, ``(H, W, num_joints)`` float32 gaussian label maps drawn at
-    the joints ``pose_coord`` ``(2, num_joints)`` with ``sigma``.
+    """Load frames from a directory of JPEGs; also loads the first-frame
+    annotation into ``ref_seg_map`` (reference loading.py:977-1069): a
+    palette PNG (``seg_map``, read with PIL), or, for JHMDB, ``(H, W,
+    num_joints)`` float32 gaussian label maps drawn at the joints
+    ``pose_coord`` ``(2, num_joints)`` with ``sigma``.
 
-    ``decoding_backend='native'`` (the JAX package's C++ libjpeg pool,
-    built against libjpeg and FFmpeg development libraries that the card's
-    machine is not known to have) raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 5)."""
+    ``decoding_backend='native'`` decodes with the threaded libjpeg
+    library of ``datasets.native_loader`` (``num_threads`` threads, the
+    GIL released); it takes cv2's path for other files than ``.jpg`` /
+    ``.jpeg`` and where the library is unavailable. Any other backend
+    decodes with cv2, as in the JAX package."""
 
-    def __init__(self, io_backend='disk', decoding_backend='cv2', **kwargs):
+    def __init__(self, io_backend='disk', decoding_backend='cv2',
+                 num_threads=8, **kwargs):
         assert io_backend == 'disk'
-        if decoding_backend != 'cv2':
-            raise NotImplementedError(
-                f'decoding_backend={decoding_backend!r} is not ported '
-                "(ROADMAP Queue 1 item 5); use 'cv2'")
+        self.decoding_backend = decoding_backend
+        self.num_threads = num_threads
 
     @staticmethod
-    def _decode_rgb(results):
-        """The sampled frames as a list of (H, W, 3) uint8 RGB arrays."""
-        import cv2
+    def _paths(results):
+        """The sampled frames' file paths."""
         directory = results['frame_dir']
-        filename_tmpl = results['filename_tmpl']
         offset = results.get('offset', 0)
         frame_inds = results['frame_inds']
         if frame_inds.ndim != 1:
             frame_inds = np.squeeze(frame_inds)
-        imgs = []
+        paths = []
         for frame_idx in frame_inds:
             frame_idx = int(frame_idx) + offset
             if 'frame_list' in results:
-                filepath = osp.join(directory,
-                                    results['frame_list'][frame_idx])
+                paths.append(osp.join(directory,
+                                      results['frame_list'][frame_idx]))
             else:
-                filepath = osp.join(directory,
-                                    filename_tmpl.format(frame_idx))
+                paths.append(osp.join(
+                    directory, results['filename_tmpl'].format(frame_idx)))
+        return paths
+
+    def _native(self, paths):
+        return (self.decoding_backend == 'native' and paths
+                and paths[0].lower().endswith(('.jpg', '.jpeg')))
+
+    @staticmethod
+    def _decode_cv2(paths):
+        import cv2
+        imgs = []
+        for filepath in paths:
             img = cv2.imread(filepath, cv2.IMREAD_COLOR)
             if img is None:
                 raise IOError(f'cannot read frame {filepath}')
@@ -273,7 +318,15 @@ class RawFrameDecode:
         return imgs
 
     def __call__(self, results):
-        imgs = self._decode_rgb(results)
+        paths = self._paths(results)
+        imgs = None
+        if self._native(paths):
+            from ..native_loader import decode_jpeg_batch
+            batch = decode_jpeg_batch(paths, num_threads=self.num_threads)
+            if batch is not None:
+                imgs = list(batch)
+        if imgs is None:
+            imgs = self._decode_cv2(paths)
         results['imgs'] = imgs
         results['original_shape'] = imgs[0].shape[:2]
         results['img_shape'] = imgs[0].shape[:2]
@@ -308,34 +361,41 @@ class RawFrameDecode:
 
 @PIPELINES.register_module()
 class RawFrameDecodeYUV420(RawFrameDecode):
-    """Decode JPEG rawframes and pack them to flat planar I420, a
-    ``Yuv420Frames`` (studio swing, 1.5 bytes a pixel), for
-    ``test_cfg.input_format='yuv420'`` (counterpart of the JAX class,
-    ``vfs_tpu/datasets/pipelines/loading.py:359-420``). The eval path of
-    videos already at their size: the card unpacks and normalises
-    (``VanillaTracker.preload`` ships the array as it is), so ``mean`` /
-    ``std`` take the host ``Normalize``'s place and no geometric transform
-    may follow.
+    """Decode JPEG rawframes to flat planar I420, a ``Yuv420Frames`` (1.5
+    bytes a pixel), for ``test_cfg.input_format='yuv420'`` (counterpart of
+    the JAX class, ``vfs_tpu/datasets/pipelines/loading.py:359-420``). The
+    eval path of videos already at their size: the card unpacks and
+    normalises (``VanillaTracker.preload`` ships the array as it is), so
+    ``mean`` / ``std`` take the host ``Normalize``'s place and no
+    geometric transform may follow.
 
-    ``decoding_backend='cv2'`` (the default) decodes with cv2 and packs
-    with ``ops.yuv.rgb_to_yuv420``. ``'native'`` (the JAX package's libjpeg
-    decoder straight to planes) raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 5) instead of falling back quietly; the native decoder's
-    ``num_threads`` is accepted and not read."""
+    ``decoding_backend='native'`` (the default, as in the JAX package)
+    reads the files' own YCbCr 4:2:0 planes with libjpeg, convention
+    ``'jpeg'`` (full range). Where the library is unavailable, and with
+    any other backend, cv2 decodes RGB and ``ops.yuv.rgb_to_yuv420``
+    packs it, convention ``'studio'``."""
 
-    def __init__(self, io_backend='disk', decoding_backend='cv2',
-                 mean=(123.675, 116.28, 103.53),
+    def __init__(self, io_backend='disk', decoding_backend='native',
+                 num_threads=8, mean=(123.675, 116.28, 103.53),
                  std=(58.395, 57.12, 57.375), **kwargs):
         super().__init__(io_backend=io_backend,
-                         decoding_backend=decoding_backend, **kwargs)
+                         decoding_backend=decoding_backend,
+                         num_threads=num_threads, **kwargs)
         self.mean = np.array(mean, dtype=np.float32)
         self.std = np.array(std, dtype=np.float32)
 
     def __call__(self, results):
         from ...ops.yuv import Yuv420Frames, rgb_to_yuv420
-        rgb = np.stack(self._decode_rgb(results))
-        packed = Yuv420Frames(rgb_to_yuv420(rgb), rgb.shape[1:3],
-                              convention='studio')
+        paths = self._paths(results)
+        packed = None
+        if self._native(paths):
+            from ..native_loader import decode_jpeg_batch_yuv420
+            packed = decode_jpeg_batch_yuv420(paths,
+                                              num_threads=self.num_threads)
+        if packed is None:
+            rgb = np.stack(self._decode_cv2(paths))
+            packed = Yuv420Frames(rgb_to_yuv420(rgb), rgb.shape[1:3],
+                                  convention='studio')
         results['imgs'] = packed
         results['original_shape'] = packed.hw
         results['img_shape'] = packed.hw
@@ -365,3 +425,21 @@ def draw_label_map(img, pt, sigma):
     img[img_y[0]:img_y[1], img_x[0]:img_x[1]] = \
         g[g_y[0]:g_y[1], g_x[0]:g_x[1]]
     return img
+
+
+# the reference's deprecated alias (loading.py:1164) and its PyAV names
+# (loading.py:697-800): as in the JAX package, PyAV maps onto the native
+# FFmpeg path, so they need no ``av``
+@PIPELINES.register_module()
+class FrameSelector(RawFrameDecode):
+    pass
+
+
+@PIPELINES.register_module()
+class PyAVInit(DecordInit):
+    pass
+
+
+@PIPELINES.register_module()
+class PyAVDecode(DecordDecode):
+    pass

@@ -1,5 +1,7 @@
 from .norm import BatchNorm1d, BatchNorm2d, set_sync_group
-from .utils import flax_default_init, normalize_logit
+from .utils import (clamp, flax_default_init, images2video, mean_list,
+                    normalize_logit, unmap, video2images)
 
-__all__ = ['BatchNorm1d', 'BatchNorm2d', 'flax_default_init',
-           'normalize_logit', 'set_sync_group']
+__all__ = ['BatchNorm1d', 'BatchNorm2d', 'clamp', 'flax_default_init',
+           'images2video', 'mean_list', 'normalize_logit', 'set_sync_group',
+           'unmap', 'video2images']

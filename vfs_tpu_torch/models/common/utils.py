@@ -1,4 +1,7 @@
-"""Tensor helpers (counterpart of ``vfs_tpu/models/common/utils.py``)."""
+"""Tensor helpers (counterpart of ``vfs_tpu/models/common/utils.py``;
+reference: mmaction/models/common/utils.py). Videos are channels-last
+``(N, T, H, W, C)`` and images ``(N, H, W, C)``, as in the JAX package,
+so clip <-> image reshapes are plain reshapes."""
 
 from __future__ import annotations
 
@@ -7,6 +10,43 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+
+def video2images(imgs: torch.Tensor) -> torch.Tensor:
+    """(N, T, H, W, C) -> (N*T, H, W, C)."""
+    n, t = imgs.shape[:2]
+    return imgs.reshape(n * t, *imgs.shape[2:])
+
+
+def images2video(imgs: torch.Tensor, clip_len: int) -> torch.Tensor:
+    """(N*T, H, W, C) -> (N, T, H, W, C)."""
+    return imgs.reshape(imgs.shape[0] // clip_len, clip_len, *imgs.shape[1:])
+
+
+def mean_list(tensors):
+    """The mean of a list of tensors, summed in list order."""
+    out = tensors[0]
+    for t in tensors[1:]:
+        out = out + t
+    return out / len(tensors)
+
+
+def unmap(data: torch.Tensor, count: int, inds: torch.Tensor,
+          fill=0) -> torch.Tensor:
+    """Scatter a subset back to the original item count (reference
+    common/utils.py:105-116): ``inds`` is a mask of length ``count``; the
+    rows of ``data`` land at its true positions, the rest is ``fill``."""
+    full = torch.full((count,) + tuple(data.shape[1:]), fill,
+                      dtype=data.dtype, device=data.device)
+    full[torch.nonzero(torch.as_tensor(inds).bool(), as_tuple=True)[0]] = data
+    return full
+
+
+def clamp(x: torch.Tensor, min=None, max=None) -> torch.Tensor:
+    """The reference's ``Clamp`` module (common/utils.py:170-189) as a
+    function: ``torch.clamp`` with at least one bound."""
+    assert min is not None or max is not None
+    return torch.clamp(x, min, max)
 
 
 def normalize_logit(seg_logit: torch.Tensor) -> torch.Tensor:

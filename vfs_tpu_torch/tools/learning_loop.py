@@ -201,6 +201,7 @@ def pretrain(work_dir, train_ann, total_epochs=24, repeat=4, batch=8,
     from ..datasets import build_dataset
     from ..models import build_model
     from ..utils import Config
+    from .convert_to_pretrained import state_to_torchvision
 
     dataset = build_dataset(dict(
         type='RepeatDataset', times=repeat,
@@ -224,12 +225,8 @@ def pretrain(work_dir, train_ann, total_epochs=24, repeat=4, batch=8,
              img_head=dict(HEAD_CFG)),
         train_cfg=dict(intra_video=True))
     state = train_model(model, dataset, cfg, device=device)
-    # the port's backbone keys are torchvision's already
-    sd = {k: v.detach().cpu() for k, v in
-          state.model.backbone.state_dict().items()
-          if not k.endswith('num_batches_tracked')}
     pth = osp.join(work_dir, 'pretrained_tv.pth')
-    torch.save(sd, pth)
+    torch.save(state_to_torchvision(state.model.state_dict()), pth)
     return pth
 
 
