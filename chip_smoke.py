@@ -217,7 +217,33 @@ Phases, one JSON line each on stdout:
    ``benchmark``, ``bench_pretrain`` (5 steps on 16-frame clips), again
    with ``--device-aug`` on the ``_deviceaug`` config (slice 11), and
    ``analyze_logs``.
-14. kernels: every kernel with its launches on its path, times, bound
+14. recognition: slice 12's path, action recognition (ROADMAP item 7a),
+   four lines (``part``). ``train_tsm_r50``: MMAction2 v0.6.0's TSM-R50
+   1x1x8 Kinetics-400 recipe at full width (``tsm_r50_cfg``: ResNet-50
+   with the temporal shift, 8 segments, 400 classes, 8 videos of 8
+   224x224 segments a step, the TSM optimizer's groups) with seeded
+   weights, through ``apis.train.train_model`` in exact fp32 for one
+   epoch on the train phase's ``K400_CLIPS`` clips and the recognition
+   pipeline (``RECOG_WORKERS`` loader processes): losses finite, the
+   first near ln 400, the fc_lr5 group present, ``epoch_1`` written;
+   steps/s end to end (the first step left out); the device-only step
+   (median of ``RECOG_TIMED_STEPS`` CUDA-event-timed steps on a batch on
+   the card), its peak memory, ``train_mfu`` (``get_flops``' forward
+   FLOPs, 2 a multiply-add, x3 for the step, x2 for the stem) and
+   ``device_breakdown``. ``forward_3d``: one 32x224x224 clip through
+   I3D-R50 and SlowFast-R50 4x16 (``I3D_R50``, ``SLOWFAST_R50``; seeded
+   weights): probabilities summing to 1, ms and clips/s. ``card_vs_cpu``:
+   every recognition backbone of the slice (``RECOG_GATES``: TSM r50 and
+   with non-local blocks, TIN, I3D with non-local blocks, SlowOnly,
+   SlowFast, R(2+1)D, ip-CSN, AlexNet V1-V3) in a recognizer at a small
+   size, its eval scores and one train step on the card and on the CPU
+   (the train phase's rule below). ``tools``: ``tools.demo_recognition``
+   on one clip with the trained checkpoint, and
+   ``tools.analysis.report_accuracy`` over two score files (centre crops
+   and their flips of every clip, each scored by
+   ``VideoDataset.evaluate``). None of the four hand-written kernels may
+   launch in the phase.
+15. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
    path's, the demo's, the train phase's eval hook's, the learning loop's
    and the bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
@@ -226,8 +252,9 @@ Phases, one JSON line each on stdout:
    the eval path, numbers of phase 3), whose launches add to its own. (The
    full lines also give the share of the computed pairs the function
    needs, from the core's pass rule. Times of an earlier checkout come
-   from ``ab_kernels.py``, which runs both checkouts in one call.) A
-   ``total`` line before it gives the script's seconds.
+   from ``ab_kernels.py``, which runs both checkouts in one call.) Its
+   ``paths_without_kernels`` names the recognition path, which launches
+   none. A ``total`` line before it gives the script's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -287,6 +314,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -3970,6 +3998,535 @@ def phase_analysis(dev, smi_line):
     emit({'phase': 'analysis', 'seconds': out['seconds']})
 
 
+# slice 12's recognition path (module docstring, phase 14): MMAction2
+# v0.6.0's TSM-R50 1x1x8 Kinetics-400 recipe at full width (8 videos of 8
+# 224x224 segments a step), trained for one epoch on the train phase's
+# K400_CLIPS clips; the device-only step over RECOG_TIMED_STEPS after
+# RECOG_WARMUP_STEPS; one 32x224x224 clip through I3D-R50 and
+# SlowFast-R50 4x16; every recognition backbone's card-vs-CPU gate at a
+# small size (the train phase's tolerances); the demo and the report
+RECOG_BATCH, RECOG_SEGMENTS, RECOG_CROP, RECOG_CLIP_FRAMES = 8, 8, 224, 32
+RECOG_WORKERS = 4
+# the train epoch: RECOG_REPEAT passes over the clips; its end-to-end rate
+# over the last RECOG_E2E_STEPS steps, once the batches that the loader
+# built during the first step's start-up are used up
+RECOG_REPEAT, RECOG_E2E_STEPS = 4, 8
+RECOG_TIMED_STEPS, RECOG_WARMUP_STEPS = 5, 2
+RECOG_NORM = dict(mean=[123.675, 116.28, 103.53],
+                  std=[58.395, 57.12, 57.375], to_bgr=False)
+RECOG_LABELS = 10  # names in the demo's label file: the rest are padded
+
+
+# the fp32 gradients of a net with depthwise 3-D convolutions (ip-CSN's
+# ``conv2_dw``), which take ATen's own kernels on the card (no cuDNN path)
+# forward and backward: against the CPU's fp64 step they read 1.36e-3 in
+# relative L2 on the card (the worst), 6.3e-5 on the CPU, the depthwise
+# weights' own 4.4e-4 and 5.1e-5 (H100 80GB HBM3, 700 W); held at about
+# 7x the card's reading against fp64 instead of the CPU's rule, while the
+# scores, the loss and the fp64 step keep theirs
+RECOG_DEPTHWISE_GRAD = 1e-2
+
+
+def tsm_r50_cfg(ann, prefix, work):
+    """MMAction2 v0.6.0 configs/recognition/tsm/
+    tsm_r50_1x1x8_50e_kinetics400_rgb.py as a dict: its model, pipelines,
+    batch, optimizer (TSMOptimizerConstructor with fc_lr5, SGD lr 0.01,
+    momentum 0.9, decay 1e-4, gradient clip 20) and schedule, cut to one
+    epoch of RECOG_REPEAT passes over the given clips, no pretrained
+    backbone (seeded weights). Its lr 0.01 is for 8 cards of 8 videos;
+    one card of RECOG_BATCH takes MMAction2's linear scaling rule,
+    0.01 x RECOG_BATCH / 64 (at 0.01 the loss rose from 5.99 to 26 in
+    one step from these weights on an H100 80GB HBM3 at 700 W)."""
+    train_pipeline = [
+        dict(type='DecordInit'),
+        dict(type='SampleFrames', clip_len=1, frame_interval=1,
+             num_clips=RECOG_SEGMENTS),
+        dict(type='DecordDecode'),
+        dict(type='Resize', scale=(-1, 256)),
+        dict(type='MultiScaleCrop', input_size=RECOG_CROP,
+             scales=(1, 0.875, 0.75, 0.66), random_crop=False,
+             max_wh_scale_gap=1, num_fixed_crops=13),
+        dict(type='Resize', scale=(RECOG_CROP, RECOG_CROP),
+             keep_ratio=False),
+        dict(type='Flip', flip_ratio=0.5),
+        dict(type='Normalize', **RECOG_NORM),
+        dict(type='FormatShape', input_format='NCHW'),
+        dict(type='Collect', keys=['imgs', 'label'], meta_keys=[]),
+        dict(type='ToTensor', keys=['imgs', 'label'])]
+    test_pipeline = [
+        dict(type='DecordInit'),
+        dict(type='SampleFrames', clip_len=1, frame_interval=1,
+             num_clips=RECOG_SEGMENTS, test_mode=True),
+        dict(type='DecordDecode'),
+        dict(type='Resize', scale=(-1, 256)),
+        dict(type='CenterCrop', crop_size=RECOG_CROP),
+        dict(type='Flip', flip_ratio=0),
+        dict(type='Normalize', **RECOG_NORM),
+        dict(type='FormatShape', input_format='NCHW'),
+        dict(type='Collect', keys=['imgs', 'label'], meta_keys=[]),
+        dict(type='ToTensor', keys=['imgs'])]
+    return dict(
+        model=dict(
+            type='Recognizer2D',
+            backbone=dict(type='ResNetTSM', pretrained=None, depth=50,
+                          norm_eval=False, num_segments=RECOG_SEGMENTS,
+                          shift_div=8),
+            cls_head=dict(type='TSMHead', num_classes=400, in_channels=2048,
+                          num_segments=RECOG_SEGMENTS, spatial_type='avg',
+                          consensus=dict(type='AvgConsensus', dim=1),
+                          dropout_ratio=0.5, init_std=0.001,
+                          is_shift=True)),
+        train_cfg=None, test_cfg=dict(average_clips='prob'),
+        data=dict(videos_per_gpu=RECOG_BATCH, workers_per_gpu=RECOG_WORKERS,
+                  train=dict(type='RepeatDataset', times=RECOG_REPEAT,
+                             dataset=dict(type='VideoDataset', ann_file=ann,
+                                          data_prefix=prefix,
+                                          pipeline=train_pipeline)),
+                  test=dict(type='VideoDataset', ann_file=ann,
+                            data_prefix=prefix, pipeline=test_pipeline,
+                            test_mode=True)),
+        optimizer=dict(type='SGD', constructor='TSMOptimizerConstructor',
+                       paramwise_cfg=dict(fc_lr5=True),
+                       lr=0.01 * RECOG_BATCH / 64, momentum=0.9,
+                       weight_decay=0.0001),
+        optimizer_config=dict(grad_clip=dict(max_norm=20, norm_type=2)),
+        lr_config=dict(policy='step', step=[20, 40]), total_epochs=1,
+        checkpoint_config=dict(interval=1), log_config=dict(interval=1),
+        work_dir=work, seed=0)
+
+
+# MMAction2 v0.6.0 configs/recognition/i3d/i3d_r50_32x2x1_100e_kinetics400
+# _rgb.py and configs/recognition/slowfast/slowfast_r50_4x16x1_256e_
+# kinetics400_rgb.py: the models, seeded weights
+I3D_R50 = dict(
+    type='Recognizer3D',
+    backbone=dict(type='ResNet3d', depth=50, pretrained=None,
+                  pretrained2d=True, norm_eval=False,
+                  conv1_kernel=(5, 7, 7), conv1_stride_t=2, pool1_stride_t=2,
+                  inflate=((1, 1, 1), (1, 0, 1, 0), (1, 0, 1, 0, 1, 0),
+                           (0, 1, 0)), zero_init_residual=False),
+    cls_head=dict(type='I3DHead', num_classes=400, in_channels=2048,
+                  spatial_type='avg', dropout_ratio=0.5, init_std=0.01))
+SLOWFAST_R50 = dict(
+    type='Recognizer3D',
+    backbone=dict(
+        type='ResNet3dSlowFast', pretrained=None, resample_rate=8,
+        speed_ratio=8, channel_ratio=8,
+        slow_pathway=dict(type='resnet3d', depth=50, pretrained=None,
+                          lateral=True, conv1_kernel=(1, 7, 7),
+                          dilations=(1, 1, 1, 1), conv1_stride_t=1,
+                          pool1_stride_t=1, inflate=(0, 0, 1, 1),
+                          norm_eval=False),
+        fast_pathway=dict(type='resnet3d', depth=50, pretrained=None,
+                          lateral=False, base_channels=8,
+                          conv1_kernel=(5, 7, 7), conv1_stride_t=1,
+                          pool1_stride_t=1, norm_eval=False)),
+    cls_head=dict(type='SlowFastHead', in_channels=2304, num_classes=400,
+                  spatial_type='avg', dropout_ratio=0.5))
+
+
+def _recognizer(backbone, head, in_channels, **head_kw):
+    kind = 'Recognizer3D' if head in ('I3DHead', 'SlowFastHead') \
+        else 'Recognizer2D'
+    return dict(type=kind, backbone=backbone,
+                cls_head=dict(type=head, num_classes=5,
+                              in_channels=in_channels, dropout_ratio=0.0,
+                              **head_kw))
+
+
+_SLOW = dict(type='resnet3d', depth=18, lateral=True,
+             conv1_kernel=(1, 7, 7), inflate=(0, 0, 1, 1))
+_FAST = dict(type='resnet3d', depth=18, lateral=False, base_channels=8,
+             conv1_kernel=(5, 7, 7))
+_NL = dict(norm_cfg=dict(type='BN3d'), zeros_init=False)
+# name: (recognizer, channels-last batch) of every backbone of slice 12,
+# at a small size: the card against the CPU
+RECOG_GATES = {
+    'tsm_r50': (_recognizer(dict(type='ResNetTSM', depth=50,
+                                 num_segments=4), 'TSMHead', 2048,
+                            num_segments=4), (2, 4, 64, 64, 3)),
+    'tsm_r18_non_local': (_recognizer(
+        dict(type='ResNetTSM', depth=18, num_segments=4,
+             non_local=((0, 0), (1, 0), 0, 0), non_local_cfg=_NL),
+        'TSMHead', 512, num_segments=4), (2, 4, 64, 64, 3)),
+    'tin_r18': (_recognizer(dict(type='ResNetTIN', depth=18,
+                                 num_segments=4), 'TSMHead', 512,
+                            num_segments=4), (2, 4, 64, 64, 3)),
+    'i3d_r18_non_local': (_recognizer(
+        dict(type='ResNet3d', depth=18, non_local=(0, (1, 0), 0, 0),
+             non_local_cfg=dict(_NL, sub_sample=True)), 'I3DHead', 512),
+        (2, 1, 8, 64, 64, 3)),
+    'slowonly_r18': (_recognizer(dict(type='ResNet3dSlowOnly', depth=18),
+                                 'I3DHead', 512), (2, 1, 8, 64, 64, 3)),
+    'slowfast_r18': (_recognizer(dict(
+        type='ResNet3dSlowFast', resample_rate=4, speed_ratio=4,
+        slow_pathway=_SLOW, fast_pathway=_FAST), 'SlowFastHead', 576),
+        (2, 1, 8, 64, 64, 3)),
+    'r2plus1d_r18': (_recognizer(dict(type='ResNet2Plus1d', depth=18),
+                                 'I3DHead', 512), (2, 1, 8, 64, 64, 3)),
+    'csn_r18_ip': (_recognizer(dict(type='ResNet3dCSN', depth=18,
+                                    bottleneck_mode='ip'), 'I3DHead', 2048),
+                   (2, 1, 8, 64, 64, 3)),
+    'alexnet_v1': (_recognizer(dict(type='AlexNetV1'), 'TSNHead', 256),
+                   (2, 2, 127, 127, 3)),
+    'alexnet_v2': (_recognizer(dict(type='AlexNetV2'), 'TSNHead', 32),
+                   (2, 2, 127, 127, 3)),
+    'alexnet_v3': (_recognizer(dict(type='AlexNetV3'), 'TSNHead', 512),
+                   (2, 2, 127, 127, 3)),
+}
+
+
+def write_config(path, cfg_dict):
+    """A config file of ``cfg_dict``'s top-level keys."""
+    with open(path, 'w') as f:
+        f.writelines(f'{k} = {v!r}\n' for k, v in cfg_dict.items())
+    return path
+
+
+def kernel_launches():
+    """Every launch count of the four hand-written kernels."""
+    from vfs_tpu_torch import ops
+    return sum(getattr(k, name) for k in (
+        ops.video_topk_affinity_cuda, ops.video_topk_affinity_v1_cuda,
+        ops.local_topk_attend_cuda, ops.local_topk_attend_v2_cuda)
+        for name in dir(k) if name.endswith('launches'))
+
+
+def seeded_recognizer(cfg, device, dtype=None, test_cfg=None):
+    """The config's recognizer with the JAX modules' initialisers (seed 0)
+    and, for a gate, every BatchNorm's scale and shift drawn too (seed 1),
+    so that no residual branch starts at zero; on ``device``."""
+    import torch
+    from vfs_tpu_torch.device import to_channels_last
+    from vfs_tpu_torch.models import build_model
+    model = build_model(cfg, test_cfg=test_cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    if dtype is not None:
+        generator = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    m.weight.uniform_(0.5, 1.5, generator=generator)
+                    m.bias.normal_(0.0, 0.1, generator=generator)
+        model.to(dtype=dtype)
+    model.to(device)
+    if device.type == 'cuda':
+        to_channels_last(model.backbone)
+    return model
+
+
+def depthwise_3d_weights(model):
+    """Names of the weights of ``model``'s depthwise 3-D convolutions."""
+    import torch
+    return {f'{n}.weight' for n, m in model.named_modules()
+            if isinstance(m, torch.nn.Conv3d) and m.groups > 1
+            and m.groups == m.in_channels}
+
+
+def gate_run(cfg, x, labels, device, dtype):
+    """Eval-mode scores, then one SGD train step's loss and gradients (as
+    fp64 on the CPU) of the gate's recognizer on ``device``."""
+    import torch
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    from vfs_tpu_torch.device import exact_fp32
+    model = seeded_recognizer(cfg, device, dtype).eval()
+    xt = torch.as_tensor(x).to(device=device, dtype=dtype)
+    with torch.no_grad(), exact_fp32():
+        scores = model(xt, return_loss=False).double().cpu()
+    optimizer, _ = build_optimizer(model.train().parameters(), dict(
+        type='SGD', lr=0.01, momentum=0.9, weight_decay=1e-4))
+    loss = float(make_train_step(model, optimizer)(xt, None, labels)['loss'])
+    return scores, loss, {n: p.grad.detach().double().cpu()
+                          for n, p in model.named_parameters()}
+
+
+def recognition_gates(dev):
+    """Each RECOG_GATES backbone on the card against the CPU: fp64 within
+    1e-9 (the scores, the loss, each gradient, relative), which shows the
+    same function on both; fp32 as close to the CPU's fp64 answer as the
+    CPU's fp32 is, times CARD_CPU_FACTOR plus CARD_CPU_FLOOR (the train
+    phase's rule, module docstring), for the scores, the loss and all the
+    gradients as one vector (each relative). At these sizes single
+    gradients cancel badly in fp32 on both devices (R(2+1)D's 8-value
+    BatchNorms: 1.2e-2 from fp64 on each; AlexNet V1's ``bn2.bias``
+    7.6e-3 on the card, 2.7e-4 on the CPU; H100 80GB HBM3, 700 W), so the
+    worst single gradient is printed, not gated."""
+    import torch
+    from vfs_tpu_torch.models import build_model
+    cpu = torch.device('cpu')
+    out = {}
+    for name, (cfg, shape) in RECOG_GATES.items():
+        t0 = time.time()
+        x = np.random.RandomState(2).randn(*shape)
+        rows = shape[0] * (shape[1] if cfg['type'] == 'Recognizer3D' else 1)
+        labels = np.arange(rows) % 5
+        runs = {(role, bits): gate_run(cfg, x, labels, d, dtype)
+                for role, d in (('cpu', cpu), ('card', dev))
+                for bits, dtype in ((64, torch.float64),
+                                    (32, torch.float32))}
+        exact = runs[('cpu', 64)]
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        def rel_all(grads):  # every gradient as one vector
+            return float(torch.sqrt(sum(
+                ((grads[n] - g)**2).sum() for n, g in exact[2].items()))
+                / torch.sqrt(sum((g * g).sum() for g in exact[2].values())))
+
+        # a net with depthwise 3-D convolutions: RECOG_DEPTHWISE_GRAD
+        depthwise = bool(depthwise_3d_weights(build_model(cfg)))
+        errs = dict(
+            fp64_scores=rel(runs[('card', 64)][0], exact[0]),
+            fp64_loss=abs(runs[('card', 64)][1] - exact[1]) / abs(exact[1]),
+            fp64_grads=grad_error(runs[('card', 64)][2], exact[2])[0],
+            fp32_scores=rel(runs[('card', 32)][0], exact[0]),
+            cpu_fp32_scores=rel(runs[('cpu', 32)][0], exact[0]),
+            fp32_grads=rel_all(runs[('card', 32)][2]),
+            cpu_fp32_grads=rel_all(runs[('cpu', 32)][2]),
+            fp32_worst_grad=grad_error(runs[('card', 32)][2], exact[2]),
+            cpu_fp32_worst_grad=grad_error(runs[('cpu', 32)][2], exact[2]),
+            fp32_loss=abs(runs[('card', 32)][1] - exact[1]) / abs(exact[1]),
+            cpu_fp32_loss=abs(runs[('cpu', 32)][1] - exact[1])
+            / abs(exact[1]), seconds=time.time() - t0)
+        if max(errs['fp64_scores'], errs['fp64_loss'],
+               errs['fp64_grads']) > 1e-9 or depthwise \
+                and errs['fp32_grads'] > RECOG_DEPTHWISE_GRAD:
+            raise AssertionError(f'{name}: card vs CPU {errs}')
+        for key in ('scores', 'loss') if depthwise \
+                else ('scores', 'grads', 'loss'):
+            if errs[f'fp32_{key}'] > CARD_CPU_FACTOR \
+                    * errs[f'cpu_fp32_{key}'] + CARD_CPU_FLOOR:
+                raise AssertionError(f'{name}: card vs CPU in fp32 {key} '
+                                     f'{errs}')
+        out[name] = errs
+    return out
+
+
+def recognition_train(root, dev, smi_line):
+    """TSM-R50 through ``apis.train.train_model`` for one epoch on the
+    clips (steps/s end to end leave out the first step), then the
+    device-only step (RECOG_TIMED_STEPS CUDA-event-timed steps on a batch
+    already on the card), its peak memory, ``train_mfu`` and
+    ``device_breakdown``. Returns the line and the config."""
+    import copy
+    import math
+    import random
+    import torch
+    import vfs_tpu_torch.apis.train as apis_train
+    from vfs_tpu_torch.core.optimizer import build_tsm_optimizer
+    from vfs_tpu_torch.datasets import build_dataset, collate
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.tools.analysis import get_flops
+    from vfs_tpu_torch.utils import Config
+    clips = os.path.join(root, 'k400')
+    os.makedirs(clips)
+    ann = write_k400(clips)
+    cfg_dict = tsm_r50_cfg(ann, clips, os.path.join(root, 'w'))
+    cfg = Config.fromdict(copy.deepcopy(cfg_dict))
+    dataset = build_dataset(cfg.data.train)
+    model = build_model(cfg.model, test_cfg=cfg.test_cfg)
+    records = []
+    with patched(apis_train, 'make_train_step', step_timer(records)):
+        t0 = time.time()
+        state = apis_train.train_model(model, dataset, cfg, device=dev)
+        wall_s = time.time() - t0
+    losses = [float(loss) for loss, _ in records]
+    ends = [t for _, t in records][-RECOG_E2E_STEPS - 1:]
+    want = K400_CLIPS * RECOG_REPEAT // RECOG_BATCH
+    if state.step != want or len(losses) != want \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f'TSM-R50: {state.step} steps, losses {losses}')
+    # a 400-way classifier at init_std 0.001 starts near uniform
+    if abs(losses[0] - math.log(400)) > 0.5:
+        raise AssertionError(f'TSM-R50 step-0 loss {losses[0]} (ln 400 = '
+                             f'{math.log(400)})')
+    if (5.0, 10.0) not in state.optimizer.mults:
+        raise AssertionError('TSM-R50: no fc_lr5 group in the optimizer')
+    ckpt = os.path.join(cfg.work_dir, 'checkpoints', 'epoch_1')
+    if not os.path.isfile(ckpt):
+        raise AssertionError(f'TSM-R50: no checkpoint {ckpt}')
+
+    np.random.seed(0)
+    random.seed(0)
+    batch = collate([dataset.dataset[i] for i in range(RECOG_BATCH)])
+    imgs = torch.as_tensor(batch['imgs'], device=dev)
+    labels = torch.as_tensor(batch['label'], device=dev)
+    model = seeded_recognizer(cfg.model, dev).train()
+    opt = cfg.optimizer
+    step = apis_train.make_train_step(model, build_tsm_optimizer(
+        model, opt.lr, opt.momentum, opt.weight_decay))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(imgs, None, labels), runs=RECOG_TIMED_STEPS,
+                 warmup=RECOG_WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = device_breakdown(lambda _: step(imgs, None, labels), None)
+    del model, step
+    torch.cuda.empty_cache()
+
+    path = write_config(os.path.join(root, 'tsm_r50.py'), cfg_dict)
+    with contextlib.redirect_stdout(io.StringIO()):
+        fwd = get_flops.main([path, '--frames', str(RECOG_SEGMENTS),
+                              '--shape', str(RECOG_CROP)])['flops']
+    # x3 for the forward and the backward (data and weight gradients), but
+    # x2 for the stem, whose input (the frames) takes no gradient
+    stem = 2 * (RECOG_CROP // 2)**2 * 64 * 7 * 7 * 3 * RECOG_SEGMENTS
+    flops = RECOG_BATCH * (3 * fwd - stem)
+    fp32_tflops = peaks(smi_line)[0]
+    line = dict(
+        config='MMAction2 v0.6.0 tsm_r50_1x1x8_50e_kinetics400_rgb',
+        videos_per_step=RECOG_BATCH, segments=RECOG_SEGMENTS,
+        crop=RECOG_CROP, loader_workers=RECOG_WORKERS,
+        loader_video_decoder=video_decoder(), steps=state.step,
+        losses=losses, train_wall_s=wall_s, e2e_steps=len(ends) - 1,
+        e2e_steps_per_s=(len(ends) - 1) / (ends[-1] - ends[0]),
+        gflop_forward_per_video=fwd / 1e9, tflop_per_step=flops / 1e12,
+        ms_per_step=ms, steps_per_s=1e3 / ms,
+        videos_per_s=RECOG_BATCH * 1e3 / ms,
+        train_mfu=flops / (ms * 1e-3) / (fp32_tflops * 1e12),
+        peak_tflops=fp32_tflops,
+        bound_ms=flops / (fp32_tflops * 1e12) * 1e3,
+        max_memory_allocated_gb=peak / 2**30, **breakdown)
+    return line, cfg_dict, ann, ckpt
+
+
+def recognition_forwards(root, dev, smi_line):
+    """One RECOG_CLIP_FRAMES x 224 x 224 clip through I3D-R50 and
+    SlowFast-R50 4x16 (seeded weights, exact fp32): probabilities that sum
+    to 1, the median of five CUDA-event-timed forwards, clips/s and the
+    forward's share of the fp32 peak."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.tools.analysis import get_flops
+    out = {}
+    fp32_tflops = peaks(smi_line)[0]
+    for name, cfg in (('i3d_r50_32x2x1', I3D_R50),
+                      ('slowfast_r50_4x16x1', SLOWFAST_R50)):
+        model = seeded_recognizer(cfg, dev,
+                                  test_cfg=dict(average_clips='prob')).eval()
+        clip = torch.randn((1, 1, RECOG_CLIP_FRAMES, RECOG_CROP, RECOG_CROP,
+                            3), generator=torch.Generator().manual_seed(0))
+        clip = clip.to(dev)
+        with torch.no_grad(), exact_fp32():
+            probs = model(clip, return_loss=False)
+            ms = cuda_ms(lambda: model(clip, return_loss=False))
+        if probs.shape != (1, 400) or not torch.isfinite(probs).all() \
+                or abs(float(probs.sum()) - 1) > 1e-4:
+            raise AssertionError(f'{name}: probabilities {probs}')
+        path = write_config(os.path.join(root, f'{name}.py'),
+                            dict(model=cfg))
+        with contextlib.redirect_stdout(io.StringIO()):
+            flops = get_flops.main([path, '--frames',
+                                    str(RECOG_CLIP_FRAMES), '--shape',
+                                    str(RECOG_CROP)])['flops']
+        out[name] = dict(ms_per_clip=ms, clips_per_s=1e3 / ms,
+                         gflop_per_clip=flops / 1e9,
+                         forward_mfu=flops / (ms * 1e-3)
+                         / (fp32_tflops * 1e12))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def recognition_tools(root, cfg_dict, ann, ckpt):
+    """``tools.demo_recognition`` on one clip with the trained TSM-R50 (a
+    label file of RECOG_LABELS names, padded to 400), and
+    ``tools.analysis.report_accuracy`` over two score files: the trained
+    model's scores of every clip, centre crops and their flips, each scored
+    by ``VideoDataset.evaluate`` first."""
+    import copy
+    import torch
+    from vfs_tpu_torch.apis import init_recognizer
+    from vfs_tpu_torch.datasets import build_dataloader, build_dataset
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.tools import demo_recognition
+    from vfs_tpu_torch.tools.analysis import report_accuracy
+    path = write_config(os.path.join(root, 'tsm_r50_test.py'), cfg_dict)
+    labels = os.path.join(root, 'labels.txt')
+    with open(labels, 'w') as f:
+        f.writelines(f'class {i}\n' for i in range(RECOG_LABELS))
+    video = os.path.join(os.path.dirname(ann), sorted(
+        n for n in os.listdir(os.path.dirname(ann))
+        if n.startswith('clip'))[0])
+    out_mp4 = os.path.join(root, 'demo.mp4')
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        top5 = demo_recognition.main([path, ckpt, video, labels,
+                                      '--out-filename', out_mp4])
+    if len(top5) != 5 or not os.path.isfile(out_mp4):
+        raise AssertionError(f'demo_recognition: {buf.getvalue()}')
+    model = init_recognizer(path, ckpt)
+    model.test_cfg = dict(average_clips=None)  # a score row a video
+    device = next(model.parameters()).device
+    files, evals = [], []
+    for flip in (0, 1):
+        test = copy.deepcopy(cfg_dict['data']['test'])
+        test['pipeline'] = [dict(t, flip_ratio=flip)
+                            if t['type'] == 'Flip' else t
+                            for t in test['pipeline']]
+        dataset = build_dataset(test)
+        loader = build_dataloader(dataset, RECOG_BATCH, RECOG_WORKERS,
+                                  shuffle=False)
+        scores = []
+        try:
+            for batch in loader:
+                imgs = torch.as_tensor(batch['imgs'], device=device)
+                with torch.no_grad(), exact_fp32():
+                    scores += list(model(imgs, return_loss=False).cpu()
+                                   .numpy())
+        finally:
+            loader.close()
+        evals.append(dataset.evaluate(
+            scores, ['top_k_accuracy', 'mean_class_accuracy']))
+        files.append(os.path.join(root, f'scores_{flip}.npy'))
+        np.save(files[-1], np.stack(scores))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fused = report_accuracy.main(['--scores', *files, '--coefficients',
+                                      '1', '1', '--annotation', ann])
+    return dict(demo_top5=[[str(k), float(v)] for k, v in top5],
+                demo_mp4=os.path.isfile(out_mp4), evaluate=evals,
+                report_accuracy=buf.getvalue().strip(), fused=fused)
+
+
+def phase_recognition(dev, smi_line):
+    """Slice 12's path (module docstring, phase 14). No hand-written
+    kernel lies on it: their launch counts must not move."""
+    t0 = time.time()
+    before = kernel_launches()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        train, cfg_dict, ann, ckpt = recognition_train(root, dev, smi_line)
+        emit({'phase': 'recognition', 'part': 'train_tsm_r50',
+              'card': smi_line, **train, 'seconds': time.time() - t0})
+        t1 = time.time()
+        forwards = recognition_forwards(root, dev, smi_line)
+        emit({'phase': 'recognition', 'part': 'forward_3d',
+              'card': smi_line, 'clip': [RECOG_CLIP_FRAMES, RECOG_CROP,
+                                         RECOG_CROP], **forwards,
+              'seconds': time.time() - t1})
+        t1 = time.time()
+        tools = recognition_tools(root, cfg_dict, ann, ckpt)
+        tools['seconds'] = time.time() - t1
+    gates = recognition_gates(dev)
+    launches = kernel_launches() - before
+    if launches:
+        raise AssertionError(f'recognition launched {launches} hand-written '
+                             'kernels (want none)')
+    emit({'phase': 'recognition', 'part': 'card_vs_cpu',
+          'gates': gates, 'tolerances': dict(
+              fp64=1e-9, fp32_factor=CARD_CPU_FACTOR,
+              fp32_floor=CARD_CPU_FLOOR,
+              fp32_depthwise_grads=RECOG_DEPTHWISE_GRAD)})
+    seconds = time.time() - t0
+    emit({'phase': 'recognition', 'part': 'tools', **tools,
+          'hand_written_kernel_launches': launches,
+          'phase_seconds': seconds})
+    return seconds
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3997,6 +4554,7 @@ def main():
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
     phase_analysis(dev, smi_line)
+    phase_recognition(dev, smi_line)
     for entry, row in ((row1[0], 'row1'), (row2, 'row2'), (row3, 'row3')):
         entry['launches'] += bench[row]['launches']
         entry['bf16'] = bench[row]
@@ -4005,7 +4563,10 @@ def main():
         row3[name] = dict(launches=eval_modes[name]['launches'],
                           **modes_full[name])
     emit({'phase': 'total', 'seconds': time.time() - t_start})
-    emit({'kernels': [*row1, row2, row3, v2_entry]})
+    emit({'kernels': [*row1, row2, row3, v2_entry],
+          'paths_without_kernels': {
+              'recognition': 'launches none of the four rows: cuDNN '
+                             'convolutions and PyTorch ops (phase 14)'}})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -183,12 +183,13 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
 
 
 def test_eval_loop_raises_for_later_slices():
-    """Recognition metrics come with a later slice and raise naming ROADMAP
-    Queue 1 item 7. The native decoders, refused before slice 11 ported
-    them, build at their first decode: their steps construct without a
-    compiler. Eval over several devices and processes, refused before
-    slice 8 ported it, runs: on an empty dataset it returns nothing, after
-    replicating the weights per device, without a process group."""
+    """Recognition metrics, refused before slice 12 ported them (ROADMAP
+    Queue 1 item 7a), score a dataset's labels. The native decoders,
+    refused before slice 11 ported them, build at their first decode:
+    their steps construct without a compiler. Eval over several devices
+    and processes, refused before slice 8 ported it, runs: on an empty
+    dataset it returns nothing, after replicating the weights per device,
+    without a process group."""
     from vfs_tpu_torch.apis import multi_process_test, single_process_test
 
     class Tracker:
@@ -205,5 +206,8 @@ def test_eval_loop_raises_for_later_slices():
                                                   RawFrameDecodeYUV420)
     for cls in (RawFrameDecode, RawFrameDecodeYUV420):
         assert cls(decoding_backend='native').decoding_backend == 'native'
-    with pytest.raises(NotImplementedError, match='item 7'):
-        VideoDataset.evaluate(None, [])
+    dataset = type('Labels', (), dict(video_infos=[dict(label=0),
+                                                    dict(label=1)]))
+    scores = [np.array([0.9, 0.1]), np.array([0.6, 0.4])]
+    assert VideoDataset.evaluate(dataset, scores, topk=(1, 2)) == dict(
+        top1_acc=0.5, top2_acc=1.0)

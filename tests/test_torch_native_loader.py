@@ -405,6 +405,11 @@ def test_build_failure_falls_back_with_one_warning(tmp_path, monkeypatch,
         native_loader.LINK, frame_loader=['-lno_such_library_xyz']))
     monkeypatch.setattr(native_loader, '_libs', {})
     monkeypatch.setattr(native_loader, '_errors', {})
+    # caplog listens on the root logger: the package logger stops
+    # propagating once an earlier test in this process has called
+    # ``get_root_logger``, so let its records through here
+    monkeypatch.setattr(logging.getLogger('vfs_tpu_torch'), 'propagate',
+                        True)
     with caplog.at_level(logging.WARNING, logger=native_loader.__name__):
         assert native_loader.get_lib() is None
         assert native_loader.get_lib() is None

@@ -172,19 +172,55 @@ def test_tools_train_cli_on_cpu_and_no_gpu(data, tmp_path, monkeypatch):
         tools_train.main([config, '--work-dir', work])
 
 
+RECOGNIZER_CFG = dict(
+    type='Recognizer2D',
+    backbone=dict(type='ResNetTSM', depth=18, num_segments=2),
+    cls_head=dict(type='TSMHead', num_classes=2, in_channels=512,
+                  num_segments=2))
+
+
+def _recognizer_data(data):
+    """The fixture's clips through a recognition pipeline: 2 segments of
+    32x32 frames and each clip's label."""
+    ann = data[0]
+    pipeline = [
+        dict(type='OpenCVInit'),
+        dict(type='SampleFrames', clip_len=1, frame_interval=1,
+             num_clips=2),
+        dict(type='OpenCVDecode'),
+        dict(type='Resize', scale=(32, 32), keep_ratio=False),
+        dict(type='Normalize', mean=[123.675, 116.28, 103.53],
+             std=[58.395, 57.12, 57.375]),
+        dict(type='FormatShape', input_format='NCHW'),
+        dict(type='Collect', keys=['imgs', 'label'], meta_keys=[])]
+    return dict(videos_per_gpu=2, workers_per_gpu=1, train=dict(
+        type='VideoDataset', ann_file=ann, data_prefix=osp.dirname(ann),
+        pipeline=pipeline))
+
+
 @pytest.mark.parametrize('argv,extra,item', [
     (['--validate', '--local-devices', '2'], {}, None),
-    ([], dict(model=dict(type='Recognizer2D', backbone={})), 7),
-], ids=['local_devices', 'recognizer'])
+    ([], dict(model=RECOGNIZER_CFG), 'trains'),
+    ([], dict(model=dict(type='BMN')), '7b'),
+], ids=['local_devices', 'recognizer', 'localizer'])
 def test_later_slices_raise_naming_their_roadmap_item(data, tmp_path, argv,
                                                       extra, item):
-    """A recognizer config raises naming ROADMAP Queue 1 item 7. Item 5's
-    ``--validate --local-devices 2``, refused before slice 8 ported it,
-    now trains and validates over two CPU workers (``item`` None) with the
-    J&F of the one-device validation."""
+    """A localizer config raises naming ROADMAP Queue 1 item 7b. A
+    recognizer config, refused before slice 12 ported recognition (item
+    7a), trains (``item`` 'trains': two epochs of 2 steps on the
+    fixture's 4 clips).
+    Item 5's ``--validate --local-devices 2``, refused before slice 8
+    ported it, now trains and validates over two CPU workers (``item``
+    None) with the J&F of the one-device validation."""
+    if item == 'trains':
+        extra = dict(extra, data=_recognizer_data(data))
     config = _write_config(data, tmp_path, **extra)
     args = [config, '--work-dir', str(tmp_path / 'w'), '--device', 'cpu',
             *argv]
+    if item == 'trains':
+        state = tools_train.main(args)
+        assert state.step == 4
+        return
     if item is None:
         state = tools_train.main(args)
         assert state.step == 4

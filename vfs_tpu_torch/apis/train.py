@@ -16,6 +16,13 @@ each ``checkpoint_config.interval`` epochs under
 propagation eval of ``data.val`` after each ``evaluation.interval``
 epochs (``EvalHook``, ``best.json``).
 
+A recognizer (``model_takes_labels``) trains on the batch's ``label``,
+its heads' dropout drawing from a generator on the device seeded from
+``(seed, rank, step)`` (a stream of its own beside the augmentation's);
+``optimizer.constructor='TSMOptimizerConstructor'`` in the config, as
+MMAction2's TSM configs give it, takes the TSM parameter groups
+(``core.optimizer.build_tsm_optimizer``, ``paramwise_cfg.fc_lr5``).
+
 ``cfg.device_aug`` runs the augmentation chain in the step on the batch's
 device (``ops.device_aug``; the loader ships uint8 staging frames and
 ``orig_hw``). ``cfg.profile_steps`` (``--profile N``) traces steps
@@ -31,6 +38,7 @@ The validation eval runs over the processes of the group
 
 from __future__ import annotations
 
+import inspect
 import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional
@@ -42,14 +50,19 @@ import torch.nn as nn
 from ..checkpoint import (latest_checkpoint, load_backbone_state,
                           load_torchvision_resnet, restore_checkpoint,
                           save_checkpoint)
-from ..core.optimizer import ChainedOptimizer, build_optimizer
+from ..core.optimizer import (ChainedOptimizer, build_lr_schedule,
+                              build_optimizer, build_tsm_optimizer)
 from ..datasets import build_dataloader
-from ..device import DeviceLike, exact_fp32, resolve_device
+from ..device import DeviceLike, exact_fp32, resolve_device, to_channels_last
 from ..models.trackers.sim_siam_tracker import parse_losses
 from ..ops.device_aug import DeviceAugChain, build_device_aug, step_seed
 from ..parallel import (get_rank, get_world_size, reduce_log_vars,
                         wrap_distributed)
 from ..utils import JsonlLogger, build_wandb_logger, get_root_logger
+
+
+# the step_seed stream of the heads' dropout ('drop')
+DROPOUT_STREAM = 0x64726f70
 
 
 class TrainState(NamedTuple):
@@ -58,17 +71,34 @@ class TrainState(NamedTuple):
     step: int
 
 
+def model_takes_labels(model: nn.Module) -> bool:
+    """Recognizers take (imgs, labels); the self-supervised trackers take
+    the frames alone. Looks through a ``DistributedDataParallel``."""
+    model = getattr(model, 'module', model)
+    return 'labels' in inspect.signature(type(model).forward).parameters
+
+
 def apply_mixed_precision(cfg) -> bool:
     """With the reference's ``fp16 = dict(...)`` key (or ``bf16 = True``)
     in the config, give the backbone ``dtype='bfloat16'`` (bf16 autocast
     in its forward; parameters and BatchNorm statistics stay fp32).
     ``loss_scale`` keys are accepted and ignored: bf16 needs no loss
-    scaling. Returns True if mixed precision was enabled. Call before
-    ``build_model``."""
+    scaling. A backbone without a ``dtype`` argument stays fp32, with a
+    warning, as in the JAX package. Returns True if mixed precision was
+    enabled. Call before ``build_model``."""
     mixed = bool(cfg.get('fp16') is not None or cfg.get('bf16'))
     if mixed and isinstance(cfg.get('model'), dict) \
             and isinstance(cfg.model.get('backbone'), dict):
-        cfg.model.backbone.setdefault('dtype', 'bfloat16')
+        from ..models import BACKBONES
+        backbone = cfg.model.backbone
+        klass = BACKBONES.get(backbone.get('type'))
+        if klass is not None and \
+                'dtype' in inspect.signature(klass).parameters:
+            backbone.setdefault('dtype', 'bfloat16')
+        else:
+            get_root_logger().warning(
+                f'fp16/bf16 requested but backbone {backbone.get("type")!r} '
+                'takes no dtype; its compute stays fp32')
     return mixed
 
 
@@ -76,11 +106,14 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
                     norm_cfg: Optional[Dict] = None,
                     device_aug: Optional[DeviceAugChain] = None,
                     seed: int = 0) -> Callable[..., Dict[str, torch.Tensor]]:
-    """The train step: ``step(imgs, orig_hw=None)`` moves a (B, 2, T, H, W,
-    C) batch to the model's device, runs forward and backward (``model``
-    may be the ``DistributedDataParallel`` wrapper) and one optimizer
-    update, and returns this process's log vars (tensors on the device;
-    reading them waits for the step).
+    """The train step: ``step(imgs, orig_hw=None, labels=None)`` moves a
+    batch to the model's device ((B, 2, T, H, W, C) for a tracker, a
+    recognizer's clips and their labels), runs forward and backward
+    (``model`` may be the ``DistributedDataParallel`` wrapper) and one
+    optimizer update, and returns this process's log vars (tensors on the
+    device; reading them waits for the step). A recognizer's dropout draws
+    from a generator on the device seeded from ``(seed, rank, step,
+    DROPOUT_STREAM)``.
 
     ``norm_cfg`` (``mean`` / ``std``) takes the uint8 input path: a train
     pipeline with ``Normalize(on_device=True)`` ships uint8 frames and
@@ -100,7 +133,10 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
         std = torch.as_tensor(np.asarray(norm_cfg['std'], np.float32),
                               device=device)
 
-    def train_step(imgs, orig_hw=None) -> Dict[str, torch.Tensor]:
+    takes_labels = model_takes_labels(model)
+
+    def train_step(imgs, orig_hw=None,
+                   labels=None) -> Dict[str, torch.Tensor]:
         x = torch.as_tensor(imgs).to(device)
         if device_aug is not None:
             generator = torch.Generator(device=device)
@@ -113,8 +149,15 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
                     'Normalize(on_device=True) but the config has no '
                     'img_norm_cfg)')
             x = (x.to(torch.float32) - mean) / std
+        args, kwargs = (x,), {}
+        if takes_labels:
+            args += (torch.as_tensor(labels).to(device),)
+            generator = torch.Generator(device=device)
+            generator.manual_seed(step_seed(seed, rank, optimizer.count,
+                                            DROPOUT_STREAM))
+            kwargs['generator'] = generator
         with exact_fp32():
-            total, log_vars = parse_losses(model(x))
+            total, log_vars = parse_losses(model(*args, **kwargs))
             optimizer.zero_grad()
             total.backward()
         optimizer.step()
@@ -192,10 +235,20 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
     _load_backbone_pretrained(model, cfg, logger)
     model.to(device)
     if device.type == 'cuda':
-        model.backbone.to(memory_format=torch.channels_last)
-    optimizer, schedule = build_optimizer(
-        model.parameters(), cfg.optimizer, cfg.get('lr_config'), total_iters,
-        iters_per_epoch, grad_clip)
+        to_channels_last(model.backbone)
+    opt_cfg = dict(cfg.optimizer)
+    if opt_cfg.get('constructor') == 'TSMOptimizerConstructor':
+        schedule = build_lr_schedule(cfg.get('lr_config'), opt_cfg['lr'],
+                                     total_iters, iters_per_epoch)
+        optimizer = build_tsm_optimizer(
+            model, schedule, opt_cfg.get('momentum', 0.9),
+            opt_cfg.get('weight_decay', 1e-4),
+            (opt_cfg.get('paramwise_cfg') or {}).get('fc_lr5', True),
+            grad_clip)
+    else:
+        optimizer, schedule = build_optimizer(
+            model.parameters(), opt_cfg, cfg.get('lr_config'), total_iters,
+            iters_per_epoch, grad_clip)
 
     # auto-resume (reference tools/train.py:103-105)
     start_epoch = 0
@@ -225,8 +278,14 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                                  norm_cfg, device_aug, seed)
 
     log_interval = (cfg.get('log_config') or {}).get('interval', 50)
+    takes_labels = model_takes_labels(model)
     eval_hook = None
     if validate and cfg.get('data') and cfg.data.get('val'):
+        if takes_labels:
+            raise NotImplementedError(
+                '--validate runs the propagation eval of a tracker; a '
+                "recognizer's validation is not ported (nor is it in the "
+                'JAX package)')
         from ..core.evaluation.eval_hooks import EvalHook
         eval_cfg = dict(cfg.get('evaluation') or {})
         eval_hook = EvalHook(
@@ -250,7 +309,9 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             for i, batch in enumerate(loader):
                 if profile_steps and steps_run == 2:
                     profiler = _start_profiler(device)
-                log_vars = train_step(batch['imgs'], batch.get('orig_hw'))
+                log_vars = train_step(
+                    batch['imgs'], batch.get('orig_hw'),
+                    batch.get('label') if takes_labels else None)
                 steps_run += 1
                 if profiler is not None \
                         and steps_run >= 2 + profile_steps:

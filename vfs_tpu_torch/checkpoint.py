@@ -10,6 +10,9 @@
 - ``flax_head_to_torch`` / ``flax_simsiam_to_torch``: the same for a
   SimSiam head and a whole ``SimSiamBaseTracker`` (``_backbone`` and
   ``_img_head``); ``Dense`` kernels go (in, out) -> ``Linear`` (out, in).
+- ``flax_recognizer_to_torch``: the JAX package's recognizer trees (any
+  of its recognition backbones and heads) -> a state dict of the port's
+  recognizer, by name.
 - ``save_checkpoint`` / ``latest_checkpoint`` / ``restore_checkpoint``:
   train checkpoints (``torch.save`` of the model, the optimizer, the
   schedule step and the epoch) under ``epoch_{n}``, with a ``latest``
@@ -146,6 +149,92 @@ def flax_simsiam_to_torch(params: Mapping, batch_stats: Mapping
     if '_img_head' in params:
         sd.update({f'img_head.{k}': v for k, v in flax_head_to_torch(
             params['_img_head'], batch_stats.get('_img_head', {})).items()})
+    return sd
+
+
+_LEAF_NAMES = dict(kernel='weight', scale='weight', bias='bias',
+                   mean='running_mean', var='running_var')
+
+
+def _module_name(name: str) -> str:
+    """A flax submodule's name -> the port's attribute path: ``_backbone``
+    / ``_cls_head`` -> ``backbone`` / ``cls_head``, ``layer{i}_{j}`` ->
+    ``layer{i}.{j}``, ``layer{i}_{j}_nl`` -> ``layer{i}_nl.{j}`` (TSM's
+    non-local wrappers), ``{slow,fast}_path_X`` -> ``{slow,fast}_path.X``
+    (SlowFast's pathways)."""
+    m = re.fullmatch(r'(slow_path|fast_path)_(.+)', name)
+    if m:
+        return f'{m.group(1)}.{_module_name(m.group(2))}'
+    m = re.fullmatch(r'(layer\d+)_(\d+)(_nl)?', name)
+    if m:
+        return f'{m.group(1)}{m.group(3) or ""}.{m.group(2)}'
+    return dict(_backbone='backbone', _cls_head='cls_head').get(name, name)
+
+
+def _torch_leaf(name: str, value) -> torch.Tensor:
+    """A flax leaf in torch's layout: a ``Dense`` kernel (in, out) ->
+    (out, in); a conv kernel (k..., in / groups, out) -> (out, in /
+    groups, k...) for 1-, 2- and 3-D convolutions."""
+    a = np.asarray(value)
+    if name == 'kernel':
+        nd = a.ndim
+        a = a.T if nd == 2 else np.transpose(
+            a, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+    return torch.from_numpy(np.array(a))
+
+
+def _is_convbn_2d(node: Mapping) -> bool:
+    """A 2-D ``ConvBN`` (``conv`` and optionally ``bn`` children, 4-D
+    kernel): the port's 2-D ResNets and AlexNets name its parts
+    torchvision's way."""
+    return (hasattr(node, 'items') and 'conv' in node
+            and set(node) <= {'conv', 'bn'}
+            and np.ndim(node['conv'].get('kernel')) == 4)
+
+
+def flax_recognizer_to_torch(params: Mapping, batch_stats: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's recognizer trees (nested dicts of numpy arrays)
+    -> a state dict of the port's recognizer, in the trees' dtype.
+
+    Names: see ``_module_name``. A 2-D ``ConvBN`` ``conv{n}`` becomes
+    ``conv{n}`` and ``bn{n}``, a 2-D ``downsample`` ``downsample.0`` and
+    ``downsample.1`` (the port's ``ResNet`` blocks, which ``ResNetTSM``
+    and ``ResNetTIN`` reuse, and its AlexNets); 3-D ``ConvBN3d`` pairs
+    keep ``.conv`` / ``.bn`` (MMAction2's ConvModule names). Leaves:
+    ``kernel`` -> ``weight`` in torch's layout (``_torch_leaf``), ``scale``
+    -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def leaves(node, stats, prefix):
+        for tree in (node, stats):
+            for leaf, value in tree.items():
+                if not hasattr(value, 'items'):
+                    sd[prefix + _LEAF_NAMES[leaf]] = _torch_leaf(leaf, value)
+
+    def walk(tree, stats, prefix):
+        for name, node in tree.items():
+            if not hasattr(node, 'items'):
+                continue
+            sub = stats.get(name, {})
+            if _is_convbn_2d(node):
+                m = re.fullmatch(r'conv(\d+)', name)
+                if m:
+                    conv, bn = f'conv{m.group(1)}', f'bn{m.group(1)}'
+                elif name == 'downsample':
+                    conv, bn = 'downsample.0', 'downsample.1'
+                else:
+                    raise KeyError(f'2-D ConvBN {prefix}{name}: no port name')
+                leaves(node['conv'], {}, f'{prefix}{conv}.')
+                if 'bn' in node:
+                    leaves(node['bn'], sub.get('bn', {}), f'{prefix}{bn}.')
+                continue
+            path = f'{prefix}{_module_name(name)}.'
+            leaves(node, sub, path)
+            walk(node, sub, path)
+
+    walk(params, batch_stats, '')
     return sd
 
 

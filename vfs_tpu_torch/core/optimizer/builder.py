@@ -22,7 +22,7 @@ linear warmup.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -150,16 +150,25 @@ class ChainedOptimizer:
     require a gradient (a missing gradient counts as zero, as ``jax.grad``
     gives). ``step`` applies one update at ``schedule(count)`` and advances
     ``count``; ``state_dict`` / ``load_state_dict`` carry the count and the
-    moments."""
+    moments. ``mults``, one (lr, weight decay) multiplier pair a parameter,
+    gives each parameter the chain of its group (``optax.multi_transform``
+    over chains that differ in those two numbers, as the TSM optimizer's
+    groups do)."""
 
     def __init__(self, params: Iterable[torch.Tensor], kind: str,
                  schedule: Schedule, weight_decay: float = 0.0,
                  momentum: float = 0.0, nesterov: bool = False,
                  betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, grad_clip: Optional[float] = None):
+                 eps: float = 1e-8, grad_clip: Optional[float] = None,
+                 mults: Optional[Sequence[Tuple[float, float]]] = None):
         if kind not in ('SGD', 'Adam', 'AdamW'):
             raise KeyError(f'unknown optimizer {kind}')
+        params = list(params)
+        mults = [(1.0, 1.0)] * len(params) if mults is None else list(mults)
+        if len(mults) != len(params):
+            raise ValueError('one (lr, weight decay) pair a parameter')
         self.params = [p for p in params if p.requires_grad]
+        self.mults = [m for p, m in zip(params, mults) if p.requires_grad]
         self.kind = kind
         self.schedule = schedule
         self.weight_decay = weight_decay
@@ -187,9 +196,10 @@ class ChainedOptimizer:
     @torch.no_grad()
     def step(self) -> float:
         """One update; returns the learning rate it used."""
-        lr = float(self.schedule(self.count))
-        wd = self.weight_decay
-        for p, g, moments in zip(self.params, self._grads(), self.moments):
+        base_lr = float(self.schedule(self.count))
+        for p, g, moments, (lr_mult, wd_mult) in zip(
+                self.params, self._grads(), self.moments, self.mults):
+            lr, wd = base_lr * lr_mult, self.weight_decay * wd_mult
             if self.kind == 'SGD':
                 u = g + wd * p if wd else g
                 if self.momentum:
@@ -213,7 +223,7 @@ class ChainedOptimizer:
                     u = u + wd * p
             p.add_(-lr * u)
         self.count += 1
-        return lr
+        return base_lr
 
     def state_dict(self) -> Dict:
         return dict(count=self.count, moments=self.moments)

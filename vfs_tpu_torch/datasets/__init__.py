@@ -8,6 +8,7 @@ from .builder import (DataLoader, EpochSampler, build_dataloader,
                       build_dataset, collate)
 from .dataset_wrappers import RepeatDataset
 from .davis_dataset import DavisDataset
+from .image_dataset import ImageDataset
 from .jhmdb_dataset import JHMDBDataset
 from .rawframe_dataset import RawframeDataset
 from .registry import DATASETS, PIPELINES
@@ -17,6 +18,7 @@ from .vip_dataset import VIPDataset
 __all__ = [
     'BaseDataset', 'DataLoader', 'EpochSampler', 'build_dataloader',
     'build_dataset', 'collate', 'RepeatDataset', 'DavisDataset',
-    'JHMDBDataset', 'RawframeDataset', 'VideoDataset', 'VIPDataset',
+    'ImageDataset', 'JHMDBDataset', 'RawframeDataset', 'VideoDataset',
+    'VIPDataset',
     'DATASETS', 'PIPELINES'
 ]

@@ -1,18 +1,26 @@
-from .augmentations import (ColorJitter, DeviceAug, Flip, Normalize,
-                            RandomGaussianBlur, RandomGrayScale,
-                            RandomResizedCrop, Resize)
+from .augmentations import (CenterCrop, ColorJitter, DeviceAug, Flip, Fuse,
+                            MultiGroupCrop, MultiScaleCrop, Normalize,
+                            RandomCrop, RandomGaussianBlur, RandomGrayScale,
+                            RandomResizedCrop, Resize, TenCrop, ThreeCrop)
 from .compose import Compose
-from .formating import Collect, FormatShape, ToTensor
-from .loading import (Clip2Frame, DecordDecode, DecordInit, Frame2Clip,
+from .formating import (Collect, FormatShape, ImageToTensor, ToDataContainer,
+                        ToTensor, Transpose)
+from .loading import (AppendFrames, Clip2Frame, DecordDecode, DecordInit,
+                      DenseSampleFrames, DuplicateFrames, Frame2Clip,
                       FrameSelector, OpenCVDecode, OpenCVInit, PyAVDecode,
                       PyAVInit, RawFrameDecode, RawFrameDecodeYUV420,
-                      SampleFrames, SequentialSampleFrames)
+                      RawImageDecode, SampleFrames, SequentialSampleFrames,
+                      UntrimmedSampleFrames)
 
 __all__ = [
-    'ColorJitter', 'DeviceAug', 'Flip', 'Normalize', 'RandomGaussianBlur',
-    'RandomGrayScale', 'RandomResizedCrop', 'Resize', 'Compose', 'Collect',
-    'FormatShape', 'ToTensor', 'Clip2Frame', 'DecordDecode', 'DecordInit',
-    'Frame2Clip', 'FrameSelector', 'OpenCVDecode', 'OpenCVInit',
-    'PyAVDecode', 'PyAVInit', 'RawFrameDecode',
-    'RawFrameDecodeYUV420', 'SampleFrames', 'SequentialSampleFrames'
+    'CenterCrop', 'ColorJitter', 'DeviceAug', 'Flip', 'Fuse',
+    'MultiGroupCrop', 'MultiScaleCrop', 'Normalize', 'RandomCrop',
+    'RandomGaussianBlur', 'RandomGrayScale', 'RandomResizedCrop', 'Resize',
+    'TenCrop', 'ThreeCrop', 'Compose', 'Collect', 'FormatShape',
+    'ImageToTensor', 'ToDataContainer', 'ToTensor', 'Transpose',
+    'AppendFrames', 'Clip2Frame', 'DecordDecode', 'DecordInit',
+    'DenseSampleFrames', 'DuplicateFrames', 'Frame2Clip', 'FrameSelector',
+    'OpenCVDecode', 'OpenCVInit', 'PyAVDecode', 'PyAVInit', 'RawFrameDecode',
+    'RawFrameDecodeYUV420', 'RawImageDecode', 'SampleFrames',
+    'SequentialSampleFrames', 'UntrimmedSampleFrames'
 ]

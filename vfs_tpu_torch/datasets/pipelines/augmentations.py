@@ -349,6 +349,209 @@ class RandomGaussianBlur:
 
 
 @PIPELINES.register_module()
+class CenterCrop:
+    """Center crop (reference augmentations.py:798-868)."""
+
+    def __init__(self, crop_size):
+        self.crop_size = (crop_size, crop_size) if isinstance(
+            crop_size, int) else tuple(crop_size)
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        crop_w, crop_h = self.crop_size
+        left = (img_w - crop_w) // 2
+        top = (img_h - crop_h) // 2
+        right, bottom = left + crop_w, top + crop_h
+        results['imgs'] = [img[top:bottom, left:right]
+                           for img in results['imgs']]
+        results['crop_bbox'] = np.array([left, top, right, bottom])
+        results['img_shape'] = (bottom - top, right - left)
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCrop:
+    """Fixed-size random crop (reference augmentations.py:97-170)."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        size = self.size
+        assert size <= img_h and size <= img_w
+        y_offset = np.random.randint(0, img_h - size + 1)
+        x_offset = np.random.randint(0, img_w - size + 1)
+        results['imgs'] = [
+            img[y_offset:y_offset + size, x_offset:x_offset + size]
+            for img in results['imgs']
+        ]
+        results['crop_bbox'] = np.array(
+            [x_offset, y_offset, x_offset + size, y_offset + size])
+        results['img_shape'] = (size, size)
+        return results
+
+
+@PIPELINES.register_module()
+class MultiScaleCrop:
+    """TSN-style multi-scale crop from fixed positions (reference
+    augmentations.py:338-487)."""
+
+    def __init__(self, input_size, scales=(1,), max_wh_scale_gap=1,
+                 random_crop=False, num_fixed_crops=5):
+        self.input_size = (input_size, input_size) if isinstance(
+            input_size, int) else tuple(input_size)
+        self.scales = scales
+        self.max_wh_scale_gap = max_wh_scale_gap
+        self.random_crop = random_crop
+        self.num_fixed_crops = num_fixed_crops
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        base_size = min(img_h, img_w)
+        crop_sizes = [int(base_size * s) for s in self.scales]
+        candidates = []
+        for i, h in enumerate(crop_sizes):
+            for j, w in enumerate(crop_sizes):
+                if abs(i - j) <= self.max_wh_scale_gap:
+                    candidates.append([w, h])
+        # reference draw order + the snap-to-input within 3px
+        # (augmentations.py:409-413); parity-tested draw-for-draw
+        crop_size = random.choice(candidates)
+        for i in range(2):
+            if abs(crop_size[i] - self.input_size[i]) < 3:
+                crop_size[i] = self.input_size[i]
+        crop_w, crop_h = crop_size
+        if self.random_crop:
+            x_offset = random.randint(0, img_w - crop_w)
+            y_offset = random.randint(0, img_h - crop_h)
+        else:
+            w_step = (img_w - crop_w) // 4
+            h_step = (img_h - crop_h) // 4
+            positions = [(0, 0), (4 * w_step, 0), (0, 4 * h_step),
+                         (4 * w_step, 4 * h_step), (2 * w_step, 2 * h_step)]
+            if self.num_fixed_crops == 13:
+                positions += [(0, 2 * h_step), (4 * w_step, 2 * h_step),
+                              (2 * w_step, 4 * h_step), (2 * w_step, 0),
+                              (1 * w_step, 1 * h_step),
+                              (3 * w_step, 1 * h_step),
+                              (1 * w_step, 3 * h_step),
+                              (3 * w_step, 3 * h_step)]
+            x_offset, y_offset = random.choice(positions)
+        results['imgs'] = [
+            img[y_offset:y_offset + crop_h, x_offset:x_offset + crop_w]
+            for img in results['imgs']
+        ]
+        results['crop_bbox'] = np.array(
+            [x_offset, y_offset, x_offset + crop_w, y_offset + crop_h])
+        results['img_shape'] = (crop_h, crop_w)
+        results['scales'] = self.scales
+        return results
+
+
+@PIPELINES.register_module()
+class ThreeCrop:
+    """Three crops along the longer side (reference
+    augmentations.py:868-939); triples the frame count."""
+
+    def __init__(self, crop_size):
+        self.crop_size = (crop_size, crop_size) if isinstance(
+            crop_size, int) else tuple(crop_size)
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        crop_w, crop_h = self.crop_size
+        assert crop_h == img_h or crop_w == img_w
+        if crop_h == img_h:
+            w_step = (img_w - crop_w) // 2
+            offsets = [(0, 0), (2 * w_step, 0), (w_step, 0)]
+        else:
+            h_step = (img_h - crop_h) // 2
+            offsets = [(0, 0), (0, 2 * h_step), (0, h_step)]
+        cropped = []
+        for x, y in offsets:
+            cropped.extend(
+                [img[y:y + crop_h, x:x + crop_w]
+                 for img in results['imgs']])
+        results['imgs'] = cropped
+        results['img_shape'] = (crop_h, crop_w)
+        results['num_clips'] = results['num_clips'] * 3
+        return results
+
+
+@PIPELINES.register_module()
+class TenCrop:
+    """Four corners + center, flipped and not (reference
+    augmentations.py:939-1008); 10x the frame count."""
+
+    def __init__(self, crop_size):
+        self.crop_size = (crop_size, crop_size) if isinstance(
+            crop_size, int) else tuple(crop_size)
+
+    def __call__(self, results):
+        img_h, img_w = results['img_shape']
+        crop_w, crop_h = self.crop_size
+        w_step = (img_w - crop_w) // 4
+        h_step = (img_h - crop_h) // 4
+        offsets = [(0, 0), (4 * w_step, 0), (0, 4 * h_step),
+                   (4 * w_step, 4 * h_step), (2 * w_step, 2 * h_step)]
+        cropped = []
+        for x, y in offsets:
+            crops = [img[y:y + crop_h, x:x + crop_w]
+                     for img in results['imgs']]
+            flipped = [np.flip(c, axis=1).copy() for c in crops]
+            cropped.extend(crops)
+            cropped.extend(flipped)
+        results['imgs'] = cropped
+        results['img_shape'] = (crop_h, crop_w)
+        results['num_clips'] = results['num_clips'] * 10
+        return results
+
+
+@PIPELINES.register_module()
+class MultiGroupCrop:
+    """``groups`` independent random crops of the whole clip, concatenated
+    along the frame axis (reference augmentations.py:1008-1072)."""
+
+    def __init__(self, crop_size, groups):
+        self.crop_size = (crop_size, crop_size) if isinstance(
+            crop_size, int) else tuple(crop_size)
+        if not isinstance(groups, int) or groups <= 0:
+            raise ValueError(f'groups must be a positive int, got {groups}')
+        self.groups = groups
+
+    def __call__(self, results):
+        imgs = results['imgs']
+        img_h, img_w = imgs[0].shape[:2]
+        crop_w, crop_h = self.crop_size
+        crops, bboxes = [], []
+        for _ in range(self.groups):
+            left = np.random.randint(0, img_w - crop_w + 1)
+            top = np.random.randint(0, img_h - crop_h + 1)
+            bbox = [left, top, left + crop_w, top + crop_h]
+            crops.extend(img[top:top + crop_h, left:left + crop_w]
+                         for img in imgs)
+            bboxes.extend([bbox] * len(imgs))
+        results['imgs'] = crops
+        results['crop_bbox'] = np.array(bboxes)
+        results['img_shape'] = crops[0].shape[:2]
+        return results
+
+
+@PIPELINES.register_module()
+class Fuse:
+    """Config-compatibility no-op (reference augmentations.py:53-94 resolves
+    accumulated lazy crops and flips; every geometric step here applies
+    eagerly, so there is nothing left to fuse)."""
+
+    def __call__(self, results):
+        if results.get('lazy'):
+            raise RuntimeError('lazy pipeline steps are not supported; '
+                               'every step applies eagerly')
+        return results
+
+
+@PIPELINES.register_module()
 class DeviceAug:
     """Host side of on-device augmentation (``vfs_tpu_torch.ops.device_aug``):
     resize the decoded frames to a fixed uint8 staging size (cv2

@@ -1,5 +1,4 @@
-"""Output formatting of the eval pipeline (counterpart of
-``FormatShape``, ``Collect`` and ``ToTensor`` in
+"""Output formatting of the pipelines (counterpart of
 ``vfs_tpu/datasets/pipelines/formating.py``; reference:
 mmaction/datasets/pipelines/formating.py).
 
@@ -73,3 +72,45 @@ class ToTensor:
         for key in self.keys:
             results[key] = np.asarray(results[key])
         return results
+
+
+@PIPELINES.register_module()
+class Transpose:
+
+    def __init__(self, keys, order):
+        self.keys = keys
+        self.order = order
+
+    def __call__(self, results):
+        for key in self.keys:
+            results[key] = np.transpose(results[key], self.order)
+        return results
+
+
+@PIPELINES.register_module()
+class ImageToTensor:
+    """Materialise image keys as contiguous arrays. The reference
+    (formating.py:89-112) transposes HWC to CHW; the port keeps the
+    channels-last layout at its seams, so the layout stays HWC."""
+
+    def __init__(self, keys):
+        self.keys = keys
+
+    def __call__(self, results):
+        for key in self.keys:
+            results[key] = np.ascontiguousarray(results[key])
+        return results
+
+
+@PIPELINES.register_module()
+class ToDataContainer:
+    """Config-compatibility no-op (reference formating.py:59-88 wraps
+    fields in mmcv's DataContainer for its collate; the port collates
+    plain numpy dicts, so the fields pass through)."""
+
+    def __init__(self, fields=None):
+        self.fields = fields
+
+    def __call__(self, results):
+        return results
+

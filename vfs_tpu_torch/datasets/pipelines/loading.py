@@ -404,6 +404,124 @@ class RawFrameDecodeYUV420(RawFrameDecode):
         return self._load_labels(results, packed.hw)
 
 
+@PIPELINES.register_module()
+class DuplicateFrames:
+    """Duplicate each clip ``times`` times (reference loading.py:190-206)."""
+
+    def __init__(self, times=2):
+        self.times = times
+
+    def __call__(self, results):
+        frame_inds = results['frame_inds'].reshape(-1, results['clip_len'])
+        frame_inds = np.tile(frame_inds, (1, self.times)).reshape(-1)
+        results['frame_inds'] = frame_inds
+        results['num_clips'] *= self.times
+        return results
+
+
+@PIPELINES.register_module()
+class DenseSampleFrames(SampleFrames):
+    """Dense sampling within a 64-frame window (reference
+    loading.py:343-430)."""
+
+    def __init__(self, *args, sample_range=64, num_sample_positions=10,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.sample_range = sample_range
+        self.num_sample_positions = num_sample_positions
+
+    def _get_train_clips(self, num_frames):
+        sample_position = max(1, 1 + num_frames - self.sample_range)
+        interval = self.sample_range // self.num_clips
+        start_idx = 0 if sample_position == 1 else np.random.randint(
+            0, sample_position - 1)
+        base_offsets = np.arange(self.num_clips) * interval
+        return (base_offsets + start_idx) % num_frames
+
+    def _get_test_clips(self, num_frames):
+        sample_position = max(1, 1 + num_frames - self.sample_range)
+        interval = self.sample_range // self.num_clips
+        start_list = np.linspace(0, sample_position - 1,
+                                 num=self.num_sample_positions, dtype=int)
+        base_offsets = np.arange(self.num_clips) * interval
+        clip_offsets = np.concatenate(
+            [(base_offsets + start_idx) % num_frames
+             for start_idx in start_list])
+        return clip_offsets
+
+
+@PIPELINES.register_module()
+class UntrimmedSampleFrames:
+    """Evenly spaced clips over an untrimmed video (reference
+    loading.py:294-342)."""
+
+    def __init__(self, clip_len=1, frame_interval=16, start_index=1):
+        # unlike SampleFrames, the reference kept start_index a TRANSFORM
+        # arg here, default 1 (loading.py:317) — not the dataset's value
+        self.clip_len = clip_len
+        self.frame_interval = frame_interval
+        self.start_index = start_index
+
+    def __call__(self, results):
+        total_frames = results['total_frames']
+        start_index = self.start_index
+        clip_centers = np.arange(self.frame_interval // 2, total_frames,
+                                 self.frame_interval)
+        num_clips = clip_centers.shape[0]
+        frame_inds = clip_centers[:, None] + np.arange(
+            -(self.clip_len // 2), self.clip_len -
+            (self.clip_len // 2))[None, :]
+        frame_inds = np.clip(frame_inds, 0, total_frames - 1)
+        frame_inds = np.concatenate(frame_inds) + start_index
+        results['frame_inds'] = frame_inds.astype(np.int64)
+        results['clip_len'] = self.clip_len
+        results['frame_interval'] = self.frame_interval
+        results['num_clips'] = num_clips
+        return results
+
+
+@PIPELINES.register_module()
+class AppendFrames:
+    """Append the first frames to pad short clips (reference
+    loading.py:236-260)."""
+
+    def __init__(self, num_append=1):
+        self.num_append = num_append
+
+    def __call__(self, results):
+        frame_inds = results['frame_inds']
+        results['frame_inds'] = np.concatenate(
+            [frame_inds, frame_inds[:self.num_append]])
+        results['clip_len'] += self.num_append
+        return results
+
+
+@PIPELINES.register_module()
+class RawImageDecode:
+    """Load a single image as a 1-frame video (reference
+    loading.py:1105-1160)."""
+
+    def __init__(self, io_backend='disk', **kwargs):
+        assert io_backend == 'disk'
+
+    def __call__(self, results):
+        import cv2
+        img = cv2.imread(results['filename'], cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError(f"cannot read {results['filename']}")
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        n = max(int(results.get('clip_len', 1)) *
+                int(results.get('num_clips', 1)), 1)
+        results['imgs'] = [img.copy() for _ in range(n)]
+        results['original_shape'] = img.shape[:2]
+        results['img_shape'] = img.shape[:2]
+        results.setdefault('frame_inds', np.zeros(n, np.int64))
+        results.setdefault('clip_len', 1)
+        results.setdefault('num_clips', n)
+        return results
+
+
+
 def draw_label_map(img, pt, sigma):
     """Draw an unnormalised 2-D gaussian centred at ``pt`` (x, y) into
     ``img`` in place (reference loading.py:1077-1103, JHMDB pose

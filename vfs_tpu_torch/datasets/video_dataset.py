@@ -14,8 +14,8 @@ from .registry import DATASETS
 
 @DATASETS.register_module()
 class VideoDataset(BaseDataset):
-    """ann_file lines: ``video_path [label ...]`` (Kinetics-400 for
-    pretraining)."""
+    """ann_file lines: ``video_path [label ...]`` (Kinetics-400, for
+    pretraining and recognition)."""
 
     def __init__(self, ann_file, pipeline, start_index=0, **kwargs):
         super().__init__(ann_file, pipeline, start_index=start_index,
@@ -44,7 +44,25 @@ class VideoDataset(BaseDataset):
                 video_infos.append(dict(filename=filename, label=label))
         return video_infos
 
-    def evaluate(self, results, metrics='top_k_accuracy', **kwargs):
-        raise NotImplementedError(
-            'recognition metrics come with the MMAction2 surface '
-            '(ROADMAP Queue 1 item 7)')
+    def evaluate(self, results, metrics='top_k_accuracy', topk=(1, 5),
+                 logger=None):
+        """Recognition metrics of ``results`` (one score vector a video,
+        in dataset order): ``top{k}_acc`` for each k of ``topk`` and
+        ``mean_class_accuracy``."""
+        from ..core.evaluation.accuracy import (mean_class_accuracy,
+                                                top_k_accuracy)
+        metrics = metrics if isinstance(metrics, (list, tuple)) \
+            else [metrics]
+        gt_labels = [info['label'] for info in self.video_infos]
+        eval_results = {}
+        for metric in metrics:
+            if metric == 'top_k_accuracy':
+                accs = top_k_accuracy(results, gt_labels, topk)
+                for k, acc in zip(topk, accs):
+                    eval_results[f'top{k}_acc'] = acc
+            elif metric == 'mean_class_accuracy':
+                eval_results['mean_class_accuracy'] = mean_class_accuracy(
+                    results, gt_labels)
+            else:
+                raise KeyError(f'metric {metric} is not supported')
+        return eval_results

@@ -39,3 +39,14 @@ def exact_fp32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def to_channels_last(module: torch.nn.Module) -> torch.nn.Module:
+    """Give ``module``'s 4-D parameters and buffers the channels_last
+    memory format and its 5-D ones channels_last_3d (cuDNN's NHWC and NDHWC
+    convolutions); the others stay as they are."""
+    formats = {4: torch.channels_last, 5: torch.channels_last_3d}
+    for t in list(module.parameters()) + list(module.buffers()):
+        if t.dim() in formats:
+            t.data = t.data.contiguous(memory_format=formats[t.dim()])
+    return module

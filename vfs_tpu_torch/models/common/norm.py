@@ -1,7 +1,7 @@
 """BatchNorm with flax's training semantics (the ``nn.BatchNorm`` of the
-JAX package's ``ConvBN``, ``MLPBlock`` and heads).
+JAX package's ``ConvBN``, ``ConvBN3d``, ``MLPBlock`` and heads).
 
-The classes subclass ``nn.BatchNorm1d`` / ``nn.BatchNorm2d``, so their
+The classes subclass ``nn.BatchNorm1d`` / ``2d`` / ``3d``, so their
 parameters and buffers keep torch's names (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``) and every
 state dict and checkpoint bridge stays valid. In eval mode they are
@@ -39,10 +39,12 @@ FLAX_MOMENTUM = 0.9
 
 
 class _FlaxBatchNorm:
-    """Training-mode forward shared by the 1-d and 2-d classes (the
-    channel axis is 1 in both)."""
+    """Training-mode forward shared by the 1-d, 2-d and 3-d classes (the
+    channel axis is 1 in all)."""
 
     process_group = None
+    # flax's momentum; the SiamFC AlexNets' BatchNorm takes 0.95
+    flax_momentum = FLAX_MOMENTUM
     # False while a checkpointed block recomputes its forward in the
     # backward pass: the running statistics were updated once already
     update_stats = True
@@ -66,7 +68,7 @@ class _FlaxBatchNorm:
         var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
         if self.update_stats and self.track_running_stats:
             with torch.no_grad():
-                m = FLAX_MOMENTUM
+                m = self.flax_momentum
                 self.running_mean.copy_(m * self.running_mean
                                         + (1 - m) * mean.detach())
                 self.running_var.copy_(m * self.running_var
@@ -92,6 +94,25 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     """(N, C, H, W) BatchNorm with flax's training semantics."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """(N, C, T, H, W) BatchNorm with flax's training semantics (the 3-D
+    recognition backbones)."""
+
+
+class NormEvalModule(nn.Module):
+    """A backbone whose ``norm_eval`` keeps every BatchNorm on its running
+    statistics in training mode."""
+    norm_eval = False
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
 
 def set_sync_group(module: nn.Module, group) -> None:

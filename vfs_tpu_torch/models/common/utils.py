@@ -62,11 +62,11 @@ def flax_default_init(module: nn.Module,
                       generator: Optional[torch.Generator] = None) -> None:
     """flax's default initialisers over ``module``: lecun-normal kernels
     (normal truncated at two standard deviations, scaled to a variance of
-    1 / fan_in) for convolutions and linear layers, zero biases, BatchNorm
-    scale 1 and shift 0, running statistics reset."""
+    1 / fan_in) for convolutions of any rank and linear layers, zero
+    biases, BatchNorm scale 1 and shift 0, running statistics reset."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.modules.conv._ConvNd, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 # flax divides by the truncated normal's standard deviation
                 std = math.sqrt(1.0 / fan_in) / .87962566103423978
@@ -78,3 +78,16 @@ def flax_default_init(module: nn.Module,
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.reset_running_stats()
+
+
+def flax_module_init(module: nn.Module,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """``flax_default_init``, then each submodule's own initialisers where
+    the JAX module gives some (a ``flax_init(generator)`` method: a
+    classifier's ``normal(init_std)``, a zero-initialised BatchNorm scale),
+    in module order."""
+    flax_default_init(module, generator)
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, 'flax_init'):
+                m.flax_init(generator)

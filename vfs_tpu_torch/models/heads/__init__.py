@@ -1,3 +1,6 @@
+from .recognition_heads import (I3DHead, SlowFastHead, TSMHead, TSNHead,
+                                dropout, head_loss)
 from .sim_siam_head import DenseSimSiamHead, MLPBlock, SimSiamHead
 
-__all__ = ['DenseSimSiamHead', 'MLPBlock', 'SimSiamHead']
+__all__ = ['DenseSimSiamHead', 'dropout', 'head_loss', 'I3DHead', 'MLPBlock',
+           'SimSiamHead', 'SlowFastHead', 'TSMHead', 'TSNHead']

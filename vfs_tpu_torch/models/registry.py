@@ -1,5 +1,5 @@
 """Model registries (counterpart of ``vfs_tpu/models/registry.py``; the
-recognizer and localizer registries come with the MMAction2 slice)."""
+localizer registry comes with the localization slice)."""
 
 from ..utils import Registry
 
@@ -7,3 +7,4 @@ BACKBONES = Registry('backbone')
 HEADS = Registry('head')
 LOSSES = Registry('loss')
 TRACKERS = Registry('tracker')
+RECOGNIZERS = Registry('recognizer')

@@ -57,12 +57,13 @@ def _uniform(shape, low: float, high: float,
                       device=generator.device) * (high - low) + low
 
 
-def step_seed(seed: int, rank: int, step: int) -> int:
+def step_seed(seed: int, rank: int, step: int, *stream: int) -> int:
     """The seed of one train step's augmentation draws: ranks draw apart,
     and a resumed run draws at step ``s`` what an uninterrupted one
-    would (the JAX package folds the step into a per-process key)."""
-    state = np.random.SeedSequence([seed, rank, step]).generate_state(
-        1, np.uint64)
+    would (the JAX package folds the step into a per-process key).
+    ``stream`` names another stream of the step (the heads' dropout)."""
+    state = np.random.SeedSequence(
+        [seed, rank, step, *stream]).generate_state(1, np.uint64)
     return int(state[0] >> np.uint64(1))
 
 

@@ -14,6 +14,6 @@ the CUDA card unless ``--device cpu`` (``bench_processing`` is host-only).
 - ``bench_track``: SiamFC's five tracking modes, fps and box agreement.
 - ``analyze_logs``: ``cal_train_time`` and ``plot_curve`` over the
   training JSONL.
-
-``report_accuracy`` (recognition metrics) waits for the MMAction2 surface.
+- ``report_accuracy``: top-1, top-5 and mean class accuracy of a weighted
+  fusion of recognition score files (host-only).
 """

@@ -6,10 +6,11 @@ Usage:
         [--auto-resume] [--validate] [--options k=v ...] [--device cpu] \\
         [--launcher pytorch] [--profile N] [--disable-wandb]
 
-Runs on CUDA unless ``--device`` says otherwise, and raises when there is
-no GPU and no ``--device cpu``. ``--launcher pytorch`` joins the process
-group that torchrun's environment describes (one process per GPU, NCCL;
-gloo with ``--device cpu``).
+Trains a tracker (self-supervised) or a recognizer (on the labels of its
+clips). Runs on CUDA unless ``--device`` says otherwise, and raises when
+there is no GPU and no ``--device cpu``. ``--launcher pytorch`` joins the
+process group that torchrun's environment describes (one process per
+GPU, NCCL; gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ import os
 from typing import Optional, Sequence
 
 from .test import local_devices_arg, local_devices
+
+# the JAX package's localizers (vfs_tpu/apis/train_localizer.py), which the
+# port does not have yet
+LOCALIZER_TYPES = ('BMN', 'TEM', 'PEM', 'SSN')
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -65,7 +70,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..apis.train import apply_mixed_precision, train_model
     from ..datasets import build_dataset
     from ..device import resolve_device
-    from ..models import TRACKERS, build_model
+    from ..models import build_model
     from ..parallel import init_dist
     from ..utils import (Config, collect_env, get_root_logger,
                          parse_options, set_random_seed)
@@ -109,11 +114,10 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg.dump(os.path.join(cfg.work_dir, os.path.basename(args.config)))
     set_random_seed(args.seed)
 
-    if cfg.model.get('type') not in TRACKERS:
+    if cfg.model.get('type') in LOCALIZER_TYPES:
         raise NotImplementedError(
-            f"training {cfg.model.get('type')!r}: recognizer and localizer "
-            'training come with the MMAction2 surface (ROADMAP Queue 1 item '
-            '7)')
+            f"training {cfg.model.get('type')!r}: localizer training comes "
+            'with the localization slice (ROADMAP Queue 1 item 7b)')
     apply_mixed_precision(cfg)
     model = build_model(cfg.model, train_cfg=cfg.get('train_cfg'),
                         test_cfg=cfg.get('test_cfg'))
