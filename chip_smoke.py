@@ -214,7 +214,7 @@ Phases, one JSON line each on stdout:
    against ``pallas_fp32`` over ``MODE_AGREEMENT``), ``profile_kernel``,
    ``bench_track``'s five modes on the siamfc fixture (boxes within
    2.0 px of ``host_seq``), ``bench_extract``, ``get_flops``,
-   ``benchmark``, ``bench_pretrain`` (5 steps on 16-frame clips), again
+   ``benchmark``, ``bench_pretrain`` (3 steps on 16-frame clips), again
    with ``--device-aug`` on the ``_deviceaug`` config (slice 11), and
    ``analyze_logs``.
 14. recognition: slice 12's path, action recognition (ROADMAP item 7a),
@@ -243,7 +243,35 @@ Phases, one JSON line each on stdout:
    and their flips of every clip, each scored by
    ``VideoDataset.evaluate``). None of the four hand-written kernels may
    launch in the phase.
-15. kernels: every kernel with its launches on its path, times, bound
+15. localization: slice 13's path, temporal action localization (ROADMAP
+   item 7b), five lines (``part``). ``train_bmn``: MMAction2 v0.6.0's
+   BMN recipe at its published width (``bmn_cfg``: T=100, 400 features,
+   32 samples of 3 a bin, hidden 256/128/512, 8 videos a step, Adam at
+   the lr scaled to one card) with seeded weights, through ``python -m
+   vfs_tpu_torch.tools.train`` in-process on ``write_activitynet``'s 16
+   synthetic videos for ``BMN_EPOCHS`` epochs (2 loader processes):
+   losses finite, a checkpoint an epoch; steps/s end to end; the
+   device-only step (median of ``BMN_TIMED_STEPS`` CUDA-event-timed
+   steps on a batch on the card), its peak memory, ``train_mfu`` against
+   ``bmn_flops``' count from the code, ``device_breakdown`` by
+   ``LOC_KERNEL_KINDS`` and the boundary-matching product alone
+   (``bm_product_ms``). ``infer_bmn``: the trained model on two videos,
+   the forward, the host decode (``decode_proposals``, soft NMS) in ms a
+   video and ``ActivityNetDataset.evaluate``'s AR@1/5/10/100 and AUC
+   (synthetic: printed). ``bsn``: TEM one step at its width (hidden 512,
+   16 videos), its scores dumped as TEM result CSVs, PGM proposals and
+   BSP features by ``tools.bsn_proposal_generation`` (``BSN_WORKERS``
+   processes), then ``PEM_EPOCHS`` PEM steps. ``ssn``: SSN with a
+   ResNet-50 (2048 channels, 20 classes, STPP (1, 1, 1) over (2, 5, 2)
+   segments, the 8-proposal sampler; 72 crops of 224x224 a step) for an
+   epoch of two THUMOS-layout videos, then ``SSN.forward_test`` (the
+   test-time STPP) on each and ``SSNDataset.evaluate``'s mAP (printed).
+   ``card_vs_cpu``: BMN, TEM, PEM and SSN (ResNet-18) at a small size,
+   the forward, the loss and all the gradients as one vector on the card
+   and on the CPU (the train phase's rule; fp64 within 1e-10; the
+   losses' uniform draws given). None of the four hand-written kernels
+   may launch in the phase.
+16. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
    path's, the demo's, the train phase's eval hook's, the learning loop's
    and the bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
@@ -253,8 +281,9 @@ Phases, one JSON line each on stdout:
    full lines also give the share of the computed pairs the function
    needs, from the core's pass rule. Times of an earlier checkout come
    from ``ab_kernels.py``, which runs both checkouts in one call.) Its
-   ``paths_without_kernels`` names the recognition path, which launches
-   none. A ``total`` line before it gives the script's seconds.
+   ``paths_without_kernels`` names the recognition and localization
+   paths, which launch none. A ``total`` line before it gives the
+   script's seconds and each phase's (``phase_seconds``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Without a CUDA device the script exits 2.
@@ -382,8 +411,9 @@ EDGE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
                     (13, 45, 4, 5.0, (1, 0, 1), 10, 4),
                     (10, 37, 260, 12.0, (1, 1), 32, 4),
                     (9, 40, 8, 32.0, (0, 1, 1), 32, 16)]
-# warm JHMDB evals timed after the counted one (pose phase)
-POSE_REPEATS = 4
+# warm JHMDB evals timed after the counted one (pose phase; 4 until the
+# localization phase took the script past 1000 s)
+POSE_REPEATS = 2
 # rows 3 and 4 on banks of mostly invalid slots: one valid slot of 21, 17
 # of 21, and no valid slot (fillers only)
 ONE_OF_21 = tuple(int(f == 13) for f in range(21))
@@ -2437,11 +2467,12 @@ KERNEL_KINDS = (('conv', ('conv', 'cudnn', 'xmma', 'wgrad', 'dgrad',
                 ('elementwise', ('elementwise', 'vectorized', 'unrolled')))
 
 
-def device_breakdown(step, batch, steps=3):
+def device_breakdown(step, batch, steps=3, kind_keys=KERNEL_KINDS):
     """``torch.profiler``'s kernel times over ``steps`` train steps: the
     card's busy ms a step, its idle share of the steps' wall (the
     profiler's own cost included), the ms a step by kind of kernel (by
-    name) and the top kernels. None where it shows no device time."""
+    name, the first of ``kind_keys`` whose keys it holds) and the top
+    kernels. None where it shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2466,7 +2497,7 @@ def device_breakdown(step, batch, steps=3):
     kinds = {}
     for ms, name, _ in kernels:
         low = name.lower()
-        kind = next((k for k, keys in KERNEL_KINDS
+        kind = next((k for k, keys in kind_keys
                      if any(key in low for key in keys)), 'other')
         kinds[kind] = kinds.get(kind, 0.0) + ms
     kernels.sort(reverse=True)
@@ -3913,7 +3944,7 @@ def phase_analysis(dev, smi_line):
     tracking fixture's shape (every device and batch mode within
     TRACK_GATES['box_agreement_px'] of host_seq), bench_extract,
     get_flops (r18, r50), benchmark (the eval phase's r50 DAVIS set, one
-    video after a warm-up), bench_pretrain (the r18 config, 5 steps, on
+    video after a warm-up), bench_pretrain (the r18 config, 3 steps, on
     K400_CLIPS clips) and analyze_logs (cal_train_time; plot_curve where
     matplotlib is installed, whose version the line gives)."""
     from vfs_tpu_torch.ops import local_topk_attend_cuda
@@ -3970,7 +4001,7 @@ def phase_analysis(dev, smi_line):
         res = benchmark.main([CONFIG_R50, ckpt, '--num-videos', '1',
                               '--options', *data])
         emit({'phase': 'analysis', 'cli': 'benchmark', **res})
-        k400 = ['--steps', '5', '--num-videos', str(K400_CLIPS),
+        k400 = ['--steps', '3', '--num-videos', str(K400_CLIPS),
                 '--video-frames', str(K400_FRAMES), '--data-dir',
                 os.path.join(root, 'k400')]
         res = bench_pretrain.main(k400)
@@ -4007,10 +4038,11 @@ def phase_analysis(dev, smi_line):
 # small size (the train phase's tolerances); the demo and the report
 RECOG_BATCH, RECOG_SEGMENTS, RECOG_CROP, RECOG_CLIP_FRAMES = 8, 8, 224, 32
 RECOG_WORKERS = 4
-# the train epoch: RECOG_REPEAT passes over the clips; its end-to-end rate
-# over the last RECOG_E2E_STEPS steps, once the batches that the loader
-# built during the first step's start-up are used up
-RECOG_REPEAT, RECOG_E2E_STEPS = 4, 8
+# the train epoch: RECOG_REPEAT passes over the clips (8 steps; 16 until
+# the localization phase took the script past 1000 s); its end-to-end
+# rate over the last RECOG_E2E_STEPS steps, once the batches that the
+# loader built during the first step's start-up are used up
+RECOG_REPEAT, RECOG_E2E_STEPS = 2, 4
 RECOG_TIMED_STEPS, RECOG_WARMUP_STEPS = 5, 2
 RECOG_NORM = dict(mean=[123.675, 116.28, 103.53],
                   std=[58.395, 57.12, 57.375], to_bgr=False)
@@ -4527,6 +4559,690 @@ def phase_recognition(dev, smi_line):
     return seconds
 
 
+# slice 13's localization path (module docstring, phase 15): MMAction2
+# v0.6.0's BMN, BSN (TEM, PEM) and SSN recipes at full width with seeded
+# weights on synthetic ActivityNet-layout features and THUMOS-layout
+# frames written under build/
+LOC_VIDEOS, LOC_TSCALE, LOC_FEAT = 16, 100, 400
+# BMN: videos a step (bmn_400x100_2x8: 8 a card), epochs of
+# LOC_VIDEOS / 8 steps, device-only steps timed after warm-up ones, and the
+# videos decoded and evaluated after training
+BMN_BATCH, BMN_EPOCHS = 8, 4
+BMN_TIMED_STEPS, BMN_WARMUP_STEPS = 5, 2
+BMN_INFER_VIDEOS = 2
+# TEM and PEM: videos a step (bsn_*_1x16: 16 on one card), PEM's epochs
+# and the BSN proposal tool's worker processes; SSN: one epoch over the
+# two THUMOS videos of the proposal file, a video a step
+BSN_BATCH, PEM_EPOCHS, BSN_WORKERS = 16, 3, 4
+# BMN's kernels by kind: cuDNN's convolutions (implicit GEMMs, FFT
+# products of complex fp32, layout transforms) apart from the
+# boundary-matching product's cuBLAS GEMMs
+LOC_KERNEL_KINDS = (('conv', ('implicit_gemm', 'conv', 'cudnn', 'wgrad',
+                              'dgrad', 'fprop', 'fft', 'cf32')),
+                    ('product', ('gemm', 'cublas', 'cutlass')),
+                    ('reduce', ('reduce',)),
+                    ('elementwise', ('elementwise', 'vectorized',
+                                     'unrolled')))
+SSN_HW = 224
+SSN_NORM = dict(mean=[104.0, 117.0, 128.0], std=[1.0, 1.0, 1.0],
+                to_bgr=True)
+SSN_TRAIN_CFG = dict(ssn=dict(
+    assigner=dict(positive_iou_threshold=0.7, background_iou_threshold=0.01,
+                  incomplete_iou_threshold=0.3,
+                  background_coverage_threshold=0.02,
+                  incomplete_overlap_threshold=0.01),
+    sampler=dict(num_per_video=8, positive_ratio=1, background_ratio=1,
+                 incomplete_ratio=6, add_gt_as_proposals=True),
+    loss_weight=dict(comp_loss_weight=0.1, reg_loss_weight=0.1)))
+SSN_TEST_CFG = dict(ssn=dict(
+    sampler=dict(test_interval=6, batch_size=16),
+    evaluater=dict(top_k=2000, nms=0.2, softmax_before_filter=True,
+                   cls_top_k=2)))
+# the THUMOS-layout proposal file (tests/test_data/test_ssn.py's): two
+# videos of 300 and 200 frames, their ground truth and proposals
+SSN_PROPOSALS = """# 0
+video_a
+1
+300
+2
+1 30 90
+2 150 240
+4
+1 0.85 0.9 35 95
+1 0.2 0.8 10 40
+2 0.9 0.95 145 235
+0 0.0 0.0 250 290
+# 1
+video_b
+1
+200
+1
+3 50 120
+3
+3 0.75 0.8 55 130
+3 0.1 0.9 60 80
+0 0.0 0.0 150 190
+"""
+SSN_FRAMES = (('video_a', 300), ('video_b', 200))
+
+
+def write_activitynet(root, seed=0):
+    """An ActivityNet-layout fixture (``tests/test_core/
+    test_localization_train.py::make_activitynet`` at full width,
+    LOC_VIDEOS videos of LOC_TSCALE x LOC_FEAT): the JSON database and a
+    feature CSV a video whose features rise inside the annotated segment.
+    Returns the annotation file."""
+    n_videos, tscale, feat_dim = LOC_VIDEOS, LOC_TSCALE, LOC_FEAT
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    database = {}
+    for i in range(n_videos):
+        name = f'v_test{i:02d}'
+        dur = 100.0
+        start = float(rng.uniform(0.1, 0.5)) * dur
+        end = start + float(rng.uniform(0.2, 0.4)) * dur
+        feats = rng.randn(tscale, feat_dim).astype(np.float32) * 0.1
+        lo = int(start / dur * tscale)
+        feats[lo:max(lo + 1, int(end / dur * tscale)), :] += 1.0
+        np.savetxt(os.path.join(root, name + '.csv'), feats, fmt='%.4f',
+                   delimiter=',', comments='',
+                   header=','.join(f'f{j}' for j in range(feat_dim)))
+        database[name] = dict(
+            duration_second=dur, duration_frame=3000, feature_frame=2996,
+            annotations=[dict(segment=[start, end], label='Test')],
+            fps=30.0, rfps=29.97)
+    ann = os.path.join(root, 'anno.json')
+    with open(ann, 'w') as f:
+        json.dump(database, f)
+    return ann
+
+
+def _anet_data(ann, prefix, batch, workers, keys=('raw_feature', 'gt_bbox')):
+    pipeline = [dict(type='LoadLocalizationFeature'),
+                dict(type='GenerateLocalizationLabels'),
+                dict(type='Collect', keys=list(keys),
+                     meta_keys=('video_name',))]
+    return dict(videos_per_gpu=batch, workers_per_gpu=workers,
+                train=dict(type='ActivityNetDataset', ann_file=ann,
+                           data_prefix=prefix, pipeline=pipeline))
+
+
+def bmn_cfg(ann, prefix, work):
+    """MMAction2 v0.6.0 configs/localization/bmn/
+    bmn_400x100_2x8_9e_activitynet_feature.py as a dict: its model, train
+    pipeline, batch and optimizer (Adam, decay 1e-4, step at epoch 7), cut
+    to BMN_EPOCHS epochs over the fixture. Its lr 0.001 is for 2 cards of
+    8 videos; one card takes the linear scaling rule, 0.001 x 8 / 16."""
+    return dict(
+        model=dict(type='BMN', temporal_dim=LOC_TSCALE, boundary_ratio=0.5,
+                   num_samples=32, num_samples_per_bin=3, feat_dim=LOC_FEAT,
+                   soft_nms_alpha=0.4, soft_nms_low_threshold=0.5,
+                   soft_nms_high_threshold=0.9, post_process_top_k=100),
+        data=_anet_data(ann, prefix, BMN_BATCH, 2),
+        optimizer=dict(type='Adam', lr=0.001 * BMN_BATCH / 16,
+                       weight_decay=0.0001),
+        optimizer_config=dict(grad_clip=None),
+        lr_config=dict(policy='step', step=7), total_epochs=BMN_EPOCHS,
+        checkpoint_config=dict(interval=1), log_config=dict(interval=1),
+        work_dir=work, seed=0)
+
+
+def tem_cfg(ann, prefix, work):
+    """MMAction2 v0.6.0 configs/localization/bsn/
+    bsn_tem_400x100_1x16_20e_activitynet_feature.py: TEM (hidden 512), 16
+    videos a step on one card, Adam lr 0.001, decay 1e-4; one epoch."""
+    return dict(
+        model=dict(type='TEM', temporal_dim=LOC_TSCALE, boundary_ratio=0.1,
+                   tem_feat_dim=LOC_FEAT, tem_hidden_dim=512,
+                   tem_match_threshold=0.5),
+        data=_anet_data(ann, prefix, BSN_BATCH, 2),
+        optimizer=dict(type='Adam', lr=0.001, weight_decay=0.0001),
+        lr_config=dict(policy='step', step=7), total_epochs=1,
+        log_config=dict(interval=1), work_dir=work, seed=0)
+
+
+def pem_cfg(ann, prefix, pgm_dir, feat_dir, work):
+    """MMAction2 v0.6.0 configs/localization/bsn/
+    bsn_pem_400x100_1x16_20e_activitynet_feature.py: PEM (32 BSP features,
+    hidden 256) on the first 500 PGM proposals a video, 16 videos a step,
+    Adam lr 0.01, decay 1e-5; PEM_EPOCHS epochs."""
+    return dict(
+        model=dict(type='PEM', pem_feat_dim=32, pem_hidden_dim=256,
+                   pem_u_ratio_m=1, pem_u_ratio_l=2,
+                   pem_high_temporal_iou_threshold=0.6,
+                   pem_low_temporal_iou_threshold=0.2, soft_nms_alpha=0.75,
+                   soft_nms_low_threshold=0.65, soft_nms_high_threshold=0.9,
+                   post_process_top_k=100),
+        data=dict(videos_per_gpu=BSN_BATCH, workers_per_gpu=2, train=dict(
+            type='ActivityNetDataset', ann_file=ann, data_prefix=prefix,
+            pipeline=[dict(type='LoadProposals', top_k=500,
+                           pgm_proposals_dir=pgm_dir,
+                           pgm_features_dir=feat_dir),
+                      dict(type='Collect',
+                           keys=['bsp_feature', 'reference_temporal_iou'],
+                           meta_keys=('video_name',))])),
+        optimizer=dict(type='Adam', lr=0.01, weight_decay=0.00001),
+        lr_config=dict(policy='step', step=10), total_epochs=PEM_EPOCHS,
+        log_config=dict(interval=1), work_dir=work, seed=0)
+
+
+def _ssn_pipeline(mode):
+    keys = (['imgs', 'proposal_scale_factor', 'proposal_type',
+             'proposal_labels', 'reg_targets'] if mode == 'train' else
+            ['imgs', 'relative_proposal_list', 'scale_factor_list',
+             'proposal_tick_list', 'reg_norm_consts'])
+    return [dict(type='SampleProposalFrames', clip_len=1, body_segments=5,
+                 aug_segments=(2, 2), aug_ratio=0.5, mode=mode),
+            dict(type='RawFrameDecode'),
+            dict(type='Resize', scale=(SSN_HW, SSN_HW), keep_ratio=False),
+            dict(type='Normalize', **SSN_NORM),
+            dict(type='FormatShape', input_format='NHWC'),
+            dict(type='Collect', keys=keys, meta_keys=())]
+
+
+def ssn_cfg(ann, prefix, work):
+    """MMAction2 v0.6.0 configs/localization/ssn/
+    ssn_r50_450e_thumos14_rgb_{train,test}.py: SSN on ResNet-50 (2048
+    channels), STPP (1, 1, 1) over (2, 5, 2) segments, 20 classes, the
+    8-proposal sampler, SGD lr 0.001, momentum 0.9, decay 1e-6; its
+    pipelines with the frames resized to SSN_HW square (no random crop);
+    one epoch of a video a step."""
+    dataset = dict(type='SSNDataset', ann_file=ann, data_prefix=prefix,
+                   train_cfg=SSN_TRAIN_CFG, test_cfg=SSN_TEST_CFG,
+                   body_segments=5, aug_segments=(2, 2), aug_ratio=0.5,
+                   filename_tmpl='img_{:05d}.jpg')
+    return dict(
+        model=dict(type='SSN', spatial_type='avg', dropout_ratio=0.8,
+                   backbone=dict(type='ResNet', pretrained=None, depth=50,
+                                 norm_eval=False, partial_bn=True),
+                   cls_head=dict(type='SSNHead', dropout_ratio=0.8,
+                                 in_channels=2048, num_classes=20,
+                                 consensus=dict(type='STPPTrain',
+                                                stpp_stage=(1, 1, 1),
+                                                num_segments_list=(2, 5, 2)),
+                                 use_regression=True)),
+        train_cfg=SSN_TRAIN_CFG, test_cfg=SSN_TEST_CFG,
+        data=dict(videos_per_gpu=1, workers_per_gpu=2,
+                  train=dict(dataset, pipeline=_ssn_pipeline('train')),
+                  test=dict(dataset, pipeline=_ssn_pipeline('test'),
+                            test_mode=True)),
+        optimizer=dict(type='SGD', lr=0.001, momentum=0.9,
+                       weight_decay=1e-6),
+        optimizer_config=dict(grad_clip=dict(max_norm=20, norm_type=2)),
+        lr_config=dict(policy='step', step=[200, 400]), total_epochs=1,
+        log_config=dict(interval=1), work_dir=work, seed=0)
+
+
+def bmn_flops(model, dev):
+    """FLOPs of one BMN train step a video, from the code: 2 per
+    multiply-add of every convolution at the shapes a forward gives them
+    (forward hooks on one video on the card) and of the boundary-matching
+    product, x3 for the forward and the backward (data and weight
+    gradients) but x2 for the first convolution (the features take no
+    gradient) and for the product (the sampling mask is a constant: one
+    product, the features' gradient)."""
+    import torch
+    macs = []
+
+    def hook(m, inp, out):
+        per_out = m.weight.numel() // m.out_channels
+        macs.append((out.numel() * per_out, m is model.x1db_0))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.modules.conv._ConvNd)]
+    with torch.no_grad():
+        model(torch.zeros(1, model.temporal_dim, model.feat_dim,
+                          device=dev))
+    for h in hooks:
+        h.remove()
+    t = model.temporal_dim
+    product = model.hidden_dim_1d * t * model.sample_mask.shape[1]
+    return 2 * (sum((2 if first else 3) * n for n, first in macs)
+                + 2 * product)
+
+
+def bm_product_ms(model, dev, smi_line):
+    """The boundary-matching product of a BMN_BATCH step alone: its
+    forward (features x mask) and its backward's one product (gradient x
+    mask^T), CUDA-event medians in exact fp32, each beside its bound
+    (2 FLOP a multiply-add at the fp32 peak; each operand read and the
+    result written once at the memory rate)."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    mask = model.sample_mask
+    t, cols = mask.shape
+    generator = torch.Generator(device=dev).manual_seed(0)
+    p = torch.randn(BMN_BATCH, model.hidden_dim_1d, t, device=dev,
+                    generator=generator)
+    g = torch.randn(BMN_BATCH, model.hidden_dim_1d, cols, device=dev,
+                    generator=generator)
+    fp32_tflops, tbps = peaks(smi_line)[:2]
+    flops = 2.0 * p.shape[0] * p.shape[1] * t * cols
+    nbytes = 4.0 * (p.numel() + mask.numel() + g.numel())
+    bound = max(flops / (fp32_tflops * 1e12), nbytes / (tbps * 1e12)) * 1e3
+    with exact_fp32():
+        fwd = cuda_ms(lambda: torch.matmul(p, mask))
+        bwd = cuda_ms(lambda: torch.matmul(g, mask.t()))
+    del g
+    torch.cuda.empty_cache()
+    return dict(forward_ms=fwd, backward_ms=bwd, bound_ms=bound,
+                gflop=flops / 1e9, gbytes=nbytes / 1e9)
+
+
+def bmn_train(root, dev, smi_line):
+    """BMN through ``python -m vfs_tpu_torch.tools.train`` in-process on
+    the card: BMN_EPOCHS epochs, losses finite, a checkpoint an epoch; the
+    end-to-end steps/s (the first step left out); then the device-only
+    step on one batch on the card, its peak memory, ``train_mfu`` and
+    ``device_breakdown``. Returns the line, the trained model and the
+    dataset config."""
+    import copy
+    import torch
+    import vfs_tpu_torch.apis.train_localizer as apis_loc
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    from vfs_tpu_torch.datasets import build_dataset, collate
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.tools import train as tools_train
+    feats = os.path.join(root, 'anet')
+    ann = write_activitynet(feats)
+    cfg_dict = bmn_cfg(ann, feats, os.path.join(root, 'bmn'))
+    path = write_config(os.path.join(root, 'bmn.py'), cfg_dict)
+    records = []
+    with patched(apis_loc, 'make_localizer_train_step',
+                 step_timer(records)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.time()
+        state = tools_train.main([path, '--work-dir', cfg_dict['work_dir']])
+        wall_s = time.time() - t0
+    losses = [float(loss) for loss, _ in records]
+    ends = [t for _, t in records]
+    want = LOC_VIDEOS // BMN_BATCH * BMN_EPOCHS
+    if state.step != want or len(losses) != want \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f'BMN: {state.step} steps, losses {losses}')
+    for epoch in range(1, BMN_EPOCHS + 1):
+        if not os.path.isfile(os.path.join(cfg_dict['work_dir'],
+                                           'checkpoints', f'epoch_{epoch}')):
+            raise AssertionError(f'BMN: no checkpoint epoch_{epoch}')
+    trained = state.model
+
+    dataset = build_dataset(cfg_dict['data']['train'])
+    batch = collate([dataset[i] for i in range(BMN_BATCH)])
+    model = build_model(cfg_dict['model'])
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    optimizer, _ = build_optimizer(model.parameters(),
+                                   copy.deepcopy(cfg_dict['optimizer']))
+    step = apis_loc.make_localizer_train_step(model, optimizer)
+    tensors = apis_loc.prepare_batch(model, batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(tensors), runs=BMN_TIMED_STEPS,
+                 warmup=BMN_WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = device_breakdown(step, tensors, kind_keys=LOC_KERNEL_KINDS)
+    flops = BMN_BATCH * bmn_flops(model, dev)
+    product = bm_product_ms(model, dev, smi_line)
+    del model, optimizer, step, tensors
+    torch.cuda.empty_cache()
+    fp32_tflops = peaks(smi_line)[0]
+    line = dict(
+        config='MMAction2 v0.6.0 bmn_400x100_2x8_9e_activitynet_feature',
+        videos_per_step=BMN_BATCH, temporal_dim=LOC_TSCALE,
+        feat_dim=LOC_FEAT, num_samples=32, steps=state.step, losses=losses,
+        train_wall_s=wall_s, e2e_steps=len(ends) - 2,
+        e2e_steps_per_s=(len(ends) - 2) / (ends[-1] - ends[1]),
+        tflop_per_step=flops / 1e12, ms_per_step=ms,
+        videos_per_s=BMN_BATCH * 1e3 / ms,
+        train_mfu=flops / (ms * 1e-3) / (fp32_tflops * 1e12),
+        peak_tflops=fp32_tflops,
+        bound_ms=flops / (fp32_tflops * 1e12) * 1e3,
+        max_memory_allocated_gb=peak / 2**30, product=product, **breakdown)
+    return line, trained, cfg_dict
+
+
+def bmn_infer(trained, cfg_dict, dev):
+    """The trained BMN on BMN_INFER_VIDEOS videos, one at a time: the
+    forward on the card, ``decode_proposals`` (soft NMS and
+    ``post_processing`` inside) on the host, then
+    ``ActivityNetDataset.evaluate``'s AR@AN (synthetic data: printed, not
+    gated)."""
+    import torch
+    from vfs_tpu_torch.datasets import build_dataset
+    from vfs_tpu_torch.device import exact_fp32
+    data = dict(cfg_dict['data']['train'], test_mode=True, pipeline=[
+        dict(type='LoadLocalizationFeature'),
+        dict(type='Collect', keys=['raw_feature'],
+             meta_keys=('video_name', 'duration_frame', 'duration_second'))])
+    dataset = build_dataset(data)
+    dataset.video_infos = dataset.video_infos[:BMN_INFER_VIDEOS]
+    trained.eval()
+    results, forward_ms, decode_ms = [], [], []
+    for i in range(len(dataset)):
+        sample = dataset[i]
+        x = torch.as_tensor(sample['raw_feature'].T[None], device=dev)
+        with torch.no_grad(), exact_fp32():
+            forward_ms.append(cuda_ms(lambda: trained(x), runs=1,
+                                      warmup=0))
+            maps = trained(x)
+        t0 = time.time()
+        results += trained.decode_proposals(*maps, [sample['img_meta']])
+        decode_ms.append((time.time() - t0) * 1e3)
+    metrics = dataset.evaluate(results)
+    if not all(len(r['proposal_list']) > 0 for r in results) \
+            or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f'BMN inference: {metrics}, {results[:1]}')
+    return dict(videos=len(results), forward_ms=forward_ms,
+                decode_host_ms_per_video=decode_ms,
+                proposals_per_video=[len(r['proposal_list'])
+                                     for r in results], **metrics)
+
+
+def bsn_chain(root, dev):
+    """TEM one step at its published width through ``train_localizer_model``,
+    its scores of every fixture video dumped as the TEM result CSVs
+    (``ActivityNetDataset.dump_results(..., 'csv')``), PGM proposals and
+    BSP features by ``python -m vfs_tpu_torch.tools.bsn_proposal_generation``
+    (BSN_WORKERS processes), then PEM_EPOCHS PEM steps on them."""
+    import torch
+    import vfs_tpu_torch.apis.train_localizer as apis_loc
+    from vfs_tpu_torch.datasets import build_dataset
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.tools import bsn_proposal_generation
+    from vfs_tpu_torch.utils import Config
+    feats = os.path.join(root, 'anet')
+    ann = os.path.join(feats, 'anno.json')
+    out = {}
+    t0 = time.time()
+    cfg = Config.fromdict(tem_cfg(ann, feats, os.path.join(root, 'tem')))
+    dataset = build_dataset(cfg.data.train)
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = apis_loc.train_localizer_model(build_model(cfg.model),
+                                               dataset, cfg, device=dev)
+    tem = state.model.eval()
+    tem_results = []
+    for i in range(len(dataset)):
+        x = torch.as_tensor(dataset[i]['raw_feature'].T[None], device=dev)
+        with torch.no_grad(), exact_fp32():
+            scores = tem(x)[0].cpu().numpy()
+        tmin = np.arange(LOC_TSCALE) / LOC_TSCALE
+        tem_results.append((dataset.video_infos[i]['video_name'],
+                            np.concatenate([scores, tmin[:, None],
+                                            tmin[:, None] + 1 / LOC_TSCALE],
+                                           axis=1)))
+    tem_dir = os.path.join(root, 'tem_results')
+    dataset.dump_results(tem_results, tem_dir, 'csv')
+    out.update(tem_steps=state.step, tem_seconds=time.time() - t0)
+
+    t0 = time.time()
+    pgm_dir, feat_dir = (os.path.join(root, n) for n in ('pgm', 'pgm_feat'))
+    bsn = write_config(os.path.join(root, 'bsn.py'), dict(
+        tem_results_dir=tem_dir, pgm_proposals_dir=pgm_dir,
+        pgm_features_dir=feat_dir,
+        temporal_proposal_generation=dict(temporal_scale=LOC_TSCALE,
+                                          peak_threshold=0.5),
+        pgm_features_cfg=dict(top_k=1000, num_sample_start=8,
+                              num_sample_end=8, num_sample_action=16,
+                              num_sample_interp=3, bsp_boundary_ratio=0.2),
+        data=dict(train=dict(ann_file=ann))))
+    with contextlib.redirect_stdout(io.StringIO()):
+        n = bsn_proposal_generation.main([bsn, '--mode', 'train',
+                                          '--num-workers',
+                                          str(BSN_WORKERS)])
+    feat0 = np.load(os.path.join(feat_dir, 'v_test00.npy'))
+    rows = len(np.loadtxt(os.path.join(pgm_dir, 'v_test00.csv'),
+                          delimiter=',', skiprows=1))
+    if n != LOC_VIDEOS or feat0.shape != (min(rows, 1000), 32) \
+            or not np.isfinite(feat0).all():
+        raise AssertionError(f'BSN proposals: {n} videos, {rows} '
+                             f'proposals, features {feat0.shape}')
+    out.update(pgm_videos=n, pgm_proposals_video0=rows,
+               bsp_feature_shape=list(feat0.shape),
+               pgm_seconds=time.time() - t0)
+
+    t0 = time.time()
+    cfg = Config.fromdict(pem_cfg(ann, feats, pgm_dir, feat_dir,
+                                  os.path.join(root, 'pem')))
+    records = []
+    with patched(apis_loc, 'make_localizer_train_step',
+                 step_timer(records)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        state = apis_loc.train_localizer_model(
+            build_model(cfg.model), build_dataset(cfg.data.train), cfg,
+            device=dev)
+    losses = [float(loss) for loss, _ in records]
+    if state.step != PEM_EPOCHS * (LOC_VIDEOS // BSN_BATCH) \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f'PEM: {state.step} steps, {losses}')
+    out.update(pem_steps=state.step, pem_losses=losses,
+               pem_seconds=time.time() - t0)
+    return out
+
+
+def write_thumos(root):
+    """The THUMOS-layout proposal file and ``SSN_FRAMES``' rawframes
+    (``make_ssn_rawframes``: 32x40 noise JPEGs). Returns the file."""
+    import cv2
+    rng = np.random.RandomState(2)
+    for name, n in SSN_FRAMES:
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        for i in range(1, n + 1):
+            cv2.imwrite(os.path.join(d, f'img_{i:05d}.jpg'),
+                        rng.randint(0, 255, (32, 40, 3), np.uint8))
+    ann = os.path.join(root, 'proposals.txt')
+    with open(ann, 'w') as f:
+        f.write(SSN_PROPOSALS)
+    return ann
+
+
+def ssn_run(root, dev):
+    """SSN (ResNet-50) through ``train_localizer_model``: one epoch of a
+    video a step, losses finite; then ``SSN.forward_test`` (the test
+    frames through the backbone, ``test_fc``, the host ``STPPTest``) on
+    every video and ``SSNDataset.evaluate``'s mAP (synthetic: printed)."""
+    import torch
+    import vfs_tpu_torch.apis.train_localizer as apis_loc
+    from vfs_tpu_torch.datasets import build_dataset
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.utils import Config
+    frames = os.path.join(root, 'thumos')
+    cfg = Config.fromdict(ssn_cfg(write_thumos(frames), frames,
+                                  os.path.join(root, 'ssn')))
+    records = []
+    t0 = time.time()
+    with patched(apis_loc, 'make_localizer_train_step',
+                 step_timer(records)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        state = apis_loc.train_localizer_model(
+            build_model(cfg.model, train_cfg=cfg.train_cfg,
+                        test_cfg=cfg.test_cfg),
+            build_dataset(cfg.data.train), cfg, device=dev)
+    losses = [float(loss) for loss, _ in records]
+    if state.step != len(SSN_FRAMES) or not all(np.isfinite(losses)):
+        raise AssertionError(f'SSN: {state.step} steps, {losses}')
+    train_s = time.time() - t0
+    model = state.model.eval()
+    test = build_dataset(cfg.data.test)
+    results, test_ms, test_frames = [], [], []
+    for i in range(len(test)):
+        sample = test[i]
+        test_frames.append(len(sample['imgs']))
+        t1 = time.time()
+        imgs = torch.as_tensor(sample['imgs'], device=dev)
+        with exact_fp32():
+            results.append(model.forward_test(
+                imgs, sample['relative_proposal_list'],
+                sample['scale_factor_list'], sample['proposal_tick_list'],
+                sample['reg_norm_consts']))
+        test_ms.append((time.time() - t1) * 1e3)
+    metrics = test.evaluate(results)
+    if not all(np.isfinite(r[1]).all() and np.isfinite(r[3]).all()
+               for r in results):
+        raise AssertionError('SSN test scores not finite')
+    return dict(config='MMAction2 v0.6.0 ssn_r50_450e_thumos14_rgb',
+                crops_per_step=8 * 9, crop=SSN_HW, steps=state.step,
+                losses=losses, train_wall_s=train_s,
+                test_frames=test_frames,
+                test_ms_per_video=test_ms,
+                **{k: metrics[k] for k in ('mAP@0.10', 'mAP@0.50')})
+
+
+# the card-vs-CPU gates at a small size: (config, batch maker)
+LOC_GATE_T = 20
+
+
+def _gate_batches():
+    """Each gate's loader batch: numpy, seeded."""
+    rng = np.random.RandomState(3)
+    t = LOC_GATE_T
+    # no cell's IoU with these boxes lies within 1e-3 of BMN's 0.3 / 0.7
+    # label thresholds, so fp32 and fp64 label the same cells
+    boxes = [np.array([[0.12, 0.43], [0.52, 0.81]]),
+             np.array([[0.31, 0.88]])]
+    feats = rng.randn(2, 16, t).astype(np.float32)
+    ssn = dict(imgs=rng.randn(1, 72, 32, 32, 3).astype(np.float32),
+               proposal_scale_factor=(rng.rand(1, 8, 2) + 0.5).astype(
+                   np.float32),
+               proposal_type=np.array([[0, 1, 1, 1, 1, 1, 1, 2]]),
+               proposal_labels=np.array([[2, 1, 3, 2, 2, 1, 3, 0]]),
+               reg_targets=(rng.randn(1, 8, 2) * 0.3).astype(np.float32))
+    return {
+        'bmn': (dict(type='BMN', temporal_dim=t, boundary_ratio=0.5,
+                     num_samples=8, num_samples_per_bin=3, feat_dim=16,
+                     soft_nms_alpha=0.4, soft_nms_low_threshold=0.5,
+                     soft_nms_high_threshold=0.9, post_process_top_k=100,
+                     hidden_dim_1d=16, hidden_dim_2d=8, hidden_dim_3d=32),
+                dict(raw_feature=feats, gt_bbox=boxes),
+                [rng.rand(2, t, t).astype(np.float32) for _ in range(2)]),
+        'tem': (dict(type='TEM', temporal_dim=t, boundary_ratio=0.1,
+                     tem_feat_dim=16, tem_hidden_dim=32,
+                     tem_match_threshold=0.5),
+                dict(raw_feature=feats, gt_bbox=boxes), None),
+        'pem': (dict(type='PEM', pem_feat_dim=32, pem_hidden_dim=64,
+                     pem_u_ratio_m=1, pem_u_ratio_l=2,
+                     pem_high_temporal_iou_threshold=0.6,
+                     pem_low_temporal_iou_threshold=0.2,
+                     soft_nms_alpha=0.75, soft_nms_low_threshold=0.65,
+                     soft_nms_high_threshold=0.9, post_process_top_k=100),
+                dict(bsp_feature=rng.randn(2, 40, 32).astype(np.float32),
+                     reference_temporal_iou=rng.rand(2, 40).astype(
+                         np.float32)),
+                [rng.rand(80).astype(np.float32) for _ in range(2)]),
+        'ssn': (dict(type='SSN', backbone=dict(type='ResNet', depth=18),
+                     cls_head=dict(type='SSNHead', dropout_ratio=0.0,
+                                   in_channels=512, num_classes=3)),
+                ssn, None)}
+
+
+def loc_gate_run(cfg, batch, draws, device, dtype):
+    """The gate's localizer (seed-0 weights) on ``device`` in ``dtype``,
+    train mode: its forward's outputs, loss and gradients (fp64 on the
+    CPU)."""
+    import torch
+    from vfs_tpu_torch.apis.train_localizer import (_KINDS, prepare_batch,
+                                                    sum_losses)
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.models import build_model
+    model = build_model(cfg, train_cfg=SSN_TRAIN_CFG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(device=device, dtype=dtype).train()
+    tensors = {k: v.to(dtype) if v.is_floating_point() else v
+               for k, v in prepare_batch(model, batch, device).items()}
+    outs = []
+    hook = (model.backbone if cfg['type'] == 'SSN' else model
+            ).register_forward_hook(lambda m, a, out: outs.extend(
+                o.detach() for o in (out if isinstance(out, tuple)
+                                     else (out,))))
+    with exact_fp32():
+        total, _ = sum_losses(_KINDS[cfg['type']][1](
+            model, model, tensors, None,
+            None if draws is None else [torch.as_tensor(d) for d in draws]))
+        total.backward()
+    hook.remove()
+    flat = torch.cat([o.double().flatten().cpu() for o in outs])
+    return flat, float(total.detach()), torch.cat(
+        [p.grad.detach().double().flatten().cpu()
+         for p in model.parameters() if p.grad is not None])
+
+
+def localization_gates(dev):
+    """Each localizer at a small size on the card against the CPU (the
+    train phase's rule): in fp64 the forward's outputs, the loss and all
+    the gradients as one vector within 1e-10 (relative), which shows the
+    same function on both; in fp32 the card as close to the CPU's fp64
+    answer as the CPU's fp32 is, x CARD_CPU_FACTOR + CARD_CPU_FLOOR. The
+    losses' uniform draws are given (the same numbers on both)."""
+    import torch
+    cpu = torch.device('cpu')
+    out = {}
+    for name, (cfg, batch, draws) in _gate_batches().items():
+        runs = {(role, bits): loc_gate_run(cfg, batch, draws, d, dtype)
+                for role, d in (('cpu', cpu), ('card', dev))
+                for bits, dtype in ((64, torch.float64),
+                                    (32, torch.float32))}
+        exact = runs[('cpu', 64)]
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        errs = {}
+        for i, part in enumerate(('outputs', 'loss', 'grads')):
+            def err(run):
+                a, b = run[i], exact[i]
+                return abs(a - b) / abs(b) if part == 'loss' else rel(a, b)
+            errs[f'fp64_{part}'] = err(runs[('card', 64)])
+            errs[f'fp32_{part}'] = err(runs[('card', 32)])
+            errs[f'cpu_fp32_{part}'] = err(runs[('cpu', 32)])
+            if errs[f'fp64_{part}'] > 1e-10 or errs[f'fp32_{part}'] > \
+                    CARD_CPU_FACTOR * errs[f'cpu_fp32_{part}'] \
+                    + CARD_CPU_FLOOR:
+                raise AssertionError(f'{name}: card vs CPU {part} {errs}')
+        out[name] = errs
+    return out
+
+
+def phase_localization(dev, smi_line):
+    """Slice 13's path (module docstring, phase 15). No hand-written
+    kernel lies on it: their launch counts must not move."""
+    t0 = time.time()
+    before = kernel_launches()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        train, trained, cfg_dict = bmn_train(root, dev, smi_line)
+        emit({'phase': 'localization', 'part': 'train_bmn',
+              'card': smi_line, **train, 'seconds': time.time() - t0})
+        t1 = time.time()
+        infer = bmn_infer(trained, cfg_dict, dev)
+        emit({'phase': 'localization', 'part': 'infer_bmn', **infer,
+              'seconds': time.time() - t1})
+        del trained
+        t1 = time.time()
+        bsn = bsn_chain(root, dev)
+        emit({'phase': 'localization', 'part': 'bsn', **bsn,
+              'seconds': time.time() - t1})
+        t1 = time.time()
+        ssn = ssn_run(root, dev)
+        emit({'phase': 'localization', 'part': 'ssn', 'card': smi_line,
+              **ssn, 'seconds': time.time() - t1})
+    t1 = time.time()
+    gates = localization_gates(dev)
+    launches = kernel_launches() - before
+    if launches:
+        raise AssertionError(f'localization launched {launches} '
+                             'hand-written kernels (want none)')
+    seconds = time.time() - t0
+    emit({'phase': 'localization', 'part': 'card_vs_cpu', 'gates': gates,
+          'tolerances': dict(fp64=1e-10, fp32_factor=CARD_CPU_FACTOR,
+                             fp32_floor=CARD_CPU_FLOOR),
+          'gate_seconds': time.time() - t1,
+          'hand_written_kernel_launches': launches,
+          'phase_seconds': seconds})
+    return seconds
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4536,25 +5252,35 @@ def main():
     t_start = time.time()
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    smi_line = phase_build()
-    phase_native(dev, smi_line)
-    phase_small(dev)
-    local_full, plain_ms = phase_full(dev, smi_line)
-    modes_full = phase_full_modes(dev, smi_line)
-    v1_full = phase_full_v1(dev, smi_line, plain_ms)
-    v2_entry = phase_full_v2(dev, smi_line)
-    row1 = phase_main(dev, smi_line)
-    eval_modes, row3 = phase_eval(local_full)
-    v1_launches = phase_pose() + phase_vip()
-    row1[0]['launches'] += phase_train(dev, smi_line)
-    phase_dense(dev, smi_line)
-    row1[0]['launches'] += phase_learning(smi_line)
-    bench = phase_bench_cfg(dev, smi_line)
-    phase_siamfc(dev, smi_line)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = phase_s.get(name, 0.0) + time.time() - t0
+
+    smi_line = timed('build', phase_build)
+    timed('native', phase_native, dev, smi_line)
+    timed('small', phase_small, dev)
+    local_full, plain_ms = timed('full', phase_full, dev, smi_line)
+    modes_full = timed('full_modes', phase_full_modes, dev, smi_line)
+    v1_full = timed('full_v1', phase_full_v1, dev, smi_line, plain_ms)
+    v2_entry = timed('full_v2', phase_full_v2, dev, smi_line)
+    row1 = timed('main', phase_main, dev, smi_line)
+    eval_modes, row3 = timed('eval', phase_eval, local_full)
+    v1_launches = timed('pose', phase_pose) + timed('vip', phase_vip)
+    row1[0]['launches'] += timed('train', phase_train, dev, smi_line)
+    timed('dense', phase_dense, dev, smi_line)
+    row1[0]['launches'] += timed('learning', phase_learning, smi_line)
+    bench = timed('bench_cfg', phase_bench_cfg, dev, smi_line)
+    timed('siamfc', phase_siamfc, dev, smi_line)
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
-    phase_analysis(dev, smi_line)
-    phase_recognition(dev, smi_line)
+    timed('analysis', phase_analysis, dev, smi_line)
+    timed('recognition', phase_recognition, dev, smi_line)
+    timed('localization', phase_localization, dev, smi_line)
     for entry, row in ((row1[0], 'row1'), (row2, 'row2'), (row3, 'row3')):
         entry['launches'] += bench[row]['launches']
         entry['bf16'] = bench[row]
@@ -4562,11 +5288,15 @@ def main():
         row3['launches'] += eval_modes[name]['launches']
         row3[name] = dict(launches=eval_modes[name]['launches'],
                           **modes_full[name])
-    emit({'phase': 'total', 'seconds': time.time() - t_start})
+    emit({'phase': 'total', 'seconds': time.time() - t_start,
+          'phase_seconds': phase_s})
     emit({'kernels': [*row1, row2, row3, v2_entry],
           'paths_without_kernels': {
               'recognition': 'launches none of the four rows: cuDNN '
-                             'convolutions and PyTorch ops (phase 14)'}})
+                             'convolutions and PyTorch ops (phase 14)',
+              'localization': 'launches none of the four rows: cuDNN '
+                              'convolutions, torch.matmul and PyTorch ops '
+                              '(phase 15)'}})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

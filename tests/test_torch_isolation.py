@@ -69,6 +69,23 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              'vfs_tpu_torch.tools.convert_to_pretrained',
              'vfs_tpu_torch.tools.data.build_rawframes',
              'vfs_tpu_torch.datasets.native_loader',
+             # slice 13: temporal action localization (ROADMAP item 7b)
+             *(f'vfs_tpu_torch.localization.{m}' for m in (
+                 'proposal_utils', 'bsn_utils', 'ssn_utils')),
+             'vfs_tpu_torch.localization',
+             'vfs_tpu_torch.core.evaluation.proposal',
+             'vfs_tpu_torch.datasets.activitynet_dataset',
+             'vfs_tpu_torch.datasets.ssn_dataset',
+             'vfs_tpu_torch.models.losses.bmn_loss',
+             'vfs_tpu_torch.models.losses.ssn_loss',
+             'vfs_tpu_torch.models.heads.ssn_head',
+             *(f'vfs_tpu_torch.models.localizers.{m}' for m in (
+                 'bmn', 'bsn', 'ssn')),
+             'vfs_tpu_torch.apis.train_localizer',
+             'vfs_tpu_torch.tools.bsn_proposal_generation',
+             *(f'vfs_tpu_torch.tools.data.{m}' for m in (
+                 'denormalize_proposal_file', 'file_lists',
+                 'tsn_feature_extraction')),
              *(f'vfs_tpu_torch.tools.analysis.{m}' for m in (
                  'bench_kernel', 'profile_kernel', 'bench_extract',
                  'benchmark', 'get_flops', 'bench_processing',
@@ -104,7 +121,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9 + 13
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9 + 13 + 19
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

@@ -198,42 +198,61 @@ def _recognizer_data(data):
         pipeline=pipeline))
 
 
+def _localizer_extra(tmp_path):
+    """A TEM config's model and data on the ActivityNet-layout fixture of
+    the JAX tests (4 videos of 20 x 8 features, batches of 2)."""
+    from test_core.test_localization_train import make_activitynet
+    root = str(tmp_path / 'anet')
+    return dict(
+        model=dict(type='TEM', temporal_dim=20, boundary_ratio=0.1,
+                   tem_feat_dim=8, tem_hidden_dim=32,
+                   tem_match_threshold=0.5),
+        data=dict(videos_per_gpu=2, workers_per_gpu=1, train=dict(
+            type='ActivityNetDataset', ann_file=make_activitynet(root),
+            data_prefix=root, pipeline=[
+                dict(type='LoadLocalizationFeature'),
+                dict(type='GenerateLocalizationLabels')])),
+        optimizer=dict(type='Adam', lr=0.001), lr_config=None)
+
+
 @pytest.mark.parametrize('argv,extra,item', [
     (['--validate', '--local-devices', '2'], {}, None),
     ([], dict(model=RECOGNIZER_CFG), 'trains'),
-    ([], dict(model=dict(type='BMN')), '7b'),
+    ([], dict(model=dict(type='TEM')), 'localizer'),
 ], ids=['local_devices', 'recognizer', 'localizer'])
-def test_later_slices_raise_naming_their_roadmap_item(data, tmp_path, argv,
-                                                      extra, item):
-    """A localizer config raises naming ROADMAP Queue 1 item 7b. A
-    recognizer config, refused before slice 12 ported recognition (item
-    7a), trains (``item`` 'trains': two epochs of 2 steps on the
-    fixture's 4 clips).
+def test_later_slices_train_through_the_cli(data, tmp_path, argv, extra,
+                                            item):
+    """The train CLI on what later slices ported. A localizer config,
+    refused before slice 13 ported localization (ROADMAP Queue 1 item
+    7b), trains (``item`` 'localizer': TEM, two epochs of 2 steps on 4
+    videos, a checkpoint an epoch). A recognizer config, refused before
+    slice 12 ported recognition (item 7a), trains (``item`` 'trains':
+    two epochs of 2 steps on the fixture's 4 clips).
     Item 5's ``--validate --local-devices 2``, refused before slice 8
     ported it, now trains and validates over two CPU workers (``item``
     None) with the J&F of the one-device validation."""
     if item == 'trains':
         extra = dict(extra, data=_recognizer_data(data))
+    if item == 'localizer':
+        extra = _localizer_extra(tmp_path)
     config = _write_config(data, tmp_path, **extra)
     args = [config, '--work-dir', str(tmp_path / 'w'), '--device', 'cpu',
             *argv]
-    if item == 'trains':
+    if item in ('trains', 'localizer'):
         state = tools_train.main(args)
         assert state.step == 4
+        if item == 'localizer':
+            assert sorted(os.listdir(tmp_path / 'w' / 'checkpoints')) == [
+                'epoch_1', 'epoch_2', 'latest']
         return
-    if item is None:
-        state = tools_train.main(args)
-        assert state.step == 4
-        with open(tmp_path / 'w' / 'best.json') as f:
-            best = json.load(f)
-        args[2] = str(tmp_path / 'one')
-        tools_train.main(args[:-2])
-        with open(tmp_path / 'one' / 'best.json') as f:
-            assert json.load(f) == best
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP Queue 1 item {item}'):
-        tools_train.main(args)
+    state = tools_train.main(args)
+    assert state.step == 4
+    with open(tmp_path / 'w' / 'best.json') as f:
+        best = json.load(f)
+    args[2] = str(tmp_path / 'one')
+    tools_train.main(args[:-2])
+    with open(tmp_path / 'one' / 'best.json') as f:
+        assert json.load(f) == best
 
 
 def _trace_names(path):

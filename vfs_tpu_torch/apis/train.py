@@ -71,6 +71,71 @@ class TrainState(NamedTuple):
     step: int
 
 
+def build_train_loader(dataset, cfg, seed: int):
+    """The train loader of ``cfg.data``: shuffled from ``seed``, full
+    batches only, this process's shard."""
+    return build_dataloader(
+        dataset, videos_per_gpu=cfg.data['videos_per_gpu'],
+        workers_per_gpu=cfg.data['workers_per_gpu'], shuffle=True,
+        drop_last=True, seed=seed, num_shards=get_world_size(),
+        shard_index=get_rank())
+
+
+def grad_clip_of(cfg) -> Optional[float]:
+    """``optimizer_config.grad_clip``'s max norm (a dict's ``max_norm``
+    or the number itself); None when it is unset."""
+    gc = (cfg.get('optimizer_config') or {}).get('grad_clip')
+    if not gc:
+        return None
+    return gc.get('max_norm') if isinstance(gc, dict) else gc
+
+
+def auto_resume(model: nn.Module, optimizer: ChainedOptimizer,
+                work_dir: str, cfg, device, logger) -> int:
+    """Restore ``model`` and ``optimizer`` from the latest checkpoint
+    under ``work_dir/checkpoints`` unless ``cfg.auto_resume`` is false
+    (reference tools/train.py:103-105). Returns the epoch to start from,
+    0 without a checkpoint."""
+    latest = latest_checkpoint(os.path.join(work_dir, 'checkpoints'))
+    if not latest or not cfg.get('auto_resume', True):
+        return 0
+    ckpt = restore_checkpoint(latest, map_location=device)
+    model.load_state_dict(ckpt['model'])
+    optimizer.load_state_dict(ckpt['optimizer'])
+    start_epoch = int(os.path.basename(latest).split('_')[1])
+    logger.info(f'auto-resumed from {latest} (epoch {start_epoch})')
+    return start_epoch
+
+
+def save_epoch_checkpoint(model: nn.Module, optimizer: ChainedOptimizer,
+                          work_dir: str, epoch: int, cfg, logger) -> None:
+    """On rank 0, ``work_dir/checkpoints/epoch_{epoch}`` after every
+    ``checkpoint_config.interval``-th epoch and after the last."""
+    interval = (cfg.get('checkpoint_config') or {}).get('interval', 1)
+    if get_rank() != 0 or (epoch % interval and epoch != cfg.total_epochs):
+        return
+    path = save_checkpoint(
+        os.path.join(work_dir, 'checkpoints'), epoch, dict(
+            model=model.state_dict(), optimizer=optimizer.state_dict(),
+            step=optimizer.count, epoch=epoch))
+    logger.info(f'checkpoint saved to {path}')
+
+
+def log_train_entry(logger, jsonl: JsonlLogger, epoch: int, it: int,
+                    iters_per_epoch: int, lr: float, dt: float,
+                    log_vars: Dict[str, float]) -> Dict:
+    """One train log entry: the logger's line on every rank, the JSONL
+    line on rank 0. Returns the entry."""
+    logger.info(f'Epoch [{epoch}][{it}/{iters_per_epoch}] '
+                f'lr: {lr:.5f}, time: {dt:.3f}, ' + ', '.join(
+                    f'{k}: {v:.4f}' for k, v in log_vars.items()))
+    entry = dict(mode='train', epoch=epoch, iter=it, lr=lr, time=dt,
+                 **log_vars)
+    if get_rank() == 0:
+        jsonl.log(entry)
+    return entry
+
+
 def model_takes_labels(model: nn.Module) -> bool:
     """Recognizers take (imgs, labels); the self-supervised trackers take
     the frames alone. Looks through a ``DistributedDataParallel``."""
@@ -215,21 +280,11 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
         else None
     seed = cfg.get('seed', 0) or 0
 
-    data_cfg = cfg.data
-    loader = build_dataloader(
-        dataset, videos_per_gpu=data_cfg['videos_per_gpu'],
-        workers_per_gpu=data_cfg['workers_per_gpu'], shuffle=True,
-        drop_last=True, seed=seed, num_shards=get_world_size(),
-        shard_index=rank)
+    loader = build_train_loader(dataset, cfg, seed)
     total_epochs = cfg.total_epochs
     iters_per_epoch = len(loader)
     total_iters = total_epochs * iters_per_epoch
-    grad_clip = None
-    if cfg.get('optimizer_config'):
-        gc = cfg.optimizer_config.get('grad_clip')
-        if gc:
-            grad_clip = gc.get('max_norm', None) if isinstance(gc, dict) \
-                else gc
+    grad_clip = grad_clip_of(cfg)
 
     model.init_weights(torch.Generator().manual_seed(seed))
     _load_backbone_pretrained(model, cfg, logger)
@@ -250,16 +305,8 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             model.parameters(), opt_cfg, cfg.get('lr_config'), total_iters,
             iters_per_epoch, grad_clip)
 
-    # auto-resume (reference tools/train.py:103-105)
-    start_epoch = 0
-    ckpt_dir = os.path.join(work_dir, 'checkpoints')
-    latest = latest_checkpoint(ckpt_dir)
-    if latest and cfg.get('auto_resume', True):
-        ckpt = restore_checkpoint(latest, map_location=device)
-        model.load_state_dict(ckpt['model'])
-        optimizer.load_state_dict(ckpt['optimizer'])
-        start_epoch = int(os.path.basename(latest).split('_')[1])
-        logger.info(f'auto-resumed from {latest} (epoch {start_epoch})')
+    start_epoch = auto_resume(model, optimizer, work_dir, cfg, device,
+                              logger)
 
     if cfg.get('fp16') is not None or cfg.get('bf16'):
         logger.info('mixed precision enabled: bf16 backbone, fp32 master '
@@ -295,7 +342,6 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             key_indicator=eval_cfg.get('key_indicator'),
             rule=eval_cfg.get('rule'), work_dir=work_dir,
             save_best=rank == 0)
-    ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval', 1)
     # --profile N: a torch.profiler trace of the steps [2, 2+N)
     profile_steps = max(0, int(cfg.get('profile_steps', 0) or 0))
     profiler = None
@@ -322,23 +368,13 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                     lr = schedule(optimizer.count - 1)
                     dt = (time.time() - t_iter) / log_interval
                     t_iter = time.time()
-                    logger.info(
-                        f'Epoch [{epoch + 1}][{i + 1}/{iters_per_epoch}] '
-                        f'lr: {lr:.5f}, time: {dt:.3f}, ' + ', '.join(
-                            f'{k}: {v:.4f}' for k, v in log_vars.items()))
-                    entry = dict(mode='train', epoch=epoch + 1,
-                                 iter=i + 1, lr=lr, time=dt, **log_vars)
-                    if rank == 0:
-                        jsonl.log(entry)
+                    entry = log_train_entry(logger, jsonl, epoch + 1, i + 1,
+                                            iters_per_epoch, lr, dt,
+                                            log_vars)
                     if wandb_log is not None:
                         wandb_log.log(entry, step=optimizer.count)
-            if rank == 0 and ((epoch + 1) % ckpt_interval == 0
-                              or epoch + 1 == total_epochs):
-                path = save_checkpoint(ckpt_dir, epoch + 1, dict(
-                    model=model.state_dict(),
-                    optimizer=optimizer.state_dict(),
-                    step=optimizer.count, epoch=epoch + 1))
-                logger.info(f'checkpoint saved to {path}')
+            save_epoch_checkpoint(model, optimizer, work_dir, epoch + 1, cfg,
+                                  logger)
             if eval_hook is not None:
                 results = eval_hook.after_epoch(epoch)
                 if results and rank == 0:

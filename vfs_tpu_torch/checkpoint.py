@@ -238,6 +238,20 @@ def flax_recognizer_to_torch(params: Mapping, batch_stats: Mapping
     return sd
 
 
+
+def flax_localizer_to_torch(params: Mapping, batch_stats: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's BMN / TEM / PEM / SSN trees -> a state dict of the
+    port's localizer. The port names its layers as the flax modules are
+    named (``x1db_0``, ``x3dp``, ``conv1``, ``fc1``; SSN's ``_backbone``
+    and ``_cls_head`` become ``backbone`` and ``cls_head``, its ResNet
+    named as ``flax_recognizer_to_torch`` names it), so the walk is that
+    function's. The layouts: a 1-D kernel (k, in / groups, out) -> (out,
+    in / groups, k), both splitting the groups contiguously; ``x3dp``'s
+    (S, 1, 1, in, out) over (N, S, T, T, C) -> (out, in, S, 1, 1) over
+    (N, C, S, T, T); 2-D kernels and ``Dense`` kernels as everywhere."""
+    return flax_recognizer_to_torch(params, batch_stats)
+
 def save_checkpoint(ckpt_dir: str, epoch: int, state: Dict[str, Any]) -> str:
     """``torch.save`` a train state (model and optimizer state dicts, the
     schedule step, the epoch) as ``ckpt_dir/epoch_{epoch}`` and point the

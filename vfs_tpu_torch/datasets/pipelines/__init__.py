@@ -7,9 +7,11 @@ from .formating import (Collect, FormatShape, ImageToTensor, ToDataContainer,
                         ToTensor, Transpose)
 from .loading import (AppendFrames, Clip2Frame, DecordDecode, DecordInit,
                       DenseSampleFrames, DuplicateFrames, Frame2Clip,
-                      FrameSelector, OpenCVDecode, OpenCVInit, PyAVDecode,
-                      PyAVInit, RawFrameDecode, RawFrameDecodeYUV420,
-                      RawImageDecode, SampleFrames, SequentialSampleFrames,
+                      FrameSelector, GenerateLocalizationLabels,
+                      LoadLocalizationFeature, LoadProposals, OpenCVDecode,
+                      OpenCVInit, PyAVDecode, PyAVInit, RawFrameDecode,
+                      RawFrameDecodeYUV420, RawImageDecode, SampleFrames,
+                      SampleProposalFrames, SequentialSampleFrames,
                       UntrimmedSampleFrames)
 
 __all__ = [
@@ -20,7 +22,8 @@ __all__ = [
     'ImageToTensor', 'ToDataContainer', 'ToTensor', 'Transpose',
     'AppendFrames', 'Clip2Frame', 'DecordDecode', 'DecordInit',
     'DenseSampleFrames', 'DuplicateFrames', 'Frame2Clip', 'FrameSelector',
-    'OpenCVDecode', 'OpenCVInit', 'PyAVDecode', 'PyAVInit', 'RawFrameDecode',
+    'GenerateLocalizationLabels', 'LoadLocalizationFeature', 'LoadProposals',
+    'SampleProposalFrames', 'OpenCVDecode', 'OpenCVInit', 'PyAVDecode', 'PyAVInit', 'RawFrameDecode',
     'RawFrameDecodeYUV420', 'RawImageDecode', 'SampleFrames',
     'SequentialSampleFrames', 'UntrimmedSampleFrames'
 ]

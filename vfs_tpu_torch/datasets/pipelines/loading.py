@@ -1,9 +1,10 @@
 """Frame samplers and decoders (host-side numpy, cv2, PIL and the native
 libjpeg / FFmpeg decoders of ``datasets.native_loader``; counterpart of
 ``vfs_tpu/datasets/pipelines/loading.py``, reference:
-mmaction/datasets/pipelines/loading.py). The train samplers draw from
-``np.random`` in the JAX package's order, so equal seeds give equal
-frames."""
+mmaction/datasets/pipelines/loading.py), and the temporal-localization
+steps (features, labels, PGM proposals, SSN's proposal frames). The train
+samplers draw from ``np.random`` in the JAX package's order, so equal
+seeds give equal frames."""
 
 from __future__ import annotations
 
@@ -561,3 +562,197 @@ class PyAVInit(DecordInit):
 @PIPELINES.register_module()
 class PyAVDecode(DecordDecode):
     pass
+
+
+# --------------------------------------------------------------------------
+# Temporal-action-localization data loading (BMN / TEM / PEM / SSN stack)
+# --------------------------------------------------------------------------
+
+@PIPELINES.register_module()
+class LoadLocalizationFeature:
+    """Load a per-video feature table for the localizers (reference
+    loading.py:1174-1206).
+
+    Reads ``{data_prefix}/{video_name}{ext}`` — a CSV with a header row and
+    one row per temporal step — and stores it channels-first as
+    ``results['raw_feature']`` of shape ``(C, T)``.
+    """
+
+    def __init__(self, raw_feature_ext='.csv'):
+        if raw_feature_ext != '.csv':
+            raise NotImplementedError(raw_feature_ext)
+        self.raw_feature_ext = raw_feature_ext
+
+    def __call__(self, results):
+        path = osp.join(results['data_prefix'],
+                        results['video_name'] + self.raw_feature_ext)
+        table = np.loadtxt(path, dtype=np.float32, delimiter=',', skiprows=1)
+        results['raw_feature'] = np.ascontiguousarray(table.T)
+        return results
+
+
+@PIPELINES.register_module()
+class GenerateLocalizationLabels:
+    """Normalize annotated segments to [0, 1] of the feature-covered
+    duration (reference loading.py:1210-1242).
+
+    The feature extractor typically covers only ``feature_frame`` of the
+    video's ``duration_frame`` frames, so segment times are rescaled by the
+    corrected duration ``feature_frame / duration_frame * duration_second``
+    before clipping.
+    """
+
+    def __call__(self, results):
+        corrected = (float(results['feature_frame']) /
+                     results['duration_frame'] * results['duration_second'])
+        bbox = [
+            [np.clip(ann['segment'][0] / corrected, 0, 1),
+             np.clip(ann['segment'][1] / corrected, 0, 1)]
+            for ann in results['annotations']
+        ]
+        results['gt_bbox'] = np.array(bbox, dtype=np.float64)
+        return results
+
+
+@PIPELINES.register_module()
+class LoadProposals:
+    """Load PGM proposals + BSP features for PEM training (reference
+    loading.py:1245-1313).
+
+    Proposal CSVs have a header and columns
+    ``tmin, tmax, tmin_score, tmax_score, score, match_iou`` (column 4 is
+    unused); features are ``(num_proposals, D)`` ``.npy`` arrays. Only the
+    first ``top_k`` rows of each are kept.
+    """
+
+    def __init__(self, top_k, pgm_proposals_dir, pgm_features_dir,
+                 proposal_ext='.csv', feature_ext='.npy'):
+        if proposal_ext != '.csv':
+            raise NotImplementedError(proposal_ext)
+        if feature_ext != '.npy':
+            raise NotImplementedError(feature_ext)
+        self.top_k = top_k
+        self.pgm_proposals_dir = pgm_proposals_dir
+        self.pgm_features_dir = pgm_features_dir
+        self.proposal_ext = proposal_ext
+        self.feature_ext = feature_ext
+
+    def __call__(self, results):
+        video_name = results['video_name']
+        rows = np.loadtxt(
+            osp.join(self.pgm_proposals_dir, video_name + self.proposal_ext),
+            dtype=np.float32, delimiter=',', skiprows=1)
+        rows = np.atleast_2d(rows)[:self.top_k]
+        feats = np.load(
+            osp.join(self.pgm_features_dir, video_name + self.feature_ext))
+        results['bsp_feature'] = feats.astype(np.float32)[:self.top_k]
+        results['tmin'] = rows[:, 0]
+        results['tmax'] = rows[:, 1]
+        results['tmin_score'] = rows[:, 2]
+        results['tmax_score'] = rows[:, 3]
+        results['reference_temporal_iou'] = rows[:, 5]
+        return results
+
+
+@PIPELINES.register_module()
+class SampleProposalFrames:
+    """Segment-wise frame sampling around SSN proposals (reference
+    loading.py:455-695).
+
+    Each proposal contributes three stages — ``aug_segments[0]`` starting
+    segments drawn from the interval extended backwards by
+    ``aug_ratio[0] * duration``, ``body_segments`` course segments inside
+    the proposal, and ``aug_segments[1]`` ending segments extended forwards
+    — with per-segment random offsets in train mode and centered offsets in
+    val mode. Test mode ignores proposals and strides the whole video at
+    ``test_interval``.
+
+    Consumes ``results['out_proposals']`` as produced by
+    ``SSNDataset`` (items ``((video_id, SSNInstance), type)``).
+
+    The random offsets draw from ``rng`` (an ``np.random.RandomState``),
+    by default from the global one, as the JAX package's step does.
+    """
+
+    def __init__(self, clip_len, body_segments, aug_segments, aug_ratio,
+                 frame_interval=1, test_interval=6, temporal_jitter=False,
+                 mode='train', rng=None):
+        assert mode in ('train', 'val', 'test')
+        self.rng = rng
+        self.clip_len = clip_len
+        self.body_segments = body_segments
+        self.aug_segments = tuple(aug_segments)
+        if isinstance(aug_ratio, (int, float)):
+            aug_ratio = (aug_ratio, aug_ratio)
+        self.aug_ratio = tuple(aug_ratio)
+        assert len(self.aug_ratio) == 2
+        self.frame_interval = frame_interval
+        self.test_interval = test_interval
+        self.temporal_jitter = temporal_jitter
+        self.mode = mode
+
+    def _random(self):
+        return self.rng if self.rng is not None else np.random
+
+    def _stage_offsets(self, valid_length, num_segments):
+        """Offsets of ``num_segments`` clips inside a window of
+        ``valid_length`` valid starting points (zeros when too short)."""
+        if self.mode == 'train':
+            avg = (valid_length + 1) // num_segments
+            if avg > 0:
+                return (np.arange(num_segments) * avg +
+                        self._random().randint(avg, size=num_segments))
+            return np.zeros((num_segments,), dtype=np.int64)
+        if valid_length >= num_segments:
+            avg = valid_length / float(num_segments)
+            return (np.arange(num_segments) * avg + avg / 2.0).astype(
+                np.int64)
+        return np.zeros((num_segments,), dtype=np.int64)
+
+    def _proposal_offsets(self, proposal, num_frames):
+        start, end = proposal.start_frame, proposal.end_frame
+        ori_clip_len = self.clip_len * self.frame_interval
+        duration = end - start
+        assert duration != 0
+        valid_starting = max(
+            0, start - int(duration * self.aug_ratio[0]))
+        valid_ending = min(num_frames - ori_clip_len + 1,
+                           end - 1 + int(duration * self.aug_ratio[1]))
+        starting = self._stage_offsets(
+            start - valid_starting - ori_clip_len,
+            self.aug_segments[0]) + valid_starting
+        course = self._stage_offsets(
+            duration - ori_clip_len, self.body_segments) + start
+        ending = self._stage_offsets(
+            (valid_ending - end + 1) - ori_clip_len,
+            self.aug_segments[1]) + end
+        return np.concatenate([starting, course, ending])
+
+    def __call__(self, results):
+        total_frames = results['total_frames']
+        ori_clip_len = self.clip_len * self.frame_interval
+        if self.mode == 'test':
+            clip_offsets = np.arange(0, total_frames - ori_clip_len,
+                                     self.test_interval, dtype=np.int64)
+        else:
+            proposals = results['out_proposals']
+            clip_offsets = np.concatenate([
+                self._proposal_offsets(item[0][1], total_frames)
+                for item in proposals]) if proposals else \
+                np.zeros((0,), dtype=np.int64)
+        frame_inds = (clip_offsets[:, None].astype(np.int64) +
+                      np.arange(self.clip_len)[None] * self.frame_interval)
+        frame_inds = np.concatenate(frame_inds)
+        if self.temporal_jitter:
+            frame_inds = frame_inds + self._random().randint(
+                self.frame_interval, size=len(frame_inds))
+        frame_inds = np.mod(frame_inds, total_frames) + \
+            results['start_index']
+        results['frame_inds'] = frame_inds.astype(np.int64)
+        results['clip_len'] = self.clip_len
+        results['frame_interval'] = self.frame_interval
+        results['num_clips'] = (self.body_segments + self.aug_segments[0] +
+                                self.aug_segments[1])
+        if self.mode in ('train', 'val'):
+            results['num_proposals'] = len(results['out_proposals'])
+        return results

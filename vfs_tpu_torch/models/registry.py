@@ -1,5 +1,4 @@
-"""Model registries (counterpart of ``vfs_tpu/models/registry.py``; the
-localizer registry comes with the localization slice)."""
+"""Model registries (counterpart of ``vfs_tpu/models/registry.py``)."""
 
 from ..utils import Registry
 
@@ -8,3 +7,4 @@ HEADS = Registry('head')
 LOSSES = Registry('loss')
 TRACKERS = Registry('tracker')
 RECOGNIZERS = Registry('recognizer')
+LOCALIZERS = Registry('localizer')

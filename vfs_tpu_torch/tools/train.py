@@ -6,8 +6,9 @@ Usage:
         [--auto-resume] [--validate] [--options k=v ...] [--device cpu] \\
         [--launcher pytorch] [--profile N] [--disable-wandb]
 
-Trains a tracker (self-supervised) or a recognizer (on the labels of its
-clips). Runs on CUDA unless ``--device`` says otherwise, and raises when
+Trains a tracker (self-supervised), a recognizer (on the labels of its
+clips) or a temporal-action localizer (BMN, TEM, PEM or SSN, through
+``apis.train_localizer``; ``--validate`` then logs a per-epoch val loss). Runs on CUDA unless ``--device`` says otherwise, and raises when
 there is no GPU and no ``--device cpu``. ``--launcher pytorch`` joins the
 process group that torchrun's environment describes (one process per
 GPU, NCCL; gloo with ``--device cpu``).
@@ -20,10 +21,6 @@ import os
 from typing import Optional, Sequence
 
 from .test import local_devices_arg, local_devices
-
-# the JAX package's localizers (vfs_tpu/apis/train_localizer.py), which the
-# port does not have yet
-LOCALIZER_TYPES = ('BMN', 'TEM', 'PEM', 'SSN')
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -68,6 +65,8 @@ def main(argv: Optional[Sequence[str]] = None):
     import torch
 
     from ..apis.train import apply_mixed_precision, train_model
+    from ..apis.train_localizer import (LOCALIZER_TYPES,
+                                        train_localizer_model)
     from ..datasets import build_dataset
     from ..device import resolve_device
     from ..models import build_model
@@ -114,16 +113,19 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg.dump(os.path.join(cfg.work_dir, os.path.basename(args.config)))
     set_random_seed(args.seed)
 
-    if cfg.model.get('type') in LOCALIZER_TYPES:
-        raise NotImplementedError(
-            f"training {cfg.model.get('type')!r}: localizer training comes "
-            'with the localization slice (ROADMAP Queue 1 item 7b)')
     apply_mixed_precision(cfg)
     model = build_model(cfg.model, train_cfg=cfg.get('train_cfg'),
                         test_cfg=cfg.get('test_cfg'))
     dataset = build_dataset(cfg.data.train)
     logger.info(f'Start training: {len(dataset)} samples, '
                 f'{cfg.total_epochs} epochs')
+    if cfg.model.get('type') in LOCALIZER_TYPES:
+        if args.local_devices != '1':
+            logger.info('--local-devices: a localizer validates by its loss '
+                        'on the training device')
+        return train_localizer_model(model, dataset, cfg,
+                                     validate=args.validate, logger=logger,
+                                     device=device)
     eval_devices = None
     if args.validate and args.local_devices != '1':
         eval_devices = local_devices(args.local_devices, device)
