@@ -69,6 +69,27 @@ Phases, one JSON line each on stdout:
    masks must equal ``forward_test``'s with the same weights), then
    ``tools.demo.main`` end to end where this cv2 writes mp4v
    (``demo_mp4``: written or unavailable).
+4b. wide: slice 14's wide kernel (``csrc/window_topk_wide.cu``), which
+   the four rows' wrappers launch where the core's limits (r <= 31, topk
+   <= 32) do not hold, at any radius and top-k, as the JAX package takes
+   them. Small shapes through the wrappers (``WIDE_VIDEO_CASES``,
+   ``WIDE_LOCAL_CASES``: top-k past 32, r past 31, C = 260, fillers, a
+   duplicated-frame tie case at top-40; every row 3 mode, bf16 features)
+   against the plain versions under the small phase's gates, rows 2 and 4
+   bit-equal to rows 1 and 3; then the r18 full width (C = 256, 60 x 107,
+   T = 24, P = 20, so the ring wraps; a step against 21 slots, K = 4) at
+   radius 40 / top-10 and radius 12 / top-48: the gates, CUDA-event ms,
+   the plain version's ms and the bound (row 4 through its op entry), and
+   row 3w's time split by channel count, feature type and top-k
+   (``WIDE_SPLIT_*``); the wide ops
+   (``*_wide_cuda``) forced at radius 12 / top-10 must equal rows 1 and 3
+   bit for bit in every mode and feature type. Then r18 ``forward_test``
+   on the main path's video at ``neighbor_range=80`` for ``backend``
+   ``'tiled'``, ``'pallas_video'`` with ``video_engine='v1'`` and
+   ``'pallas'``: the wide kernel launches on each path (rows 1 and 2 once,
+   row 3 once a step) and no core, and the masks agree with the tiled
+   run's on >= 99.9% of pixels. The comm helpers of slice 14 run once, in
+   the bench_cfg phase's first one-rank NCCL group (``comm_checks``).
 5. eval: slice 2's path, the config-driven DAVIS eval of the r50 model
    (configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py, full width, seeded
    random weights saved as a torchvision-layout ``.pth``) through
@@ -282,7 +303,9 @@ Phases, one JSON line each on stdout:
    needs, from the core's pass rule. Times of an earlier checkout come
    from ``ab_kernels.py``, which runs both checkouts in one call.) Its
    ``paths_without_kernels`` names the recognition and localization
-   paths, which launch none. A ``total`` line before it gives the
+   paths, which launch none. Rows 1-4's wide entries (slice 14) carry
+   their launches on the wide phase's paths and its full-width numbers
+   (radius 40 / top-10; radius 12 / top-48 beside). A ``total`` line before it gives the
    script's seconds and each phase's (``phase_seconds``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
@@ -453,6 +476,38 @@ NATIVE_CLIPS = 8
 YUV_CARD_CPU_ATOL = 1e-3
 # slice 11's demo: the first frames of the main path's video
 DEMO_FRAMES = 16
+# slice 14's wide kernel (csrc/window_topk_wide.cu): rows 1-4 where the
+# core's limits (r <= 31, topk <= 32) do not hold. Small shapes, rows 1/2:
+# (T, h, w, C, radius, P, topk); rows 3/4: (h, w, C, radius, slot
+# validity, topk, K): top-k past 32, r past 31 (radius 33 and 40), C = 260,
+# fillers (a 2 x 3 map at top-64; no valid slot)
+WIDE_INFO = dict(route='cuda', source='vfs_tpu_torch/csrc/window_topk_wide.cu')
+WIDE_VIDEO_CASES = [(5, 3, 5, 8, 3.0, 4, 40), (6, 9, 40, 8, 40.0, 3, 10),
+                    (4, 10, 37, 260, 33.0, 2, 33), (3, 2, 3, 8, 36.0, 2, 64)]
+WIDE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 40, 4),
+                    (9, 40, 8, 40.0, (0, 1, 1), 10, 16),
+                    (10, 37, 260, 33.0, (1, 1), 33, 4),
+                    (5, 6, 8, 36.0, (0, 0), 40, 4)]
+# the r18 full-width wide shapes (C = 256, 60 x 107, P = 20, a step
+# against 21 slots with K = 4): (radius, topk); T frames for rows 1/2,
+# past P + 1 so that the ring of slots wraps (from t = 21) and frames
+# t >= 20 score 21 distinct bank frames, as the main path's do
+WIDE_FULL = ((40.0, 10), (12.0, 48))
+WIDE_FULL_FRAMES = 24
+# where row 3w's time goes at radius 40 / top-10 (one step, 21 slots):
+# its CUDA-event ms at these channel counts (fp32, the first C channels of
+# the full-width features, renormalised), bf16 features at C = 256, and
+# top-48; the fit ms = a + b * C splits the time that scales with C
+# (scoring) from the rest (the walk, sorts and merges)
+WIDE_SPLIT_CHANNELS = (64, 128, 256)
+WIDE_SPLIT_TOPK = 48
+# r18 forward_test on the main path's video at this neighbor_range
+# (radius 40, r = 39), under each backend
+WIDE_NEIGHBOR_RANGE = 80
+WIDE_BACKENDS = (('tiled', dict(backend='tiled')),
+                 ('pallas_video_v1', dict(backend='pallas_video',
+                                          video_engine='v1')),
+                 ('pallas', dict(backend='pallas')))
 
 
 def emit(obj):
@@ -469,19 +524,21 @@ def peaks(name):
 
 def cuda_ms(fn, runs=5, warmup=1):
     """Median milliseconds of ``fn`` over ``runs`` CUDA-event timings."""
-    import torch
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(cuda_call(fn)[1] for _ in range(runs))
+
+
+def cuda_call(fn):
+    """``fn()`` and its CUDA-event milliseconds."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def affinity_work(t_total, h, w, c, radius, topk, p):
@@ -581,7 +638,8 @@ def phase_build():
     from vfs_tpu_torch.datasets import native_loader
     from vfs_tpu_torch.ops import _build
     names = [info['name']
-             for info in (KERNEL_INFO, V1_INFO, LOCAL_INFO, V2_INFO)]
+             for info in (KERNEL_INFO, V1_INFO, LOCAL_INFO, V2_INFO)] + [
+                 'window_topk_wide']
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 2) as pool:
         decoders = {name: pool.submit(get) for name, get in (
@@ -1512,6 +1570,351 @@ def phase_full_v2(dev, smi_name):
                 bound_ms=r50['bound_ms_per_step'], bound_by=r50['bound_by'],
                 bound_share=r50['bound_share'],
                 library_ms=None, library_note=NO_LIBRARY_CALL)
+
+
+def wide_small(dev, tensor):
+    """Rows 1-4's wide path over ``WIDE_VIDEO_CASES`` and
+    ``WIDE_LOCAL_CASES`` and a duplicated-frame tie case at top-40, through
+    the four wrappers, against the plain versions (the small phase's
+    gates); rows 2 and 4 bit-equal to rows 1 and 3; bf16 features bit-equal
+    to the fp32 entry on the widened features; row 3's modes
+    (``compare_mode``)."""
+    import torch
+    from vfs_tpu_torch.ops import (l2_normalize, video_topk_affinity_cuda,
+                                   video_topk_affinity_reference)
+    results = []
+    cases = [(c, np.random.RandomState(sum(c[:4]) + 14), False)
+             for c in WIDE_VIDEO_CASES]
+    rng = np.random.RandomState(19)
+    for (t_total, h, w, c, radius, p, topk), rng_c, tie in cases + [
+            ((10, 8, 9, 8, 3.0, 4, 40), rng, True)]:
+        raw = rng_c.randn(t_total, h, w, c)
+        if tie:
+            raw[3], raw[7] = raw[1], raw[5]
+        feats = l2_normalize(tensor(raw)).contiguous()
+        what = f'wide video {t_total}x{h}x{w}x{c} r={radius} k={topk}'
+        err, mismatch, merges = run_v1_case(feats, radius, topk, p, tie,
+                                            what)
+        if c % 8 == 0:
+            fb = feats.to(torch.bfloat16)
+            widened = video_topk_affinity_cuda(fb.float().contiguous(),
+                                               radius, 0.07, topk, p)
+            bf16 = video_topk_affinity_cuda(fb, radius, 0.07, topk, p)
+            if not (torch.equal(bf16[0][1:], widened[0][1:]) and torch.equal(
+                    bf16[1][1:], widened[1][1:])):
+                raise AssertionError(f'{what}: bf16 features differ from '
+                                     'the fp32 entry on the widened ones')
+        plain = video_topk_affinity_reference(feats, radius, 0.07, topk, p)
+        fillers = int((plain[0][1:] <= -1e29).sum())
+        results.append([t_total, h, w, c, radius, p, topk, tie, err,
+                        mismatch, fillers])
+    emit({'phase': 'wide', 'part': 'small_video',
+          'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk', 'tie',
+                      'max_abs_err', 'src_mismatch', 'filler_entries'],
+          'cases': results})
+
+    results = []
+    rng = np.random.RandomState(23)
+    tie_bank = rng.randn(5, 8, 9, 16)
+    tie_bank[2], tie_bank[4] = tie_bank[0], tie_bank[1]
+    cases = [(c, np.random.RandomState(c[0] * 100 + c[1] + 14), False)
+             for c in WIDE_LOCAL_CASES]
+    for (h, w, c, radius, valid, topk, k), rng_c, tie in cases + [
+            ((8, 9, 16, 3.0, (1,) * 5, 40, 4), rng, True)]:
+        f = len(valid)
+        query = tensor(rng_c.randn(h, w, c))
+        bank = tensor(tie_bank) if tie else tensor(rng_c.randn(f, h, w, c))
+        vals = tensor(rng_c.rand(f, h, w, k))
+        what = f'wide local {h}x{w}x{c} r={radius} F={f} k={topk}'
+        row = [h, w, c, radius, f, sum(valid), topk, k, tie]
+        for feat in (torch.float32, torch.bfloat16):
+            if feat == torch.bfloat16 and c % 8:
+                continue
+            q = l2_normalize(query).to(feat).contiguous()
+            b = l2_normalize(bank).to(feat).contiguous()
+            valid_t = tensor(valid, torch.int32)
+            for name, mode in (('exact', {}),) + LOCAL_MODES:
+                label = f'{what} {name} {feat}'
+                if feat == torch.float32 and not mode:  # the exact gate
+                    nums = (*run_local(q, b, vals, valid_t, radius, topk,
+                                       tie, label)[0], 0)
+                    run_local_v2(q, b, vals, valid_t, radius, topk, tie,
+                                 f'{what} v2')
+                else:
+                    nums, _ = run_local_mode(q, b, vals, valid_t, radius,
+                                             topk, tie, label, mode)
+                results.append(row + [name, str(feat).split('.')[-1],
+                                      *nums])
+    emit({'phase': 'wide', 'part': 'small_local',
+          'columns': ['h', 'w', 'C', 'radius', 'F', 'valid', 'topk', 'K',
+                      'tie', 'mode', 'features', 'max_abs_err',
+                      'max_logit_err', 'src_mismatch', 'src_mismatch_share',
+                      'bf16_rounding_flips'],
+          'cases': results})
+
+
+def wide_full(dev, smi_name):
+    """Rows 1-4's wide path at the r18 full width (C = 256, 60 x 107, P =
+    20, ``WIDE_FULL_FRAMES`` frames; a step against 21 valid slots with
+    K = 4) for each of ``WIDE_FULL``: each row against the plain version
+    (TF32 off; the full phase's gates), rows 2 and 4 bit-equal to rows 1
+    and 3, CUDA-event ms, the plain version's ms and the bound. Row 4
+    through its op entry (``local_topk_attend_v2``), its wide count set to
+    0 first. Then the wide ops forced at radius 12 / top-10, where the core
+    applies: bit-equal to rows 1 and 3 in every mode and feature type, and
+    their ms beside the core's. Returns the kernels line's entries' numbers
+    per row and row 4's op launches."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   local_topk_attend_reference,
+                                   local_topk_attend_v2,
+                                   local_topk_attend_v2_cuda,
+                                   local_topk_attend_wide_cuda,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_reference,
+                                   video_topk_affinity_v1_cuda,
+                                   video_topk_affinity_wide_cuda)
+    h, w, c, p, t_total, k_classes = 60, 107, 256, 20, WIDE_FULL_FRAMES, 4
+    f = p + 1
+    g = torch.Generator(device=dev).manual_seed(14)
+    feats = l2_normalize(torch.randn((t_total, h, w, c), device=dev,
+                                     generator=g)).contiguous()
+    bank = l2_normalize(torch.randn((f, h, w, c), device=dev,
+                                    generator=g)).contiguous()
+    query = l2_normalize(torch.randn((h, w, c), device=dev,
+                                     generator=g)).contiguous()
+    vals = torch.rand((f, h, w, k_classes), device=dev, generator=g)
+    valid = torch.ones(f, dtype=torch.int32, device=dev)
+    rows = {1: {}, 2: {}, 3: {}, 4: {}}
+    row4_launches = 0
+    for radius, topk in WIDE_FULL:
+        key = f'radius{radius:g}_top{topk}'
+
+        def video(fn, **kw):
+            return fn(feats, radius, 0.07, topk, p, **kw)
+
+        def local(fn):
+            return fn(query, bank, vals, valid, radius, 0.07, topk)
+
+        with exact_fp32():
+            # T = 24 calls last seconds: each timed on its checked run (the
+            # wide kernel is warm from wide_small)
+            plain, plain_v = cuda_call(
+                lambda: video(video_topk_affinity_reference))
+            row1, ms1 = cuda_call(lambda: video(video_topk_affinity_cuda))
+            row2, ms2 = cuda_call(lambda: video(video_topk_affinity_v1_cuda,
+                                                extract='perframe'))
+            err, mismatch, share = compare(
+                (row1[0][1:], row1[1][1:]), (plain[0][1:], plain[1][1:]),
+                False, f'wide full row 1 {key}')
+            if not (torch.equal(row2[0], row1[0])
+                    and torch.equal(row2[1], row1[1])):
+                raise AssertionError(f'wide full row 2 {key}: differs '
+                                     'from row 1')
+            del plain
+            (l_err, logit_err, l_mismatch, l_share), row3 = run_local(
+                query, bank, vals, valid, radius, topk, False,
+                f'wide full row 3 {key}')
+            local_topk_attend_v2_cuda.wide_launches = 0  # its op entry
+            row4 = local(local_topk_attend_v2)
+            row4_launches += local_topk_attend_v2_cuda.wide_launches
+            if not (torch.equal(row4[1], row3[1])
+                    and torch.equal(row4[2], row3[2])):
+                raise AssertionError(f'wide full row 4 {key}: differs '
+                                     'from row 3')
+            ms3 = cuda_ms(lambda: local(local_topk_attend_cuda), runs=3)
+            ms4 = cuda_ms(lambda: local(local_topk_attend_v2_cuda), runs=3)
+            plain_l = cuda_ms(lambda: local(local_topk_attend_reference),
+                              runs=1, warmup=0)
+        v_flops, v_bytes = affinity_work(t_total, h, w, c, radius, topk, p)
+        l_flops, l_bytes = step_work(h, w, c, radius, topk, k_classes, f, f)
+        vb, vby = bound_ms(v_flops, v_bytes, smi_name)
+        lb, lby = bound_ms(l_flops, l_bytes, smi_name)
+        common = dict(radius=radius, topk=topk, library_ms=None,
+                      library_note=NO_LIBRARY_CALL)
+        video_nums = dict(common, shape=[t_total, h, w, c],
+                          precede_frames=p, max_abs_err=err,
+                          src_mismatch=mismatch, src_mismatch_share=share,
+                          plain_ms=plain_v, gflop=v_flops / 1e9,
+                          bound_ms=vb, bound_by=vby)
+        local_nums = dict(common, h=h, w=w, C=c, F=f, K=k_classes,
+                          max_abs_err=l_err, max_logit_err=logit_err,
+                          src_mismatch=l_mismatch,
+                          src_mismatch_share=l_share, plain_ms=plain_l,
+                          gflop=l_flops / 1e9, bound_ms=lb, bound_by=lby)
+        for row, ms, nums in ((1, ms1, video_nums), (2, ms2, video_nums),
+                              (3, ms3, local_nums), (4, ms4, local_nums)):
+            rows[row][key] = dict(nums, ms=ms, bound_share=nums['bound_ms']
+                                  / ms)
+        del row1, row2, row3, row4
+        torch.cuda.empty_cache()
+    if row4_launches != len(WIDE_FULL):
+        raise AssertionError(f'row 4 op entry: {row4_launches} wide '
+                             'launches')
+    split = wide_split(query, bank, vals, valid)
+
+    # the wide ops at a core size: bit-equal to the core
+    radius, topk = 12.0, 10
+    forced = {}
+    for feat in (torch.float32, torch.bfloat16):
+        name = str(feat).split('.')[-1]
+        fv = feats.to(feat)
+        a = video_topk_affinity_wide_cuda(fv, radius, 0.07, topk, p)
+        b = video_topk_affinity_cuda(fv, radius, 0.07, topk, p)
+        if not (torch.equal(a[0][1:], b[0][1:])
+                and torch.equal(a[1][1:], b[1][1:])):
+            raise AssertionError(f'wide video {name} at radius 12 / top-10 '
+                                 'differs from row 1')
+        q, bk = query.to(feat), bank.to(feat)
+        for mname, mode in (('exact', {}),) + LOCAL_MODES:
+            a = local_topk_attend_wide_cuda(q, bk, vals, valid, radius, 0.07,
+                                            topk, **mode)
+            b = local_topk_attend_cuda(q, bk, vals, valid, radius, 0.07,
+                                       topk, **mode)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f'wide local {mname} {name} at radius '
+                                     '12 / top-10 differs from row 3')
+            forced[f'row3_{mname}_{name}'] = 'bit-equal'
+        forced[f'row1_{name}'] = 'bit-equal'
+    forced['ms'] = dict(
+        row1_wide=cuda_ms(lambda: video_topk_affinity_wide_cuda(
+            feats, radius, 0.07, topk, p), runs=3),
+        row1_core=cuda_ms(lambda: video_topk_affinity_cuda(
+            feats, radius, 0.07, topk, p), runs=3),
+        row3_wide=cuda_ms(lambda: local_topk_attend_wide_cuda(
+            query, bank, vals, valid, radius, 0.07, topk), runs=3),
+        row3_core=cuda_ms(lambda: local_topk_attend_cuda(
+            query, bank, vals, valid, radius, 0.07, topk), runs=3))
+    emit({'phase': 'wide', 'part': 'full', 'card': smi_name,
+          'rows': {f'row{r}': v for r, v in rows.items()},
+          'row3w_split': split, 'forced_radius12_top10': forced})
+    return rows, row4_launches
+
+
+def wide_split(query, bank, vals, valid):
+    """Where row 3w's time goes at radius 40 / top-10 (``WIDE_SPLIT_*``):
+    CUDA-event ms at each channel count, the least-squares fit ms = a + b *
+    C over them (a: the time that does not scale with C, the walk over the
+    window, the sorts and the merges; b * C: the scoring), bf16 features
+    (half the key bytes, the same load instructions) and top-48."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize, local_topk_attend_wide_cuda
+    radius, topk = WIDE_FULL[0]
+
+    def ms(q, bk, k=topk):
+        return cuda_ms(lambda: local_topk_attend_wide_cuda(
+            q, bk, vals, valid, radius, 0.07, k), runs=2)
+
+    by_c = {}
+    for c in WIDE_SPLIT_CHANNELS:
+        q = l2_normalize(query[..., :c]).contiguous()
+        bk = l2_normalize(bank[..., :c]).contiguous()
+        by_c[c] = ms(q, bk)
+    cs = np.array(WIDE_SPLIT_CHANNELS, np.float64)
+    b, a = np.polyfit(cs, np.array([by_c[c] for c in WIDE_SPLIT_CHANNELS]),
+                      1)
+    full = by_c[WIDE_SPLIT_CHANNELS[-1]]
+    return dict(radius=radius, topk=topk, ms_by_channels=by_c,
+                fit_a_ms=float(a), fit_b_ms_per_channel=float(b),
+                fixed_share=float(a) / full,
+                bf16_ms=ms(query.to(torch.bfloat16), bank.to(torch.bfloat16)),
+                topk48_ms=ms(query, bank, WIDE_SPLIT_TOPK))
+
+
+def wide_forward(dev):
+    """r18 ``forward_test`` on the main path's 48x480x854 video at
+    ``WIDE_NEIGHBOR_RANGE`` under each of ``WIDE_BACKENDS``, each wide
+    count set to 0 before: the wide kernel must launch (row 1 once, row 2
+    once, row 3 once a step) and no core; the masks must agree with the
+    tiled run's on >= 99.9% of pixels. Returns each backend's numbers and
+    the wide launches by row."""
+    import runpy
+    import torch
+    from vfs_tpu_torch import ops
+    from vfs_tpu_torch.models import build_model
+    cfg = runpy.run_path(CONFIG)
+    model = build_model(dict(type='VanillaTracker',
+                             backbone=dict(cfg['model']['backbone'])),
+                        test_cfg=dict(cfg['test_cfg']))
+    model.init_weights(torch.Generator().manual_seed(0))
+    imgs, gt = synthetic_video()
+    t_total = imgs.shape[0]
+    meta = [dict(original_shape=imgs.shape[1:3],
+                 img_norm_cfg=dict(cfg['img_norm_cfg']))]
+    wrappers = {1: ops.video_topk_affinity_cuda,
+                2: ops.video_topk_affinity_v1_cuda,
+                3: ops.local_topk_attend_cuda}
+    want = {'tiled': {1: 1}, 'pallas_video_v1': {2: 1},
+            'pallas': {3: t_total - 1}}
+    runs, masks, launches = {}, {}, {}
+    for name, extra in WIDE_BACKENDS:
+        model.test_cfg = dict(cfg['test_cfg'],
+                              neighbor_range=WIDE_NEIGHBOR_RANGE, **extra)
+        for k in wrappers.values():
+            k.wide_launches = 0
+        before = kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        preds = model.forward_test(imgs, gt[0], meta)[0]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        wide = {row: k.wide_launches for row, k in wrappers.items()}
+        got = {row: n for row, n in wide.items() if n}
+        if got != want[name] or kernel_launches() - before != sum(
+                got.values()):
+            raise AssertionError(f'wide forward_test {name}: wide launches '
+                                 f'{wide}, all {kernel_launches() - before}')
+        if preds.shape != gt.shape or preds.max() > 2:
+            raise AssertionError(f'wide forward_test {name}: bad masks')
+        masks[name] = preds
+        launches.update(got)
+        runs[name] = dict(wall_s=wall, ms_per_frame=wall * 1e3 / t_total,
+                          wide_launches=sum(got.values()))
+    model.test_cfg = dict(cfg['test_cfg'])
+    for name in masks:
+        runs[name]['mask_agree_tiled'] = float(
+            (masks[name] == masks['tiled']).mean())
+        if runs[name]['mask_agree_tiled'] < 0.999:
+            raise AssertionError(f'wide forward_test {name}: masks agree on '
+                                 f"{runs[name]['mask_agree_tiled']} < 0.999")
+    emit({'phase': 'wide', 'part': 'forward_test', 'video': list(imgs.shape),
+          'neighbor_range': WIDE_NEIGHBOR_RANGE, 'runs': runs})
+    return launches
+
+
+def phase_wide(dev, smi_name):
+    """Slice 14's wide kernel (module docstring, phase 4b): small shapes,
+    the r18 full-width wide shapes and the forced core-size check, then
+    ``forward_test`` at neighbor_range 80. Returns the kernels line's
+    entries: rows 1-4's wide paths with their launches on their paths
+    (row 1 the tiled run's, row 2 the v1 engine's, row 3 the scan's, row 4
+    its op entry's) and the full-width numbers (radius 40 / top-10 as the
+    entry's, radius 12 / top-48 beside)."""
+    import torch
+
+    def tensor(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    wide_small(dev, tensor)
+    rows, row4_launches = wide_full(dev, smi_name)
+    launches = wide_forward(dev)
+    launches[4] = row4_launches
+    names = {1: ('video_topk_affinity_wide', KERNEL_INFO),
+             2: ('video_topk_affinity_v1_wide', V1_INFO),
+             3: ('local_topk_attend_wide', LOCAL_INFO),
+             4: ('local_topk_attend_v2_wide', V2_INFO)}
+    entries = []
+    main_key = f'radius{WIDE_FULL[0][0]:g}_top{WIDE_FULL[0][1]}'
+    for row, (name, info) in names.items():
+        if not launches.get(row):
+            raise AssertionError(f'{name}: no launch on its path')
+        nums = dict(rows[row])
+        first = nums.pop(main_key)
+        entries.append(dict(name=name, **WIDE_INFO,
+                            replaces=info['replaces'],
+                            launches=launches[row], **first, **nums))
+    return entries
 
 
 def synthetic_video(t_total=48, h=480, w=854, seed=0):
@@ -3313,10 +3716,12 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def bench_depth(dev, smi_name, name, depth, neighbor_range, floor, videos):
+def bench_depth(dev, smi_name, name, depth, neighbor_range, floor, videos,
+                check_comm):
     """One depth of the bench_cfg phase (module docstring): the kernels in
-    bf16, then the path. Returns the kernel checks' numbers and each row's
-    bf16 launches on the path."""
+    bf16, then the path; ``comm_checks`` in its NCCL group where
+    ``check_comm``. Returns the kernel checks' numbers and each row's bf16
+    launches on the path."""
     import torch
     import torch.distributed as dist
     import vfs_tpu_torch.apis as apis
@@ -3455,6 +3860,7 @@ def bench_depth(dev, smi_name, name, depth, neighbor_range, floor, videos):
                             f'{free_port()}', rank=0, world_size=1)
     try:
         multi = apis.multi_process_test(model, clips)
+        comm = {'comm': comm_checks(dev)} if check_comm else {}
     finally:
         dist.destroy_process_group()
     if len(multi) != len(single) or not all(
@@ -3482,8 +3888,39 @@ def bench_depth(dev, smi_name, name, depth, neighbor_range, floor, videos):
           'agreement': agree, 'bf16_floor': floor,
           'bf16_path_launches': dict(row1=row1_bf16 + 1, row2=row2_bf16,
                                      row3=row3_bf16),
-          'multi_process_equal': True, 'kernels': kernels})
+          'multi_process_equal': True, **comm, 'kernels': kernels})
     return kernels, (row1_bf16 + runs['bf16'][1][0], row2_bf16, row3_bf16)
+
+
+def comm_checks(dev):
+    """Slice 14's ``parallel.comm`` helpers in the one-rank NCCL group
+    (their collectives run; on one rank each is the identity, as the JAX
+    functions are on one device): the gather carries no gradient, the
+    shuffle is a permutation that the unshuffle undoes, the gradient mean
+    is the gradient, the sharded gather keeps the identity's gradient."""
+    import torch
+    from vfs_tpu_torch.parallel import (allreduce_grads, batch_shuffle,
+                                        batch_unshuffle, concat_all_gather,
+                                        concat_all_gather_sharded)
+    x = torch.arange(48.0, device=dev).reshape(12, 4).requires_grad_()
+    gathered = concat_all_gather(x)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shuffled, inverse = batch_shuffle(x.detach(), gen)
+    grads = {'w': torch.arange(6.0, device=dev),
+             'b': torch.ones(2, dtype=torch.float64, device=dev)}
+    want = {k: v.clone() for k, v in grads.items()}
+    allreduce_grads(grads)
+    concat_all_gather_sharded(x).pow(2).sum().backward()
+    checks = dict(
+        gather=bool(torch.equal(gathered, x) and not gathered.requires_grad),
+        shuffle=bool(torch.equal(batch_unshuffle(shuffled, inverse), x)
+                     and not torch.equal(shuffled, x) and torch.equal(
+                         shuffled[:, 0].sort().values, x[:, 0].detach())),
+        allreduce=all(torch.equal(grads[k], want[k]) for k in grads),
+        sharded_grad=bool(torch.equal(x.grad, 2 * x.detach())))
+    if not all(checks.values()):
+        raise AssertionError(f'comm helpers in the NCCL group: {checks}')
+    return checks
 
 
 def phase_bench_cfg(dev, smi_name):
@@ -3497,9 +3934,9 @@ def phase_bench_cfg(dev, smi_name):
                                       + BF16_SMALL_LOCAL_CASES)]})
     videos = bench_videos()
     out = {row: dict(launches=0) for row in ('row1', 'row2', 'row3')}
-    for name, depth, nr, floor in BENCH_MODELS:
+    for i, (name, depth, nr, floor) in enumerate(BENCH_MODELS):
         kernels, launches = bench_depth(dev, smi_name, name, depth, nr, floor,
-                                        videos)
+                                        videos, check_comm=i == 0)
         for row, n in zip(('row1', 'row2', 'row3'), launches):
             out[row]['launches'] += n
             out[row][name] = kernels[row]
@@ -4216,11 +4653,14 @@ def write_config(path, cfg_dict):
 
 
 def kernel_launches():
-    """Every launch count of the four hand-written kernels."""
+    """Every launch count of the hand-written kernels: the four rows'
+    wrappers (the wide kernel's launches through them included) and the
+    wide ops."""
     from vfs_tpu_torch import ops
     return sum(getattr(k, name) for k in (
         ops.video_topk_affinity_cuda, ops.video_topk_affinity_v1_cuda,
-        ops.local_topk_attend_cuda, ops.local_topk_attend_v2_cuda)
+        ops.local_topk_attend_cuda, ops.local_topk_attend_v2_cuda,
+        ops.video_topk_affinity_wide_cuda, ops.local_topk_attend_wide_cuda)
         for name in dir(k) if name.endswith('launches'))
 
 
@@ -5269,6 +5709,7 @@ def main():
     v1_full = timed('full_v1', phase_full_v1, dev, smi_line, plain_ms)
     v2_entry = timed('full_v2', phase_full_v2, dev, smi_line)
     row1 = timed('main', phase_main, dev, smi_line)
+    wide = timed('wide', phase_wide, dev, smi_line)
     eval_modes, row3 = timed('eval', phase_eval, local_full)
     v1_launches = timed('pose', phase_pose) + timed('vip', phase_vip)
     row1[0]['launches'] += timed('train', phase_train, dev, smi_line)
@@ -5290,7 +5731,7 @@ def main():
                           **modes_full[name])
     emit({'phase': 'total', 'seconds': time.time() - t_start,
           'phase_seconds': phase_s})
-    emit({'kernels': [*row1, row2, row3, v2_entry],
+    emit({'kernels': [*row1, row2, row3, v2_entry, *wide],
           'paths_without_kernels': {
               'recognition': 'launches none of the four rows: cuDNN '
                              'convolutions and PyTorch ops (phase 14)',

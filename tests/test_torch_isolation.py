@@ -15,9 +15,11 @@ import torch
 
 import vfs_tpu_torch
 from vfs_tpu_torch.ops import _build
-from vfs_tpu_torch.ops.local_attention import local_topk_attend_cuda
+from vfs_tpu_torch.ops.local_attention import (local_topk_attend_cuda,
+                                               local_topk_attend_wide_cuda)
 from vfs_tpu_torch.ops.local_attention_v2 import local_topk_attend_v2_cuda
-from vfs_tpu_torch.ops.video_affinity import video_topk_affinity_cuda
+from vfs_tpu_torch.ops.video_affinity import (video_topk_affinity_cuda,
+                                              video_topk_affinity_wide_cuda)
 from vfs_tpu_torch.ops.video_affinity_v1 import video_topk_affinity_v1_cuda
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -86,6 +88,10 @@ for name in ('vfs_tpu_torch.tools.test', 'vfs_tpu_torch.apis.test',
              *(f'vfs_tpu_torch.tools.data.{m}' for m in (
                  'denormalize_proposal_file', 'file_lists',
                  'tsn_feature_extraction')),
+             # slice 14: the wide kernel's op, the last modules
+             'vfs_tpu_torch.ops.local_attention_tiled',
+             'vfs_tpu_torch.parallel.comm', 'vfs_tpu_torch.utils.zip_reader',
+             'vfs_tpu_torch.version',
              *(f'vfs_tpu_torch.tools.analysis.{m}' for m in (
                  'bench_kernel', 'profile_kernel', 'bench_extract',
                  'benchmark', 'get_flops', 'bench_processing',
@@ -121,7 +127,7 @@ def test_imports_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9 + 13 + 19
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67 + 9 + 13 + 19 + 4
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -196,6 +202,23 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
                                   torch.ones(3, dtype=torch.bool), 3.0, 0.07,
                                   4)
     assert local_topk_attend_v2_cuda.launches == 0
+    # the wide kernel's ops, and the wrappers at sizes only it takes
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        video_topk_affinity_wide_cuda(feats, 3.0, 0.07, 4, 2)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        video_topk_affinity_cuda(feats, 40.0, 0.07, 48, 2)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        local_topk_attend_wide_cuda(feats[0], feats, torch.zeros(3, 4, 5, 2),
+                                    torch.ones(3, dtype=torch.bool), 3.0,
+                                    0.07, 4)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        local_topk_attend_cuda(feats[0], feats, torch.zeros(3, 4, 5, 2),
+                               torch.ones(3, dtype=torch.bool), 40.0, 0.07,
+                               48)
+    assert video_topk_affinity_wide_cuda.launches == 0
+    assert local_topk_attend_wide_cuda.launches == 0
+    assert video_topk_affinity_cuda.wide_launches == 0
+    assert local_topk_attend_cuda.wide_launches == 0
     assert not _build._LIBS
 
 

@@ -11,10 +11,10 @@ from vfs_tpu_torch.ops.local_attention_v2 import local_topk_attend_v2_cuda
 from vfs_tpu_torch.ops.video_affinity import (circle_offsets,
                                               video_topk_affinity_cuda)
 from vfs_tpu_torch.ops.video_affinity_v1 import video_topk_affinity_v1_cuda
-from vfs_tpu_torch.ops.window_geometry import (MAX_OFFSET, PASS_DX,
-                                               circle_band, pair_counts,
-                                               pass_starts, plan_args,
-                                               window_plan)
+from vfs_tpu_torch.ops.window_geometry import (KMAX, MAX_OFFSET, PASS_DX,
+                                               circle_band, core_takes,
+                                               pair_counts, pass_starts,
+                                               plan_args, window_plan)
 
 torch.set_num_threads(1)
 
@@ -96,10 +96,15 @@ def _no_build(name):
 @pytest.mark.parametrize('kind', ['radius', 'topk'])
 @pytest.mark.parametrize('row', [1, 2, 3, 4])
 def test_wrappers_reject_before_launch(monkeypatch, kind, row):
-    """r > 31 and topk > 32 raise ValueError before any build or launch,
-    whatever device the tensors are on."""
+    """What no kernel takes, a radius <= 0 (r < 0) or a topk < 1, raises
+    ValueError before any build or launch, whatever device the tensors
+    are on. r > 31 and topk > 32, which the core does not take, are no
+    longer refused: the wide kernel takes them
+    (``tests/test_torch_wide_window.py`` shows the wrappers choose it)."""
     monkeypatch.setattr(_build, 'load', _no_build)
-    radius, topk = (MAX_OFFSET + 2.0, 10) if kind == 'radius' else (5.0, 33)
+    radius, topk = (0.0, 10) if kind == 'radius' else (5.0, 0)
+    assert not core_takes(radius, topk)
+    assert core_takes(MAX_OFFSET + 1.0, KMAX)
     h, w, c = 4, 5, 8
     feats = torch.zeros(3, h, w, c)
     step = (torch.zeros(h, w, c), torch.zeros(2, h, w, c),

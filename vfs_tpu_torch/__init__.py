@@ -5,7 +5,6 @@ Kernels build with ``nvcc`` at their first CUDA call.
 """
 
 from .device import exact_fp32, resolve_device
-
-__version__ = '0.1.0'
+from .version import __version__
 
 __all__ = ['__version__', 'exact_fp32', 'resolve_device']

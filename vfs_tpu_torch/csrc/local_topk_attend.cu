@@ -99,21 +99,6 @@ constexpr int RESCORE_PICKS = 8;  // picks a packed re-score pass reads
 // re-scores, so that its h*w threads spread over the SMs.
 __host__ __device__ constexpr int merge_threads(Sel s) { return s == Sel::Packed ? 32 : MT; }
 
-// Channels c .. c + 3 of a feature row as fp32 (C a multiple of a quad:
-// the loads are aligned).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // Packed: the exact score of each pick (cell lo[i] of the bank), the
 // core's fmaf chain over ascending channels from 0, times inv_tau; fillers
 // (NEG_INF) stay.
@@ -130,10 +115,10 @@ __device__ void rescore(const T* __restrict__ qrow, const T* __restrict__ bank,
       acc[j] = 0.f;
     }
     for (int c = 0; c < C; c += 4) {
-      const float4 qv = load4(qrow + c);
+      const float4 qv = wtk::load_global4(qrow + c);
 #pragma unroll
       for (int j = 0; j < RESCORE_PICKS; ++j)
-        acc[j] = wtk::dot4(qv, load4(key[j] + c), acc[j]);
+        acc[j] = wtk::dot4(qv, wtk::load_global4(key[j] + c), acc[j]);
     }
 #pragma unroll
     for (int j = 0; j < RESCORE_PICKS; ++j)
@@ -179,19 +164,10 @@ __global__ void __launch_bounds__(merge_threads(S))
       out_s[(size_t)q * topk + i] = ls[i];
     }
   }
-  float z = 0.f;
-  for (int i = 0; i < topk; ++i) {
-    ls[i] = expf(ls[i] - m);
-    z += ls[i];
-  }
-  for (int i = 0; i < topk; ++i) ls[i] /= z;
+  wtk::softmax_weights(ls, topk, m);
   float* dst = out + (size_t)q * K;
-  for (int c = 0; c < K; ++c) {
-    float a = 0.f;
-    for (int i = 0; i < topk; ++i)
-      a = fmaf(ls[i], vals[(size_t)lo[i] * K + c], a);
-    dst[c] = a;
-  }
+  for (int c = 0; c < K; ++c)
+    dst[c] = wtk::weighted_value(ls, lo, topk, vals, K, c);
 }
 
 // Every entry: S the selection's score key, T the feature type of query

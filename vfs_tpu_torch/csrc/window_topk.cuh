@@ -7,6 +7,11 @@
 //         pallas_local_topk_attend, vfs_tpu/ops/pallas_attention.py:357);
 //   row 4 local_topk_attend_v2.cu    (replacing pallas_local_topk_attend_v2,
 //         vfs_tpu/ops/pallas_attention_v2.py:130).
+// window_topk_wide.cu, the four rows' kernel where the core's limits (r <=
+// MAX_OFFSET, topk <= KMAX) do not hold, shares its score key
+// (score_key), dot4, the global loads (load_global4) and row 3's epilogue
+// (softmax_weights, weighted_value), so that the two give the same lists
+// and logits bit for bit where both apply.
 //
 // What it computes. A block owns a tile of TH x TW = 8 x 32 query cells of
 // one query plane (h, w, C) and walks a list of bank frames (h, w, C). For
@@ -326,6 +331,23 @@ __device__ __forceinline__ float dot4(float4 q, float4 k, float a) {
   a = fmaf(q.y, k.y, a);
   a = fmaf(q.z, k.z, a);
   return fmaf(q.w, k.w, a);
+}
+
+// Channels c .. c + 3 of a feature row in global memory as fp32 (C a
+// multiple of a 16-byte quad's channels: the loads are aligned). Row 3's
+// packed re-score and the wide kernel (window_topk_wide.cu) read whole rows
+// with them, in the core's channel order.
+__device__ __forceinline__ float4 load_global4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load_global4(const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // Where a row group's passes start: -e rounded down to a multiple of 4
@@ -890,6 +912,32 @@ __device__ __forceinline__ void decode_list(float* ls, int* lo, int topk,
     out_s[base + i] = ls[i];
     out_i[base + i] = idx;
   }
+}
+
+// Row 3's epilogue, shared by local_topk_attend.cu's merge stage and the
+// wide kernel so that both give the same logits bit for bit. ls[0..topk):
+// one query's scores in list order (NEG_INF for fillers), m their max; ls
+// becomes the softmax weights.
+__device__ __forceinline__ void softmax_weights(float* ls, int topk,
+                                                float m) {
+  float z = 0.f;
+  for (int i = 0; i < topk; ++i) {
+    ls[i] = expf(ls[i] - m);
+    z += ls[i];
+  }
+  for (int i = 0; i < topk; ++i) ls[i] /= z;
+}
+
+// Channel c of the weighted sum of the value rows lo[i] of vals (K
+// channels a row), summed in list order.
+__device__ __forceinline__ float weighted_value(const float* ls,
+                                                const int* lo, int topk,
+                                                const float* __restrict__ vals,
+                                                int K, int c) {
+  float a = 0.f;
+  for (int i = 0; i < topk; ++i)
+    a = fmaf(ls[i], vals[(size_t)lo[i] * K + c], a);
+  return a;
 }
 
 }  // namespace wtk

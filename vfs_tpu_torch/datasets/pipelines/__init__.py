@@ -1,6 +1,9 @@
-from .augmentations import (CenterCrop, ColorJitter, DeviceAug, Flip, Fuse,
+from .augmentations import (RGB2LAB, CenterCrop, ColorJitter, DeviceAug,
+                            Flip, Fuse, Grid, HidePatch, Image2Patch,
                             MultiGroupCrop, MultiScaleCrop, Normalize,
-                            RandomCrop, RandomGaussianBlur, RandomGrayScale,
+                            PhotoMetricDistortion, RandomAffine,
+                            RandomChoiceRotate, RandomCrop, RandomErasing,
+                            RandomGaussianBlur, RandomGrayScale,
                             RandomResizedCrop, Resize, TenCrop, ThreeCrop)
 from .compose import Compose
 from .formating import (Collect, FormatShape, ImageToTensor, ToDataContainer,
@@ -18,7 +21,9 @@ __all__ = [
     'CenterCrop', 'ColorJitter', 'DeviceAug', 'Flip', 'Fuse',
     'MultiGroupCrop', 'MultiScaleCrop', 'Normalize', 'RandomCrop',
     'RandomGaussianBlur', 'RandomGrayScale', 'RandomResizedCrop', 'Resize',
-    'TenCrop', 'ThreeCrop', 'Compose', 'Collect', 'FormatShape',
+    'TenCrop', 'ThreeCrop', 'RGB2LAB', 'PhotoMetricDistortion',
+    'RandomErasing', 'Grid', 'Image2Patch', 'HidePatch', 'RandomAffine',
+    'RandomChoiceRotate', 'Compose', 'Collect', 'FormatShape',
     'ImageToTensor', 'ToDataContainer', 'ToTensor', 'Transpose',
     'AppendFrames', 'Clip2Frame', 'DecordDecode', 'DecordInit',
     'DenseSampleFrames', 'DuplicateFrames', 'Frame2Clip', 'FrameSelector',

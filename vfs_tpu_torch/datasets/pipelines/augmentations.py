@@ -509,6 +509,236 @@ class TenCrop:
 
 
 @PIPELINES.register_module()
+class RGB2LAB:
+    """RGB -> LAB color space (reference augmentations.py:1075-1086)."""
+
+    def __call__(self, results):
+        import cv2
+        results['imgs'] = [
+            cv2.cvtColor(img, cv2.COLOR_RGB2LAB)
+            for img in results['imgs']
+        ]
+        return results
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """Random brightness/contrast/saturation/hue distortion (reference
+    augmentations.py:1087-1224)."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results):
+        import cv2
+        out = []
+        for img in results['imgs']:
+            img = img.astype(np.float32)
+            if np.random.randint(2):
+                img += np.random.uniform(-self.brightness_delta,
+                                         self.brightness_delta)
+            mode = np.random.randint(2)
+            if mode == 1 and np.random.randint(2):
+                img *= np.random.uniform(self.contrast_lower,
+                                         self.contrast_upper)
+            hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8),
+                               cv2.COLOR_RGB2HSV).astype(np.float32)
+            if np.random.randint(2):
+                hsv[..., 1] *= np.random.uniform(self.saturation_lower,
+                                                 self.saturation_upper)
+            if np.random.randint(2):
+                hsv[..., 0] = (hsv[..., 0] + np.random.uniform(
+                    -self.hue_delta, self.hue_delta)) % 180
+            img = cv2.cvtColor(
+                np.clip(hsv, 0, [179, 255, 255]).astype(np.uint8),
+                cv2.COLOR_HSV2RGB).astype(np.float32)
+            if mode == 0 and np.random.randint(2):
+                img *= np.random.uniform(self.contrast_lower,
+                                         self.contrast_upper)
+            out.append(np.clip(img, 0, 255).astype(np.uint8))
+        results['imgs'] = out
+        return results
+
+
+@PIPELINES.register_module()
+class RandomErasing:
+    """Random rectangle erase per frame (reference
+    augmentations.py:1478-1530)."""
+
+    def __init__(self, p=0.5, area_range=(0.02, 0.33),
+                 aspect_range=(0.3, 3.3), fill=0):
+        self.p = p
+        self.area_range = area_range
+        self.aspect_range = aspect_range
+        self.fill = fill
+
+    def __call__(self, results):
+        out = []
+        for img in results['imgs']:
+            if np.random.rand() < self.p:
+                img = img.copy()
+                h, w = img.shape[:2]
+                area = h * w * np.random.uniform(*self.area_range)
+                aspect = np.random.uniform(*self.aspect_range)
+                eh = min(h, int(round(np.sqrt(area * aspect))))
+                ew = min(w, int(round(np.sqrt(area / aspect))))
+                y = np.random.randint(0, h - eh + 1)
+                x = np.random.randint(0, w - ew + 1)
+                img[y:y + eh, x:x + ew] = self.fill
+            out.append(img)
+        results['imgs'] = out
+        return results
+
+
+@PIPELINES.register_module()
+class Grid:
+    """Attach per-frame coordinate grids (reference
+    augmentations.py:1322-1344)."""
+
+    def __init__(self, normalize=False):
+        self.normalize = normalize
+
+    def __call__(self, results):
+        h, w = results['original_shape']
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing='ij')
+        if self.normalize:
+            ys = ys / max(h - 1, 1)
+            xs = xs / max(w - 1, 1)
+        grid = np.stack([xs, ys], axis=-1)
+        results['grids'] = [grid.copy() for _ in range(len(results['imgs']))]
+        return results
+
+
+@PIPELINES.register_module()
+class Image2Patch:
+    """Split each frame into patches, treated as extra frames (reference
+    augmentations.py:1346-1365)."""
+
+    def __init__(self, patch_size, stride=None, scale_jitter=(0.7, 0.9)):
+        self.patch_size = patch_size
+        self.stride = stride if stride is not None else patch_size
+        self.scale_jitter = scale_jitter
+
+    def __call__(self, results):
+        patches = []
+        for img in results['imgs']:
+            h, w = img.shape[:2]
+            for y in range(0, h - self.patch_size + 1, self.stride):
+                for x in range(0, w - self.patch_size + 1, self.stride):
+                    patches.append(
+                        img[y:y + self.patch_size, x:x + self.patch_size])
+        num_patches_per_img = len(patches) // max(len(results['imgs']), 1)
+        results['imgs'] = patches
+        results['num_clips'] *= num_patches_per_img
+        results['img_shape'] = (self.patch_size, self.patch_size)
+        return results
+
+
+@PIPELINES.register_module()
+class HidePatch:
+    """Randomly zero square patches (reference augmentations.py:1367-1389)."""
+
+    def __init__(self, patch_size, hide_prob):
+        self.patch_size = patch_size
+        self.hide_prob = hide_prob
+
+    def __call__(self, results):
+        ps = self.patch_size
+        if isinstance(ps, (list, tuple)):
+            ps = int(np.random.choice(ps))
+        if ps == 0:
+            return results
+        h, w = results['imgs'][0].shape[:2]
+        for i, img in enumerate(results['imgs']):
+            img = img.copy()
+            for y in range(0, h, ps):
+                for x in range(0, w, ps):
+                    if np.random.rand() < self.hide_prob:
+                        img[y:y + ps, x:x + ps] = 0
+            results['imgs'][i] = img
+        return results
+
+
+@PIPELINES.register_module()
+class RandomAffine:
+    """Random affine warp with per-frame re-randomization (reference
+    augmentations.py:1391-1443)."""
+
+    def __init__(self, degrees=10, translate=(0.1, 0.1), scale=(0.9, 1.1),
+                 shear=5, same_on_clip=True, same_across_clip=True):
+        self.degrees = degrees
+        self.translate = translate
+        self.scale = scale
+        self.shear = shear
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+
+    def _sample(self, h, w):
+        import cv2
+        angle = np.random.uniform(-self.degrees, self.degrees)
+        tx = np.random.uniform(-self.translate[0], self.translate[0]) * w
+        ty = np.random.uniform(-self.translate[1], self.translate[1]) * h
+        s = np.random.uniform(*self.scale)
+        mat = cv2.getRotationMatrix2D((w / 2, h / 2), angle, s)
+        mat[0, 2] += tx
+        mat[1, 2] += ty
+        return mat
+
+    def __call__(self, results):
+        import cv2
+        h, w = results['imgs'][0].shape[:2]
+        mat = self._sample(h, w)
+        for i, img in enumerate(results['imgs']):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    None, None):
+                mat = self._sample(h, w)
+            results['imgs'][i] = cv2.warpAffine(img, mat, (w, h))
+        return results
+
+
+@PIPELINES.register_module()
+class RandomChoiceRotate:
+    """Rotate by one of ``degrees`` with prob p; emits rotation labels
+    (reference augmentations.py:1445-1476)."""
+
+    def __init__(self, p, degrees=(90, 180, 270), same_on_clip=True,
+                 same_across_clip=True):
+        self.p = p
+        self.degrees = list(degrees)
+        self.same_on_clip = same_on_clip
+        self.same_across_clip = same_across_clip
+
+    def _sample(self):
+        if np.random.rand() < self.p:
+            return int(np.random.choice(len(self.degrees))) + 1
+        return 0
+
+    def __call__(self, results):
+        import cv2
+        labels = []
+        choice = self._sample()
+        for i, img in enumerate(results['imgs']):
+            if _should_generate_new(
+                    i, results, self.same_on_clip, self.same_across_clip,
+                    None, None):
+                choice = self._sample()
+            if choice > 0:
+                h, w = img.shape[:2]
+                mat = cv2.getRotationMatrix2D(
+                    (w / 2, h / 2), self.degrees[choice - 1], 1.0)
+                results['imgs'][i] = cv2.warpAffine(img, mat, (w, h))
+            labels.append(choice)
+        results['rotation_labels'] = np.array(labels)
+        return results
+
+
+@PIPELINES.register_module()
 class MultiGroupCrop:
     """``groups`` independent random crops of the whole clip, concatenated
     along the frame axis (reference augmentations.py:1008-1072)."""

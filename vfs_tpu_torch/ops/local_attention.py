@@ -32,7 +32,8 @@ Two inexact modes of the TPU kernel select by a coarser key
   re-scored exactly, and the softmax takes, and ``scores`` returns, the
   exact scores (no longer sorted). JAX packs the quantised score and the
   flat key index into one int32 and so refuses more than 65536 keys a
-  TPU tile; the port does not pack and has no such limit. JAX's pack
+  TPU tile; this op does not pack and has no such limit, while the scan
+  (``propagation.propagate_video``) refuses what JAX's refuses. JAX's pack
   wraps at ``s >= 14.99977``, which unit features at ``temperature=0.07``
   (``|s| <= 14.29``) never reach; the port does not emulate the wrap.
   Where a query has fewer than ``k`` valid keys JAX's packed mode picks
@@ -43,9 +44,12 @@ Two inexact modes of the TPU kernel select by a coarser key
 Packed with bf16 scores raises ``ValueError``, as in the JAX package.
 
 A CPU tensor takes the plain version, ``local_topk_attend_reference``; a
-CUDA tensor launches the hand-written kernel
+CUDA tensor launches a hand-written kernel or raises: the tuned core
 (``vfs_tpu_torch/csrc/local_topk_attend.cu``: one entry per mode and
-feature type) or raises. The plain version widens bf16 features to fp32
+feature type) where it takes the radius and top-k
+(``window_geometry.core_takes``: r <= 31, topk <= 32), else the wide
+kernel (``csrc/window_topk_wide.cu``, the same entries), which takes any,
+as the JAX package does. The plain version widens bf16 features to fp32
 and runs the fp32 path, which gives the kernel's bf16 scores.
 """
 
@@ -59,7 +63,8 @@ import torch
 from . import _build
 from .affinity import NEG_INF
 from .video_affinity import check_feature_dtype, circle_offsets
-from .window_geometry import plan_args, window_plan
+from .window_geometry import (WIDE_KERNEL_NAME, band_tensor, core_takes,
+                              plan_args, wide_plan, window_plan)
 
 KERNEL_NAME = 'local_topk_attend'
 
@@ -173,6 +178,96 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def wide_entry_name(scores: str, extract: str,
+                    feat_dtype: torch.dtype) -> str:
+    """The wide kernel's C entry of a mode and feature type."""
+    return entry_name(scores, extract, feat_dtype).replace(
+        'vfs_local_topk_attend', 'vfs_local_topk_wide')
+
+
+def _wide_library() -> ctypes.CDLL:
+    lib = _build.load(WIDE_KERNEL_NAME)
+    for scores, extract in (('float32', 'mask'), ('bfloat16', 'mask'),
+                            ('float32', 'packed')):
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = getattr(lib, wide_entry_name(scores, extract, dtype))
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_wide(query: torch.Tensor, bank_feats: torch.Tensor,
+                bank_vals: torch.Tensor, bank_valid: torch.Tensor,
+                radius: float, temperature: float, topk: int,
+                scores: str = 'float32', extract: str = 'mask',
+                epilogue: bool = True,
+                feat_dtypes=(torch.float32, torch.bfloat16)) -> Result:
+    """Rows 3 and 4's function by the wide kernel, on ``query``'s device
+    and current stream, for any ``radius`` and ``topk``; counts nothing
+    (its callers do). Without ``epilogue`` (row 4) the kernel selects only
+    and ``out`` is None. Raises ValueError for ``r < 0`` or ``topk < 1``,
+    then on operands (``check_operands``, features of a type in
+    ``feat_dtypes``)."""
+    check_mode(scores, extract)
+    plan = wide_plan(radius, topk)
+    check_operands(query, bank_feats, bank_vals, bank_valid, feat_dtypes)
+    f_total, h, w, c = bank_feats.shape
+    if f_total < 1:
+        raise ValueError('the bank holds no slot')
+    k_classes = bank_vals.shape[-1]
+    dev = query.device
+    valid = bank_valid.to(torch.int32).contiguous()
+    out = (torch.empty((h, w, k_classes), dtype=torch.float32, device=dev)
+           if epilogue else None)
+    top_s = torch.empty((h, w, topk), dtype=torch.float32, device=dev)
+    src = torch.empty((h, w, topk), dtype=torch.int64, device=dev)
+    # scratch: two running lists of topk entries a query; packed keeps the
+    # exact scores of its entries beside their keys
+    lists = (h, w, 2, topk)
+    list_s = torch.empty(lists, dtype=torch.float32, device=dev)
+    list_o = torch.empty(lists, dtype=torch.int32, device=dev)
+    list_x = (torch.empty(lists, dtype=torch.float32, device=dev)
+              if extract == 'packed' else None)
+    band = band_tensor(plan.band, dev)
+    fn = getattr(_wide_library(), wide_entry_name(scores, extract,
+                                                  query.dtype))
+    with torch.cuda.device(dev):
+        err = fn(query.data_ptr(), bank_feats.data_ptr(),
+                 bank_vals.data_ptr() if epilogue else None,
+                 valid.data_ptr(), out.data_ptr() if epilogue else None,
+                 top_s.data_ptr(), src.data_ptr(), list_s.data_ptr(),
+                 list_o.data_ptr(),
+                 None if list_x is None else list_x.data_ptr(), f_total, h,
+                 w, c, k_classes, plan.r, band.data_ptr(), 1.0 / temperature,
+                 topk, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{WIDE_KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    return out, top_s, src
+
+
+def local_topk_attend_wide_cuda(query: torch.Tensor,
+                                bank_feats: torch.Tensor,
+                                bank_vals: torch.Tensor,
+                                bank_valid: torch.Tensor, radius: float,
+                                temperature: float, topk: int,
+                                scores: str = 'float32',
+                                extract: str = 'mask') -> Result:
+    """The wide kernel at any radius and top-k, core sizes included (where
+    its outputs equal the core's bit for bit): an op, for checks and
+    timing. ``local_topk_attend_wide_cuda.launches`` counts its
+    launches."""
+    out = launch_wide(query, bank_feats, bank_vals, bank_valid, radius,
+                      temperature, topk, scores, extract)
+    local_topk_attend_wide_cuda.launches += 1
+    return out
+
+
+local_topk_attend_wide_cuda.launches = 0
+
+
 def check_operands(query, bank_feats, bank_vals, bank_valid,
                    feat_dtypes=(torch.float32,)):
     """Raise on operands the CUDA kernels of this contract do not take:
@@ -216,14 +311,21 @@ def local_topk_attend_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                            radius: float, temperature: float,
                            topk: int, scores: str = 'float32',
                            extract: str = 'mask') -> Result:
-    """Launch the CUDA kernel on ``query``'s device and current stream:
-    the entry of the mode and of the feature type (bf16 for a bf16 query
-    and bank). ``local_topk_attend_cuda.launches`` counts the launches,
-    ``.bf16_launches`` those with bf16 features, ``.scores_bf16_launches``
-    those with bf16 scores and ``.packed_launches`` the packed ones.
-    Raises on a mode, radius or top-k the kernel does not take before
-    anything else."""
+    """Launch a CUDA kernel on ``query``'s device and current stream: the
+    core's entry of the mode and of the feature type (bf16 for a bf16 query
+    and bank) where the core takes the radius and top-k, else the wide
+    kernel's. ``local_topk_attend_cuda.launches`` counts the core's
+    launches, ``.bf16_launches`` those with bf16 features,
+    ``.scores_bf16_launches`` those with bf16 scores and
+    ``.packed_launches`` the packed ones; ``.wide_launches`` counts the
+    wide kernel's, in every mode. Raises on a mode the kernels do not take
+    before anything else; then chooses the path."""
     check_mode(scores, extract)
+    if not core_takes(radius, topk):
+        out = launch_wide(query, bank_feats, bank_vals, bank_valid, radius,
+                          temperature, topk, scores, extract)
+        local_topk_attend_cuda.wide_launches += 1
+        return out
     plan = window_plan(radius, topk)
     check_operands(query, bank_feats, bank_vals, bank_valid,
                    (torch.float32, torch.bfloat16))
@@ -264,6 +366,7 @@ local_topk_attend_cuda.launches = 0
 local_topk_attend_cuda.bf16_launches = 0
 local_topk_attend_cuda.scores_bf16_launches = 0
 local_topk_attend_cuda.packed_launches = 0
+local_topk_attend_cuda.wide_launches = 0
 
 
 def local_topk_attend(query: torch.Tensor, bank_feats: torch.Tensor,

@@ -12,8 +12,10 @@ on the windowed top-k core, per-slot lists and their merge; the epilogue
 package leaves it to XLA. No propagation backend calls it, as in the JAX
 package.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+raises: the v2 kernel where the core takes the radius and top-k
+(``window_geometry.core_takes``), else the wide kernel's exact selection
+(``csrc/window_topk_wide.cu``), with the same epilogue after it.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .local_attention import (Result, check_operands,
+from .local_attention import (Result, check_operands, launch_wide,
                               local_topk_attend_reference)
-from .window_geometry import plan_args, window_plan
+from .window_geometry import core_takes, plan_args, window_plan
 
 KERNEL_NAME = 'local_topk_attend_v2'
 
@@ -57,11 +59,20 @@ def local_topk_attend_v2_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
                               temperature: float, topk: int,
                               merge_count: Optional[torch.Tensor] = None
                               ) -> Result:
-    """Launch the CUDA kernel on ``query``'s device and current stream,
-    then the epilogue. ``local_topk_attend_v2_cuda.launches`` counts the
-    launches; ``merge_count``, a one-element int64 tensor on the same
-    device, adds the (query, key row) list merges the kernel ran. Raises
-    on a radius or top-k the kernel does not take before anything else."""
+    """Launch a CUDA kernel on ``query``'s device and current stream, then
+    the epilogue: the v2 kernel where the core takes the radius and top-k,
+    else the wide kernel's selection. ``local_topk_attend_v2_cuda.launches``
+    counts the v2 kernel's launches and ``.wide_launches`` the wide
+    kernel's; ``merge_count``, a one-element int64 tensor on the same
+    device, adds the (query, key row) list merges the v2 kernel ran (the
+    wide kernel adds none). The path is chosen before anything else."""
+    if not core_takes(radius, topk):
+        _, scores, src = launch_wide(query, bank_feats, bank_vals,
+                                     bank_valid, radius, temperature, topk,
+                                     epilogue=False,
+                                     feat_dtypes=(torch.float32,))
+        local_topk_attend_v2_cuda.wide_launches += 1
+        return attend_epilogue(scores, src, bank_vals), scores, src
     plan = window_plan(radius, topk)
     check_operands(query, bank_feats, bank_vals, bank_valid)
     f_total, h, w, c = bank_feats.shape
@@ -93,6 +104,7 @@ def local_topk_attend_v2_cuda(query: torch.Tensor, bank_feats: torch.Tensor,
 
 
 local_topk_attend_v2_cuda.launches = 0
+local_topk_attend_v2_cuda.wide_launches = 0
 
 
 def local_topk_attend_v2(query: torch.Tensor, bank_feats: torch.Tensor,

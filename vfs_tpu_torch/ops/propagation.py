@@ -34,6 +34,17 @@ across the bank.
 
 Results match the JAX package's scan tiers, including the reference's
 frame-0 duplication while ``t <= precede_frames`` and its tie order.
+
+Every radius and top-k that the JAX package takes runs here too: on the
+card each of the local engines' kernels (``video_topk_affinity``, its v1
+engine and ``local_topk_attend``) launches its tuned core where the core
+takes the radius and top-k (``neighbor_range <= 65``, i.e. ``r <= 31``,
+and ``topk <= 32``) and the wide kernel (``csrc/window_topk_wide.cu``)
+otherwise; no path here chooses. The one size the JAX package refuses, the packed scan
+(``pallas_extract='packed'``) with more than 65536 keys in a TPU tile's
+bank (``pallas_attention.py:471-475``: its 16-bit key index), raises
+``ValueError`` here as well (``packed_keys``), so that a config runs under
+both packages or neither.
 """
 
 from __future__ import annotations
@@ -47,6 +58,10 @@ from .affinity import NEG_INF, l2_normalize, spatial_neighbor, \
 from .local_attention import check_mode, local_topk_attend
 from .video_affinity import video_topk_affinity
 from .video_affinity_v1 import video_topk_affinity_v1
+from .window_geometry import window_offset
+
+# the packed scan's key index is 16 bits in the JAX package
+PACKED_MAX_KEYS = 65536
 
 
 class PropagationConfig(NamedTuple):
@@ -122,6 +137,19 @@ def _check_supported(cfg: PropagationConfig) -> None:
                          f"'bfloat16', got {cfg.pallas_precision!r}")
     if cfg.backend == 'pallas':
         check_mode(cfg.pallas_scores, cfg.pallas_extract)
+
+
+def packed_keys(cfg: PropagationConfig) -> int:
+    """The keys of the JAX package's packed scan kernel a query tile: the
+    ``P + 1`` slots' key blocks of ``(th + 2r) x (tw + 2 rw)`` cells,
+    ``rw`` = r rounded up to 8, each rounded up to 128
+    (``pallas_attention.py:236-241``, ``total_k``), for the config's
+    ``pallas_tile`` ``(th, tw)`` and ``r = ceil(neighbor_range // 2 - 1)``."""
+    th, tw = cfg.pallas_tile
+    r = window_offset(cfg.neighbor_range // 2)
+    rw = -(-r // 8) * 8
+    block = -(-(th + 2 * r) * (tw + 2 * rw) // 128) * 128
+    return (cfg.precede_frames + 1) * block
 
 
 def propagate_labels(scores: torch.Tensor, src: torch.Tensor,
@@ -202,7 +230,14 @@ def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
     iff ``j < t``. Each step attends, then its slot takes the query's
     features and logits. The bank is updated in place; its features have
     ``feats``' type (bf16 under ``pallas_precision='bfloat16'``), its
-    values are fp32."""
+    values are fp32. The packed mode raises ``ValueError`` where the JAX
+    package's does (``packed_keys`` > ``PACKED_MAX_KEYS``)."""
+    if cfg.pallas_extract == 'packed' and \
+            packed_keys(cfg) > PACKED_MAX_KEYS:
+        raise ValueError(
+            "pallas_extract='packed' packs the flat key index into 16 bits "
+            f'in the JAX package: {packed_keys(cfg)} keys a tile > '
+            f"{PACKED_MAX_KEYS} (use 'mask')")
     t_total, h, w, _ = feats.shape
     p = cfg.precede_frames
     dev = feats.device

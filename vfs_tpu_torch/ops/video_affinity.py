@@ -22,9 +22,12 @@ results are:
   and ``src`` = the query's own cell in frame 0. Row 0 is zero.
 
 A CPU tensor takes the plain version, ``video_topk_affinity_reference``;
-a CUDA tensor launches the hand-written kernel
+a CUDA tensor launches a hand-written kernel or raises: the tuned core
 (``vfs_tpu_torch/csrc/video_topk_affinity.cu``, its bf16 entry for bf16
-features) or raises. The plain version widens bf16 features to fp32 and
+features) where it takes the radius and top-k
+(``window_geometry.core_takes``: r <= 31, topk <= 32), else the wide
+kernel (``csrc/window_topk_wide.cu``), which takes any, as the JAX
+package does. The plain version widens bf16 features to fp32 and
 runs the fp32 path: a bf16 product is exact in fp32, so the kernel's bf16
 scores are its fp32 scores on the widened features.
 """
@@ -39,7 +42,8 @@ import torch
 
 from . import _build
 from .affinity import NEG_INF
-from .window_geometry import plan_args, window_plan
+from .window_geometry import (WIDE_KERNEL_NAME, band_tensor, core_takes,
+                              plan_args, wide_plan, window_plan)
 
 KERNEL_NAME = 'video_topk_affinity'
 
@@ -161,15 +165,82 @@ def check_features(feats: torch.Tensor, precede_frames: int) -> None:
         raise ValueError('precede_frames must be >= 1')
 
 
+def _wide_library() -> ctypes.CDLL:
+    lib = _build.load(WIDE_KERNEL_NAME)
+    for fn in (lib.vfs_video_topk_wide, lib.vfs_video_topk_wide_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_wide(feats: torch.Tensor, radius: float, temperature: float,
+                topk: int, precede_frames: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows 1 and 2's function by the wide kernel, on ``feats``' device and
+    current stream, for any ``radius`` and ``topk``; counts nothing (its
+    callers do). Raises ValueError for ``r < 0`` or ``topk < 1``."""
+    plan = wide_plan(radius, topk)
+    check_features(feats, precede_frames)
+    t_total, h, w, c = feats.shape
+    dev = feats.device
+    scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
+                         device=dev)
+    src = torch.empty((t_total, h, w, topk), dtype=torch.int64, device=dev)
+    scores[0] = 0
+    src[0] = 0
+    if t_total < 2:
+        return scores, src
+    # scratch: two running lists of topk entries a query
+    lists = (t_total - 1, h, w, 2, topk)
+    list_s = torch.empty(lists, dtype=torch.float32, device=dev)
+    list_o = torch.empty(lists, dtype=torch.int32, device=dev)
+    band = band_tensor(plan.band, dev)
+    lib = _wide_library()
+    fn = (lib.vfs_video_topk_wide_bf16 if feats.dtype == torch.bfloat16
+          else lib.vfs_video_topk_wide)
+    with torch.cuda.device(dev):
+        err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
+                 list_s.data_ptr(), list_o.data_ptr(), t_total, h, w, c,
+                 plan.r, band.data_ptr(), 1.0 / temperature, topk,
+                 precede_frames, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{WIDE_KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    return scores, src
+
+
+def video_topk_affinity_wide_cuda(feats: torch.Tensor, radius: float,
+                                  temperature: float, topk: int,
+                                  precede_frames: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide kernel at any radius and top-k, core sizes included (where
+    its outputs equal the core's bit for bit): an op, for checks and
+    timing. ``video_topk_affinity_wide_cuda.launches`` counts its
+    launches."""
+    out = launch_wide(feats, radius, temperature, topk, precede_frames)
+    video_topk_affinity_wide_cuda.launches += feats.shape[0] >= 2
+    return out
+
+
+video_topk_affinity_wide_cuda.launches = 0
+
+
 def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
                              temperature: float, topk: int,
                              precede_frames: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``feats``' device and current stream (its
-    bf16 entry for bf16 features). ``video_topk_affinity_cuda.launches``
-    counts the launches, ``.bf16_launches`` those of the bf16 entry.
-    Raises on a radius or top-k the kernel does not take before anything
-    else."""
+    """Launch a CUDA kernel on ``feats``' device and current stream: the
+    core (its bf16 entry for bf16 features) where it takes the radius and
+    top-k, else the wide kernel. ``video_topk_affinity_cuda.launches``
+    counts the core's launches, ``.bf16_launches`` those of its bf16
+    entry, ``.wide_launches`` the wide kernel's. The path is chosen before
+    anything else."""
+    if not core_takes(radius, topk):
+        out = launch_wide(feats, radius, temperature, topk, precede_frames)
+        video_topk_affinity_cuda.wide_launches += feats.shape[0] >= 2
+        return out
     plan = window_plan(radius, topk)
     check_features(feats, precede_frames)
     t_total, h, w, c = feats.shape
@@ -199,6 +270,7 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
 
 video_topk_affinity_cuda.launches = 0
 video_topk_affinity_cuda.bf16_launches = 0
+video_topk_affinity_cuda.wide_launches = 0
 
 
 def video_topk_affinity(feats: torch.Tensor, radius: float,

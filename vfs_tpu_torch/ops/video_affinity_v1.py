@@ -23,7 +23,11 @@ Options, as in the JAX function:
 
 Features are fp32 or bf16 (``pallas_precision='bfloat16'``), as for
 ``video_affinity``. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel (its bf16 entry for bf16 features) or raises.
+launches a kernel or raises: the v1 kernel (its bf16 entry for bf16
+features) where the core takes the radius and top-k
+(``window_geometry.core_takes``), else row 1's wide kernel
+(``csrc/window_topk_wide.cu``, the same function), where the options
+change nothing: its lists do not depend on a walk order or an exit.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .video_affinity import check_features, video_topk_affinity_reference
-from .window_geometry import plan_args, window_plan
+from .video_affinity import (check_features, launch_wide,
+                             video_topk_affinity_reference)
+from .window_geometry import core_takes, plan_args, window_plan
 
 KERNEL_NAME = 'video_topk_affinity_v1'
 
@@ -68,14 +73,20 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
                                 bank_splits: Optional[int] = None,
                                 merge_count: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``feats``' device and current stream (its
-    bf16 entry for bf16 features).
-    ``video_topk_affinity_v1_cuda.launches`` counts the launches and
-    ``.bf16_launches`` those of the bf16 entry;
-    ``merge_count``, a one-element int64 tensor on the same device, adds
-    the (query, key row) list merges the kernel ran. Raises on a radius or
-    top-k the kernel does not take before anything else but the options."""
+    """Launch a CUDA kernel on ``feats``' device and current stream: the
+    v1 kernel (its bf16 entry for bf16 features) where the core takes the
+    radius and top-k, else the wide kernel.
+    ``video_topk_affinity_v1_cuda.launches`` counts the v1 kernel's
+    launches, ``.bf16_launches`` those of its bf16 entry and
+    ``.wide_launches`` the wide kernel's; ``merge_count``, a one-element
+    int64 tensor on the same device, adds the (query, key row) list merges
+    the v1 kernel ran (the wide kernel adds none). The path is chosen
+    after the options' checks and before anything else."""
     check_v1_options(extract, bank_splits)
+    if not core_takes(radius, topk):
+        out = launch_wide(feats, radius, temperature, topk, precede_frames)
+        video_topk_affinity_v1_cuda.wide_launches += feats.shape[0] >= 2
+        return out
     plan = window_plan(radius, topk)
     check_features(feats, precede_frames)
     t_total, h, w, c = feats.shape
@@ -107,6 +118,7 @@ def video_topk_affinity_v1_cuda(feats: torch.Tensor, radius: float,
 
 video_topk_affinity_v1_cuda.launches = 0
 video_topk_affinity_v1_cuda.bf16_launches = 0
+video_topk_affinity_v1_cuda.wide_launches = 0
 
 
 def video_topk_affinity_v1(feats: torch.Tensor, radius: float,

@@ -9,6 +9,15 @@ for each ``|dy|`` (the band). The core derives the rest of the launch
 (passes, staged cells, threads, shared memory) from r, and refuses a band
 that does not start at r or widens.
 
+The wide path: the core keeps a fixed 32-entry band table and top-k
+lists of at most 32 entries in shared memory, so it takes ``r <=
+MAX_OFFSET`` and ``topk <= KMAX``. Every other ``(radius, topk)`` (any
+``r >= 0``, ``topk >= 1``) goes to the wide kernel
+(``csrc/window_topk_wide.cu``), whose plan (``wide_plan``) carries r, the
+full band and top-k, and whose band is a device array (``band_tensor``).
+``core_takes`` says which path a ``(radius, topk)`` takes; the four
+wrappers ask it before anything else.
+
 The tile: a block owns ``TILE_H x TILE_W`` query cells. A warp computes
 4 query rows x 32 query columns x ``PASS_DX`` consecutive dx of one key
 row: its pass. ``passes`` warps cover the window's ``2r + 1`` dx for each
@@ -26,7 +35,10 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
+# the wide kernel's source, csrc/window_topk_wide.cu
+WIDE_KERNEL_NAME = 'window_topk_wide'
 TILE_H, TILE_W = 8, 32
 ROW_GROUPS = TILE_H // 4
 PASS_DX = 16
@@ -78,6 +90,40 @@ def window_plan(radius: float, topk: int) -> WindowPlan:
     if not 1 <= topk <= KMAX:
         raise ValueError(f'topk {topk} is outside 1..{KMAX}')
     return WindowPlan(r=r, band=circle_band(radius))
+
+
+def core_takes(radius: float, topk: int) -> bool:
+    """Whether the core takes ``(radius, topk)``: ``0 <= r <= MAX_OFFSET``
+    and ``1 <= topk <= KMAX``; else the wrappers launch the wide kernel."""
+    return 0 <= window_offset(radius) <= MAX_OFFSET and 1 <= topk <= KMAX
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """What a launch of the wide kernel is given: r, the band of all
+    ``r + 1`` rows and top-k, with no upper limit."""
+    r: int
+    band: Tuple[int, ...]
+    topk: int
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(radius: float, topk: int) -> WidePlan:
+    """The wide kernel's plan for ``radius`` and ``topk``; raises
+    ValueError for ``r < 0`` (radius <= 0) or ``topk < 1``. Cached."""
+    r = window_offset(radius)
+    if r < 0:
+        raise ValueError(f'radius {radius} gives window offset r = {r} < 0')
+    if topk < 1:
+        raise ValueError(f'topk {topk} < 1')
+    return WidePlan(r=r, band=circle_band(radius), topk=topk)
+
+
+@functools.lru_cache(maxsize=None)
+def band_tensor(band: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``band`` as an int32 tensor on ``device``, the wide kernel's band
+    table; cached, so the scan tier copies it to the card once."""
+    return torch.tensor(band, dtype=torch.int32, device=device)
 
 
 def plan_args(plan: WindowPlan) -> tuple:

@@ -1,5 +1,6 @@
 """Process groups for training over several processes (counterpart of
-``vfs_tpu/parallel/mesh.py`` and ``comm.py``).
+``vfs_tpu/parallel/mesh.py`` and of ``comm.py``'s ``reduce_log_vars``; the
+other helpers of ``comm.py`` are in ``parallel/comm.py``).
 
 The JAX package's contract (``shard_local_batch``, mesh.py:79-104) holds:
 each process loads shard ``rank`` of ``world`` of every epoch's index
