@@ -3,6 +3,7 @@
 each other, or this checkout's rows 1 and 3 against their ablations.
 
     python3 ab_kernels.py DIR_A DIR_B
+    python3 ab_kernels.py --wide DIR_A DIR_B
     python3 ab_kernels.py --ablate
     python3 ab_kernels.py --modes
 
@@ -27,6 +28,17 @@ JSON line per run with the checkout, the times and a SHA-256 of each
 row's outputs (scores and sources, T=48, for rows 1 and 2, both row 2
 settings; logits, scores and sources for rows 3 and 4), then one line
 saying, row by row, whether the two checkouts' outputs are bit-identical.
+
+``--wide DIR_A DIR_B`` does the same for the wide kernel
+(``csrc/window_topk_wide.cu``, rows 1w-4w: the four wrappers past the
+core's limits) at ``chip_smoke.WIDE_FULL``'s shapes (r18 width, radius
+40 / top-10 and radius 12 / top-48; rows 1w and 2w at T=24, rows 3w and 4w
+a step against 21 slots, K=4): row 1w and row 2w (``'perframe'``) on fp32
+and bf16 features, row 3w in each mode (exact, ``scores='bfloat16'``,
+``extract='packed'``) on fp32 and bf16 features, row 4w on fp32 features;
+each entry's median ms over 3 CUDA-event timings and the SHA-256 of its
+outputs, then the line saying whether each entry's outputs are
+bit-identical across the two checkouts.
 
 ``--ablate`` builds this checkout's rows 1 and 3 once as the package does
 and once with each switch of ``window_topk.cuh``'s ``WTK_ABLATE`` on
@@ -143,8 +155,42 @@ def time_kernels(inputs, radius, cuda_ms, rows=ROWS, hashes=False):
     return out
 
 
-def child():
-    """Run in a checkout: time and hash the four kernels at both widths."""
+def time_wide(dev, cuda_ms, shapes):
+    """Rows 1w-4w at the r18 width for each (radius, topk) of ``shapes``:
+    each entry's median ms (3 runs) and the SHA-256 of its outputs."""
+    import torch
+    from vfs_tpu_torch import ops
+    inputs = make_inputs(dev, 256)
+    feats = {'': inputs['feats24'], '_bf16': inputs['feats24_bf16']}
+    out = {}
+    for radius, topk in shapes:
+        key = f'radius{radius:g}_top{topk}'
+        entries = {}
+        for feat, fv in feats.items():
+            entries[f'row1w{feat}'] = lambda fv=fv: (
+                ops.video_topk_affinity_cuda(fv, radius, 0.07, topk, P))
+            entries[f'row2w{feat}'] = lambda fv=fv: (
+                ops.video_topk_affinity_v1_cuda(fv, radius, 0.07, topk, P,
+                                                extract='perframe'))
+            step = inputs['step' + feat]
+            for mode, kw in (('exact', {}), ('scores_bf16',
+                                             dict(scores='bfloat16')),
+                             ('packed', dict(extract='packed'))):
+                entries[f'row3w_{mode}{feat}'] = (
+                    lambda step=step, kw=kw: ops.local_topk_attend_cuda(
+                        *step, radius, 0.07, topk, **kw))
+        entries['row4w'] = lambda: ops.local_topk_attend_v2_cuda(
+            *inputs['step'], radius, 0.07, topk)
+        for name, fn in entries.items():
+            out[f'{key}/{name}_ms'] = cuda_ms(fn, runs=3)
+            out[f'{key}/{name}_sha256'] = digest(fn())
+        torch.cuda.empty_cache()
+    return out
+
+
+def child(wide=False):
+    """Run in a checkout: time and hash the four kernels at both widths,
+    or (``wide``) rows 1w-4w at the wide shapes."""
     import chip_smoke  # the timers and model widths of this script's tree
     sys.path[0] = os.getcwd()  # the package of the checkout
     import torch
@@ -152,10 +198,14 @@ def child():
     dev = torch.device('cuda', 0)
     out = {}
     with exact_fp32():
-        for model, c, radius in chip_smoke.MODELS:
-            out[model] = time_kernels(make_inputs(dev, c), radius,
-                                      chip_smoke.cuda_ms, hashes=True)
-            torch.cuda.empty_cache()
+        if wide:
+            out['r18'] = time_wide(dev, chip_smoke.cuda_ms,
+                                   chip_smoke.WIDE_FULL)
+        else:
+            for model, c, radius in chip_smoke.MODELS:
+                out[model] = time_kernels(make_inputs(dev, c), radius,
+                                          chip_smoke.cuda_ms, hashes=True)
+                torch.cuda.empty_cache()
     print(json.dumps(out))
 
 
@@ -269,10 +319,11 @@ def main():
     parser.add_argument('checkouts', nargs='*')
     parser.add_argument('--ablate', action='store_true')
     parser.add_argument('--modes', action='store_true')
+    parser.add_argument('--wide', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        return child()
+        return child(args.wide)
     if args.ablate:
         return ablate()
     if args.modes:
@@ -283,8 +334,8 @@ def main():
     import chip_smoke
     a, b = (os.path.abspath(c) for c in args.checkouts)
     hashes = {}
-    for checkout, run in ab_eval.run_ab(
-            a, b, [os.path.abspath(__file__), '--child'], 'the kernels'):
+    argv = [os.path.abspath(__file__), '--child'] + ['--wide'] * args.wide
+    for checkout, run in ab_eval.run_ab(a, b, argv, 'the kernels'):
         hashes.setdefault(checkout, {}).update(
             (f'{model}/{k}', v) for model, keys in run.items()
             for k, v in keys.items() if k.endswith('sha256'))

@@ -82,8 +82,11 @@ Phases, one JSON line each on stdout:
    the plain version's ms and the bound (row 4 through its op entry), and
    row 3w's time split by channel count, feature type and top-k
    (``WIDE_SPLIT_*``); the wide ops
-   (``*_wide_cuda``) forced at radius 12 / top-10 must equal rows 1 and 3
-   bit for bit in every mode and feature type. Then r18 ``forward_test``
+   (``*_wide_cuda``) forced at radius 12 / top-10 and at the core's edge,
+   radius 32 / top-32 (``WIDE_FORCED``), must equal rows 1 and 3 bit for
+   bit in every mode and feature type; rows 1w and 3w at the r50 width (C
+   = 1024) at radius 40 / top-10 against the plain version, with ms,
+   plain ms and the bound (``wide_r50``). Then r18 ``forward_test``
    on the main path's video at ``neighbor_range=80`` for ``backend``
    ``'tiled'``, ``'pallas_video'`` with ``video_engine='v1'`` and
    ``'pallas'``: the wide kernel launches on each path (rows 1 and 2 once,
@@ -494,6 +497,11 @@ WIDE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 40, 4),
 # t >= 20 score 21 distinct bank frames, as the main path's do
 WIDE_FULL = ((40.0, 10), (12.0, 48))
 WIDE_FULL_FRAMES = 24
+# the wide ops forced at core sizes, bit-equal to rows 1 and 3: radius 12
+# / top-10 and the core's edge (r = 31, top-32)
+WIDE_FORCED = ((12.0, 10), (32.0, 32))
+# rows 1w and 3w at the r50 width (C = 1024) at WIDE_FULL's first shape
+WIDE_R50_KEY = f'radius{WIDE_FULL[0][0]:g}_top{WIDE_FULL[0][1]}'
 # where row 3w's time goes at radius 40 / top-10 (one step, 21 slots):
 # its CUDA-event ms at these channel counts (fp32, the first C channels of
 # the full-width features, renormalised), bf16 features at C = 256, and
@@ -1660,9 +1668,8 @@ def wide_full(dev, smi_name):
     (TF32 off; the full phase's gates), rows 2 and 4 bit-equal to rows 1
     and 3, CUDA-event ms, the plain version's ms and the bound. Row 4
     through its op entry (``local_topk_attend_v2``), its wide count set to
-    0 first. Then the wide ops forced at radius 12 / top-10, where the core
-    applies: bit-equal to rows 1 and 3 in every mode and feature type, and
-    their ms beside the core's. Returns the kernels line's entries' numbers
+    0 first. Then the wide ops forced at the core sizes of ``WIDE_FORCED``
+    (``wide_forced``). Returns the kernels line's entries' numbers
     per row and row 4's op launches."""
     import torch
     from vfs_tpu_torch.device import exact_fp32
@@ -1670,11 +1677,9 @@ def wide_full(dev, smi_name):
                                    local_topk_attend_reference,
                                    local_topk_attend_v2,
                                    local_topk_attend_v2_cuda,
-                                   local_topk_attend_wide_cuda,
                                    video_topk_affinity_cuda,
                                    video_topk_affinity_reference,
-                                   video_topk_affinity_v1_cuda,
-                                   video_topk_affinity_wide_cuda)
+                                   video_topk_affinity_v1_cuda)
     h, w, c, p, t_total, k_classes = 60, 107, 256, 20, WIDE_FULL_FRAMES, 4
     f = p + 1
     g = torch.Generator(device=dev).manual_seed(14)
@@ -1753,10 +1758,86 @@ def wide_full(dev, smi_name):
         raise AssertionError(f'row 4 op entry: {row4_launches} wide '
                              'launches')
     split = wide_split(query, bank, vals, valid)
+    forced = {f'radius{radius:g}_top{topk}': wide_forced(
+        feats, query, bank, vals, valid, p, radius, topk)
+        for radius, topk in WIDE_FORCED}
+    del feats, bank, query, vals
+    torch.cuda.empty_cache()
+    r50 = wide_r50(dev, smi_name)
+    for row, nums in r50.items():
+        rows[row][f'r50_{WIDE_R50_KEY}'] = nums
+    emit({'phase': 'wide', 'part': 'full', 'card': smi_name,
+          'rows': {f'row{r}': v for r, v in rows.items()},
+          'row3w_split': split, 'forced': forced})
+    return rows, row4_launches
 
-    # the wide ops at a core size: bit-equal to the core
-    radius, topk = 12.0, 10
+
+def wide_r50(dev, smi_name):
+    """Rows 1w and 3w at the r50 width (C = 1024, 60 x 107, P = 20, T =
+    ``WIDE_FULL_FRAMES``; a step against 21 slots, K = 4) at radius 40 /
+    top-10: each against its plain version under the full phase's gates
+    (TF32 off), its CUDA-event ms, the plain version's and the bound."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import (l2_normalize, local_topk_attend_cuda,
+                                   local_topk_attend_reference,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_reference)
+    h, w, c, p, t_total, k_classes = 60, 107, 1024, 20, WIDE_FULL_FRAMES, 4
+    radius, topk = WIDE_FULL[0]
+    f = p + 1
+    g = torch.Generator(device=dev).manual_seed(50)
+    feats = l2_normalize(torch.randn((t_total, h, w, c), device=dev,
+                                     generator=g)).contiguous()
+    bank = l2_normalize(torch.randn((f, h, w, c), device=dev,
+                                    generator=g)).contiguous()
+    query = l2_normalize(torch.randn((h, w, c), device=dev,
+                                     generator=g)).contiguous()
+    vals = torch.rand((f, h, w, k_classes), device=dev, generator=g)
+    valid = torch.ones(f, dtype=torch.int32, device=dev)
+    with exact_fp32():
+        plain, plain_v = cuda_call(lambda: video_topk_affinity_reference(
+            feats, radius, 0.07, topk, p))
+        row1, ms1 = cuda_call(lambda: video_topk_affinity_cuda(
+            feats, radius, 0.07, topk, p))
+        err, mismatch, share = compare(
+            (row1[0][1:], row1[1][1:]), (plain[0][1:], plain[1][1:]), False,
+            f'wide r50 row 1 {WIDE_R50_KEY}')
+        del plain, row1
+        (l_err, logit_err, l_mismatch, l_share), _ = run_local(
+            query, bank, vals, valid, radius, topk, False,
+            f'wide r50 row 3 {WIDE_R50_KEY}')
+        ms3 = cuda_ms(lambda: local_topk_attend_cuda(
+            query, bank, vals, valid, radius, 0.07, topk), runs=3)
+        plain_l = cuda_ms(lambda: local_topk_attend_reference(
+            query, bank, vals, valid, radius, 0.07, topk), runs=1, warmup=0)
+    v_flops, v_bytes = affinity_work(t_total, h, w, c, radius, topk, p)
+    l_flops, l_bytes = step_work(h, w, c, radius, topk, k_classes, f, f)
+    vb, vby = bound_ms(v_flops, v_bytes, smi_name)
+    lb, lby = bound_ms(l_flops, l_bytes, smi_name)
+    torch.cuda.empty_cache()
+    return {1: dict(shape=[t_total, h, w, c], ms=ms1, plain_ms=plain_v,
+                    bound_ms=vb, bound_by=vby, bound_share=vb / ms1,
+                    max_abs_err=err, src_mismatch=mismatch,
+                    src_mismatch_share=share),
+            3: dict(h=h, w=w, C=c, F=f, K=k_classes, ms=ms3,
+                    plain_ms=plain_l, bound_ms=lb, bound_by=lby,
+                    bound_share=lb / ms3, max_abs_err=l_err,
+                    max_logit_err=logit_err, src_mismatch=l_mismatch,
+                    src_mismatch_share=l_share)}
+
+
+def wide_forced(feats, query, bank, vals, valid, p, radius, topk):
+    """The wide ops forced at a core size (``WIDE_FORCED``): bit-equal to
+    rows 1 and 3 in every mode and feature type, and their ms (fp32,
+    exact) beside the core's."""
+    import torch
+    from vfs_tpu_torch.ops import (local_topk_attend_cuda,
+                                   local_topk_attend_wide_cuda,
+                                   video_topk_affinity_cuda,
+                                   video_topk_affinity_wide_cuda)
     forced = {}
+    what = f'radius {radius:g} / top-{topk}'
     for feat in (torch.float32, torch.bfloat16):
         name = str(feat).split('.')[-1]
         fv = feats.to(feat)
@@ -1764,8 +1845,8 @@ def wide_full(dev, smi_name):
         b = video_topk_affinity_cuda(fv, radius, 0.07, topk, p)
         if not (torch.equal(a[0][1:], b[0][1:])
                 and torch.equal(a[1][1:], b[1][1:])):
-            raise AssertionError(f'wide video {name} at radius 12 / top-10 '
-                                 'differs from row 1')
+            raise AssertionError(f'wide video {name} at {what} differs '
+                                 'from row 1')
         q, bk = query.to(feat), bank.to(feat)
         for mname, mode in (('exact', {}),) + LOCAL_MODES:
             a = local_topk_attend_wide_cuda(q, bk, vals, valid, radius, 0.07,
@@ -1773,8 +1854,8 @@ def wide_full(dev, smi_name):
             b = local_topk_attend_cuda(q, bk, vals, valid, radius, 0.07,
                                        topk, **mode)
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f'wide local {mname} {name} at radius '
-                                     '12 / top-10 differs from row 3')
+                raise AssertionError(f'wide local {mname} {name} at {what} '
+                                     'differs from row 3')
             forced[f'row3_{mname}_{name}'] = 'bit-equal'
         forced[f'row1_{name}'] = 'bit-equal'
     forced['ms'] = dict(
@@ -1786,10 +1867,7 @@ def wide_full(dev, smi_name):
             query, bank, vals, valid, radius, 0.07, topk), runs=3),
         row3_core=cuda_ms(lambda: local_topk_attend_cuda(
             query, bank, vals, valid, radius, 0.07, topk), runs=3))
-    emit({'phase': 'wide', 'part': 'full', 'card': smi_name,
-          'rows': {f'row{r}': v for r, v in rows.items()},
-          'row3w_split': split, 'forced_radius12_top10': forced})
-    return rows, row4_launches
+    return forced
 
 
 def wide_split(query, bank, vals, valid):

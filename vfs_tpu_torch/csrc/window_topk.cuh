@@ -8,10 +8,12 @@
 //   row 4 local_topk_attend_v2.cu    (replacing pallas_local_topk_attend_v2,
 //         vfs_tpu/ops/pallas_attention_v2.py:130).
 // window_topk_wide.cu, the four rows' kernel where the core's limits (r <=
-// MAX_OFFSET, topk <= KMAX) do not hold, shares its score key
-// (score_key), dot4, the global loads (load_global4) and row 3's epilogue
-// (softmax_weights, weighted_value), so that the two give the same lists
-// and logits bit for bit where both apply.
+// MAX_OFFSET, topk <= KMAX) do not hold, shares its inner loop
+// (score_chunk), the staged cell layout (slot, cp_async16, Feat), the pass
+// rule (pass_lo), the score key (score_key), the list merge of up to KMAX
+// entries (merge_query), dot4, the global loads (load_global4) and row 3's
+// epilogue (softmax_weights, weighted_value), so that the two give the
+// same lists and logits bit for bit where both apply.
 //
 // What it computes. A block owns a tile of TH x TW = 8 x 32 query cells of
 // one query plane (h, w, C) and walks a list of bank frames (h, w, C). For
@@ -350,6 +352,42 @@ __device__ __forceinline__ float4 load_global4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// The inner loop, shared with the wide kernel (window_topk_wide.cu): the
+// thread's 4 x 4 x 4 register block over the first n4 channel quads of
+// one staged chunk. Query cell (m, i) of the block sits at row qrow + (m *
+// TW + i) * 8 of qst, swizzle xg; key cell 4K + j at row krow + j * 8 of
+// kst, swizzle (K + j / 4) mod 8 (ksw = K mod 8): slot()'s layout.
+// acc[m][i][d] += q(m, i) . key(4K + i + d), in ascending channel order.
+template <class T>
+__device__ __forceinline__ void score_chunk(float (&acc)[4][4][4],
+                                            const float4* kst,
+                                            const float4* qst, int krow,
+                                            int ksw, int qrow, int xg,
+                                            int n4) {
+  for (int c4 = 0; c4 < n4; ++c4) {
+    // key 4K + j: row krow + j * 8, swizzle (K + j / 4) mod 8
+    const int sk[2] = {ksw, (ksw + 1) & 7};
+    // keys 0..6 pass through the ring kv[j % 4]: column i reads keys
+    // i..i+3, then key i + 4 takes key i's place
+    float4 kv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kv[j] = Feat<T>::load4(kst, krow + j * 8, c4, sk[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 qv =
+            Feat<T>::load4(qst, qrow + (m * TW + i) * 8, c4, xg);
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+          acc[m][i][d] = dot4(qv, kv[(i + d) % 4], acc[m][i][d]);
+      }
+      if (i < 3) kv[i] = Feat<T>::load4(kst, krow + (i + 4) * 8, c4, sk[1]);
+    }
+  }
+}
+
 // Where a row group's passes start: -e rounded down to a multiple of 4
 // from -r, e the band's widest half-extent over the group's rows within r
 // of the key row (window_geometry.pass_starts).
@@ -647,30 +685,8 @@ __device__ int run(const T* __restrict__ qframe, const Bank& bank, int y0,
       const float4* kst =
           reinterpret_cast<const float4*>(smem + (s % STAGES) * stage);
       const float4* qst = kst + NKR * g.key_cells * (CW / 4);
-      const int n4 = (min(CC, g.C - chunk * CC) + 3) / 4;
-      for (int c4 = 0; c4 < n4; ++c4) {
-        // key 4K + j: row krow + j * 8, swizzle (K + j / 4) mod 8
-        const int sk[2] = {ksw, (ksw + 1) & 7};
-        // keys 0..6 pass through the ring kv[j % 4]: column i reads keys
-        // i..i+3, then key i + 4 takes key i's place
-        float4 kv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          kv[j] = Feat<T>::load4(kst, krow + j * 8, c4, sk[0]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const float4 qv =
-                Feat<T>::load4(qst, qrow + (m * TW + i) * 8, c4, xg);
-#pragma unroll
-            for (int d = 0; d < 4; ++d)
-              acc[m][i][d] = dot4(qv, kv[(i + d) % 4], acc[m][i][d]);
-          }
-          if (i < 3)
-            kv[i] = Feat<T>::load4(kst, krow + (i + 4) * 8, c4, sk[1]);
-        }
-      }
+      score_chunk<T>(acc, kst, qst, krow, ksw, qrow, xg,
+                     (min(CC, g.C - chunk * CC) + 3) / 4);
     }
     if (chunk != n_chunks - 1) continue;
 

@@ -64,7 +64,8 @@ from . import _build
 from .affinity import NEG_INF
 from .video_affinity import check_feature_dtype, circle_offsets
 from .window_geometry import (WIDE_KERNEL_NAME, band_tensor, core_takes,
-                              plan_args, wide_plan, window_plan)
+                              data_ptr, plan_args, wide_lists, wide_plan,
+                              window_plan)
 
 KERNEL_NAME = 'local_topk_attend'
 
@@ -191,8 +192,8 @@ def _wide_library() -> ctypes.CDLL:
                             ('float32', 'packed')):
         for dtype in (torch.float32, torch.bfloat16):
             fn = getattr(lib, wide_entry_name(scores, extract, dtype))
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
@@ -223,25 +224,19 @@ def launch_wide(query: torch.Tensor, bank_feats: torch.Tensor,
            if epilogue else None)
     top_s = torch.empty((h, w, topk), dtype=torch.float32, device=dev)
     src = torch.empty((h, w, topk), dtype=torch.int64, device=dev)
-    # scratch: two running lists of topk entries a query; packed keeps the
-    # exact scores of its entries beside their keys
-    lists = (h, w, 2, topk)
-    list_s = torch.empty(lists, dtype=torch.float32, device=dev)
-    list_o = torch.empty(lists, dtype=torch.int32, device=dev)
-    list_x = (torch.empty(lists, dtype=torch.float32, device=dev)
-              if extract == 'packed' else None)
+    # scratch: each slot's partial list and a spare buffer a query
+    list_s, list_o = wide_lists(plan.local_lists(f_total, h, w), dev)
     band = band_tensor(plan.band, dev)
     fn = getattr(_wide_library(), wide_entry_name(scores, extract,
                                                   query.dtype))
     with torch.cuda.device(dev):
         err = fn(query.data_ptr(), bank_feats.data_ptr(),
                  bank_vals.data_ptr() if epilogue else None,
-                 valid.data_ptr(), out.data_ptr() if epilogue else None,
-                 top_s.data_ptr(), src.data_ptr(), list_s.data_ptr(),
-                 list_o.data_ptr(),
-                 None if list_x is None else list_x.data_ptr(), f_total, h,
-                 w, c, k_classes, plan.r, band.data_ptr(), 1.0 / temperature,
-                 topk, torch.cuda.current_stream().cuda_stream)
+                 valid.data_ptr(), data_ptr(out), top_s.data_ptr(),
+                 src.data_ptr(), data_ptr(list_s), data_ptr(list_o), f_total,
+                 h, w, c, k_classes, plan.r, band.data_ptr(),
+                 1.0 / temperature, topk, plan.pass_group, plan.key_rows,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{WIDE_KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')

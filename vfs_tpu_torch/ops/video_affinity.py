@@ -43,7 +43,8 @@ import torch
 from . import _build
 from .affinity import NEG_INF
 from .window_geometry import (WIDE_KERNEL_NAME, band_tensor, core_takes,
-                              plan_args, wide_plan, window_plan)
+                              data_ptr, plan_args, wide_lists, wide_plan,
+                              window_plan)
 
 KERNEL_NAME = 'video_topk_affinity'
 
@@ -169,7 +170,7 @@ def _wide_library() -> ctypes.CDLL:
     lib = _build.load(WIDE_KERNEL_NAME)
     for fn in (lib.vfs_video_topk_wide, lib.vfs_video_topk_wide_bf16):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -192,19 +193,18 @@ def launch_wide(feats: torch.Tensor, radius: float, temperature: float,
     src[0] = 0
     if t_total < 2:
         return scores, src
-    # scratch: two running lists of topk entries a query
-    lists = (t_total - 1, h, w, 2, topk)
-    list_s = torch.empty(lists, dtype=torch.float32, device=dev)
-    list_o = torch.empty(lists, dtype=torch.int32, device=dev)
+    # scratch: two running lists a query and frame past topk = KMAX
+    list_s, list_o = wide_lists(plan.video_lists(t_total, h, w), dev)
     band = band_tensor(plan.band, dev)
     lib = _wide_library()
     fn = (lib.vfs_video_topk_wide_bf16 if feats.dtype == torch.bfloat16
           else lib.vfs_video_topk_wide)
     with torch.cuda.device(dev):
         err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
-                 list_s.data_ptr(), list_o.data_ptr(), t_total, h, w, c,
+                 data_ptr(list_s), data_ptr(list_o), t_total, h, w, c,
                  plan.r, band.data_ptr(), 1.0 / temperature, topk,
-                 precede_frames, torch.cuda.current_stream().cuda_stream)
+                 precede_frames, plan.pass_group, plan.key_rows,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{WIDE_KERNEL_NAME} kernel launch failed: CUDA '
                            f'error {err}')

@@ -14,9 +14,14 @@ lists of at most 32 entries in shared memory, so it takes ``r <=
 MAX_OFFSET`` and ``topk <= KMAX``. Every other ``(radius, topk)`` (any
 ``r >= 0``, ``topk >= 1``) goes to the wide kernel
 (``csrc/window_topk_wide.cu``), whose plan (``wide_plan``) carries r, the
-full band and top-k, and whose band is a device array (``band_tensor``).
-``core_takes`` says which path a ``(radius, topk)`` takes; the four
-wrappers ask it before anything else.
+full band, top-k and the block's shape: the passes it covers at once
+(``pass_group``, at most ``MAX_PASS_GROUP``) and the key rows it stages
+together (``key_rows``). ``WidePlan`` also gives the block's shared-memory
+bytes (``smem_bytes``, the kernel's own formula) and the scratch the
+wrappers allocate for the running and the per-slot lists
+(``video_lists``, ``local_lists``); its band is a device array
+(``band_tensor``). ``core_takes`` says which path a ``(radius, topk)``
+takes; the four wrappers ask it before anything else.
 
 The tile: a block owns ``TILE_H x TILE_W`` query cells. A warp computes
 4 query rows x 32 query columns x ``PASS_DX`` consecutive dx of one key
@@ -32,7 +37,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +49,11 @@ ROW_GROUPS = TILE_H // 4
 PASS_DX = 16
 KMAX = 32
 MAX_OFFSET = 31
+# the wide kernel: passes a block covers at once, the bytes of a staged
+# cell, and the H100's shared memory a block may take
+MAX_PASS_GROUP = 6
+CELL_BYTES = 128
+SMEM_LIMIT = 232448
 
 
 def window_offset(radius: float) -> int:
@@ -101,10 +111,80 @@ def core_takes(radius: float, topk: int) -> bool:
 @dataclass(frozen=True)
 class WidePlan:
     """What a launch of the wide kernel is given: r, the band of all
-    ``r + 1`` rows and top-k, with no upper limit."""
+    ``r + 1`` rows and top-k, with no upper limit, and the block's shape
+    derived from r, which the C entries take as given
+    (``csrc/window_topk_wide.cu`` sizes its shared memory from it by
+    ``smem_bytes``' formula)."""
     r: int
     band: Tuple[int, ...]
     topk: int
+
+    @property
+    def passes(self) -> int:
+        """Warp passes of ``PASS_DX`` dx that cover the window's 2r + 1
+        dx."""
+        return -(-(2 * self.r + 1) // PASS_DX)
+
+    @property
+    def pass_groups(self) -> int:
+        """Groups the passes are walked in: one while ``passes <=
+        MAX_PASS_GROUP`` (r <= 47)."""
+        return -(-self.passes // MAX_PASS_GROUP)
+
+    @property
+    def pass_group(self) -> int:
+        """Passes a group: the passes spread evenly over the groups."""
+        return -(-self.passes // self.pass_groups)
+
+    @property
+    def key_rows(self) -> int:
+        """Key rows staged together, sharing each staged query chunk: as
+        many as keep the block within 384 threads (170 registers a thread)
+        and at most 4."""
+        return min(4, 6 // self.pass_group)
+
+    @property
+    def threads(self) -> int:
+        """Two row groups x ``pass_group`` x ``key_rows`` warps."""
+        return 64 * self.pass_group * self.key_rows
+
+    @property
+    def key_cells(self) -> int:
+        """Staged cells of a key row's window: the tile's 32 columns and
+        the group's dx."""
+        return TILE_W + PASS_DX * self.pass_group
+
+    @property
+    def shared_lists(self) -> bool:
+        """Whether the running lists sit in shared memory (``topk <=
+        KMAX``); else in global scratch."""
+        return self.topk <= KMAX
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory a block takes: the 2-stage ring of 128-byte cells
+        (each key row's window and the tile's queries), the score slab of
+        a row group's queries, then the lists (shared) or each query's
+        tail and buffer index (global)."""
+        queries = TILE_H * TILE_W
+        stage = (self.key_rows * self.key_cells + queries) * CELL_BYTES
+        slab = queries // 2 * (PASS_DX * self.pass_group + 4) * 4
+        lists = (2 * queries * self.topk if self.shared_lists
+                 else 3 * queries) * 4
+        return 2 * stage + slab + lists
+
+    def video_lists(self, t_total: int, h: int, w: int
+                    ) -> Optional[Tuple[int, ...]]:
+        """Rows 1/2's scratch: two buffers of ``topk`` entries a query and
+        frame where the lists do not fit shared memory, else None."""
+        if self.shared_lists:
+            return None
+        return (t_total - 1, h, w, 2, self.topk)
+
+    def local_lists(self, f_total: int, h: int, w: int) -> Tuple[int, ...]:
+        """Rows 3/4's scratch: each slot's partial list and a spare buffer
+        a query (the slot split's first stage, the merge's second)."""
+        return (f_total, h, w, 2, self.topk)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,6 +197,22 @@ def wide_plan(radius: float, topk: int) -> WidePlan:
     if topk < 1:
         raise ValueError(f'topk {topk} < 1')
     return WidePlan(r=r, band=circle_band(radius), topk=topk)
+
+
+def wide_lists(shape: Optional[Tuple[int, ...]], device: torch.device
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The wide kernel's list scratch of ``shape``: keys (float32) and
+    order keys (int32), or (None, None) for no scratch."""
+    if shape is None:
+        return None, None
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address for a C entry, None (a null pointer) for
+    None."""
+    return None if t is None else t.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
