@@ -22,8 +22,9 @@ wins), e.g. ``--option test_cfg.video_engine=v2``. The checkpoints are
 seeded random torchvision-layout weights. Each process first runs the
 eval once (the kernel build and the first call), then times
 ``single_process_test`` ``N`` times (default 3). Prints one JSON line per
-run with the checkout, its ``eval_fps`` per repeat and their median, then
-the card's name and power limit as ``nvidia-smi`` gives them. Needs one
+run with the checkout, its ``eval_fps`` per repeat and their median and
+the peak device memory of the timed evals (``peak_memory_gb``), then the
+card's name and power limit as ``nvidia-smi`` gives them. Needs one
 card.
 """
 
@@ -56,17 +57,24 @@ def run_ab(a, b, argv, what):
 
 def child(argv, repeats):
     """Run in a checkout: the eval once, then ``repeats`` timed evals;
-    print the wall seconds of each."""
+    print the wall seconds of each and the peak device memory of the
+    timed evals."""
     import chip_smoke  # the timers of this script's tree
     sys.path[0] = os.getcwd()  # the package of the checkout
+    import torch
     import vfs_tpu_torch.apis as apis
     from vfs_tpu_torch.tools import test as tools_test
     walls = []
     with chip_smoke.patched(apis, 'single_process_test',
                             chip_smoke.wall_timer(walls)):
-        for _ in range(repeats + 1):
+        for i in range(repeats + 1):
+            if i == 1:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
             tools_test.main(argv)
-    print(json.dumps({'first_call_s': walls[0], 'walls': walls[1:]}))
+    print(json.dumps({'first_call_s': walls[0], 'walls': walls[1:],
+                      'peak_memory_gb':
+                      torch.cuda.max_memory_allocated() / 2**30}))
 
 
 def write_inputs(path, root, options):
@@ -125,7 +133,8 @@ def main():
                               'path': args.path, 'options': args.option,
                               'first_call_s': run['first_call_s'],
                               'eval_fps': fps,
-                              'median_fps': statistics.median(fps)}),
+                              'median_fps': statistics.median(fps),
+                              'peak_memory_gb': run['peak_memory_gb']}),
                   flush=True)
     print(chip_smoke.card_line())
 

@@ -97,9 +97,10 @@ Phases, one JSON line each on stdout:
    (configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py, full width, seeded
    random weights saved as a torchvision-layout ``.pth``) through
    ``python -m vfs_tpu_torch.tools.test``, run in-process with
-   ``test_cfg.backend=pallas`` on a synthetic DAVIS-layout dataset of two
-   48x480x854 videos written to a temporary directory under ``build/``.
-   ``local_topk_attend`` must launch once per step (2 x 47), the masks
+   ``test_cfg.backend=pallas`` on a synthetic DAVIS-layout dataset of
+   ``EVAL_VIDEOS`` (one) 48x480x854 videos written to a
+   temporary directory under ``build/``.
+   ``local_topk_attend`` must launch once per step (47 a video), the masks
    must agree with the same command under ``backend=pallas_video`` and, on
    one video, with a run whose per-step attention is the plain version.
    The counted run's stage times come from CUDA events around
@@ -109,6 +110,25 @@ Phases, one JSON line each on stdout:
    per step, and the masks agree with the exact run's on
    ``MODE_AGREEMENT``'s share of pixels (0.999 packed, 0.99 bf16
    scores).
+5b. all_blocks: the r50 config's second shipped eval (BASELINE.json:
+   DAVIS-2017 label propagation with all res4 blocks),
+   ``python -m vfs_tpu_torch.tools.test --options
+   test_cfg.all_blocks=True`` in-process on one synthetic 48x480x854
+   video with the eval phase's seeded r50 weights, their BatchNorm
+   scales and shifts drawn (``write_backbone(randomize_bn=True)``: the
+   init's zero ``bn3`` scales would make layer3's blocks 1-5 identities),
+   in exact fp32 on the default engine (row 1). ``ResNetBlockwise`` gives
+   one bank a layer3 Bottleneck (6) and the tracker propagates each: row
+   1 must launch 6 times; the six banks must equal the plain ``ResNet``'s
+   ``layer3[j]`` outputs taken with forward hooks on the same frames (bit
+   for bit, or within rtol / atol 1e-5: ``layer3_bit_equal`` says which);
+   the last block's masks must equal the standard eval's; each block's
+   masks must agree with a run whose phase 1 is the plain version on >=
+   99.9% of pixels; the result must hold ``feat_0`` ... ``feat_5``
+   ``J&F-Mean``. Extraction and propagation (with decode, per block) ms a
+   frame from CUDA events, one block's synchronous mask readback in ms
+   (CUDA events around the copy of its (48, 480, 854) masks), and the
+   run's peak device memory.
 6. pose: slice 3's JHMDB path, pose-keypoint propagation with PCK of the
    r18 model (full width, seeded random weights as a ``.pth``) through
    ``python -m vfs_tpu_torch.tools.test --eval pck`` in-process, with
@@ -130,7 +150,8 @@ Phases, one JSON line each on stdout:
    4-frame 224x224 clips: 256 frames a step) with seeded random weights,
    through ``python -m vfs_tpu_torch.tools.train --validate
    --auto-resume`` in-process, on a synthetic Kinetics-layout set of 32
-   MJPG clips of 16 256x340 frames under ``build/`` (``write_k400``;
+   MJPG clips of 16 256x340 frames under ``build/`` (``write_k400``; the
+   same clips in mp4v beside them for the second card-vs-CPU batch;
    decoded natively where the FFmpeg library built, else by cv2:
    ``loader_video_decoder``; ``RepeatDataset``
    times 2: 2 steps an epoch) with the config's 16 loader processes, and
@@ -140,7 +161,12 @@ Phases, one JSON line each on stdout:
    ``best.json`` written; a second call with ``total_epochs=3`` resumes
    from ``epoch_2``, runs epoch 3 alone and ends at step 6. Then one
    step at B=2 from the same weights and batch on the card and on the CPU,
-   each in exact fp32 and in fp64 (see the tolerances below); the
+   each in exact fp32 and in fp64 (see the tolerances below), on the
+   first two samples of the first batch of a ``GATE_LOADER_BATCHES``-batch
+   loader epoch over the MJPG clips and over the mp4v clips, built as the
+   loader's first worker builds them (``loader_first_batch``):
+   ``card_vs_cpu``, and on the mp4v batch ``card_vs_cpu_kinks``, with
+   each ReLU's decision taken from the fp64 step; the
    device-only step time (median of
    ``TIMED_STEPS`` CUDA-event-timed steps after ``WARMUP_STEPS`` on a
    batch already on the card), ``train_mfu`` and peak memory in exact
@@ -166,6 +192,22 @@ Phases, one JSON line each on stdout:
    drawn parameters on the card and the CPU (within ``DA_CARD_CPU_ATOL``
    on the [0, 255] scale); the chain's ms and kernel launches on the full
    batch, and the device-only step with the chain in exact fp32 and bf16.
+8b. train_r50: the r50 pretraining config
+   (configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py: ResNet-50 with
+   ``zero_init_residual``, the 2048-wide head, ``intra_video=False``, 32
+   samples of two 1-frame 224x224 clips: 64 frames a step) at full width
+   with seeded random weights through ``python -m
+   vfs_tpu_torch.tools.train --validate --auto-resume`` in-process on its
+   own copy of the train phase's clips (MJPG; the config's 16 loader
+   processes), one epoch of ``R50_EPOCH_STEPS`` steps with the DAVIS hook
+   on two 10-frame 480x854 videos, then a resume that runs epoch 2 and its
+   eval: losses finite, ``epoch_1`` and ``epoch_2`` written, row 1
+   launched once per val video per epoch. Then the device-only exact-fp32
+   step on the loader's first MJPG batch on the card (median of
+   ``TIMED_STEPS`` after ``WARMUP_STEPS``), ``train_mfu`` on
+   ``train_flops``, peak memory and ``device_breakdown``; and
+   ``card_vs_cpu_kinks`` on the first ``R50_GATE_SAMPLES`` samples of the
+   first MJPG and mp4v batches.
 9. dense: slice 7's dense tier, r18 ``forward_test`` at full width on a
    ``DENSE_FRAMES``-frame 480x854 video under each of ``DENSE_RUNS`` (the
    masked path with the first frame exempt, ``non_mask_len=1``; no mask,
@@ -297,8 +339,8 @@ Phases, one JSON line each on stdout:
    may launch in the phase.
 16. kernels: every kernel with its launches on its path, times, bound
    and share of the bound. ``video_topk_affinity``'s launches are the main
-   path's, the demo's, the train phase's eval hook's, the learning loop's
-   and the bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
+   path's, the demo's, the all-blocks eval's, the train phases' eval
+   hooks' (r18 and r50), the learning loop's and the bench_cfg path's; rows 1-3 add their bf16 launches on the bench_cfg
    path and carry a ``bf16`` entry (r18 and r50 numbers of phase 11);
    row 3 also carries ``scores_bf16`` and ``packed`` entries (launches on
    the eval path, numbers of phase 3), whose launches add to its own. (The
@@ -341,7 +383,23 @@ the CPU's fp32 distance from it plus ``CARD_CPU_FLOOR`` (relative L2 of
 every gradient; the loss likewise plus 1e-6), which shows the card's
 fp32 (cuDNN's algorithms, TF32 off) is as accurate as the CPU's. The
 gradients that are zero in exact arithmetic (a Linear bias before a
-BatchNorm) are rounding noise and are left out. The bf16 step: its
+BatchNorm) are rounding noise and are left out. A ReLU's gradient jumps
+at 0: a pre-activation within the fp32 rounding of 0 takes its sign from
+the rounding, and the gradient of its position passes or not by chance on
+either device. On the first mp4v batch the card cuts one such position
+of layer2 that fp64 and the CPU pass (+1.8e-7 in fp64, 0 on the card),
+and the per-parameter rule reads layer2's shift gradients 7.0e-3 off
+(the CPU's 1.8e-5); on other batches the CPU cuts one the card passes.
+So that batch takes ``card_vs_cpu_kinks``: the same rule on steps whose
+ReLU decisions are the fp64 step's, and every fp32 decision of card or
+CPU that differs from fp64's must lie within ``KINK_ULPS`` (64) fp32
+ulps of its call's RMS input from 0 (2 to 15 differ on every batch, at
+up to 14 ulps); the free steps' errors and the decisions that differed
+are printed beside. The r50 config's batches take the same check, on 4
+samples (``R50_GATE_SAMPLES``): with 1-frame clips a view of 2 samples
+is a 2-row BatchNorm batch, whose output is +-1 whatever its input, so
+the backbone's exact gradient is made of the eps terms alone, too ill
+conditioned for the fp64 rule's 1e-9. The bf16 step: its
 first step from the same seed-0 weights on the same batch as the fp32
 step; the backbone's features (both views) and all the gradients are
 set against the fp32 step's in relative L2. The loss, ``2 - 2 cos``
@@ -438,8 +496,9 @@ EDGE_LOCAL_CASES = [(3, 5, 8, 3.0, (1, 1), 5, 4),
                     (10, 37, 260, 12.0, (1, 1), 32, 4),
                     (9, 40, 8, 32.0, (0, 1, 1), 32, 16)]
 # warm JHMDB evals timed after the counted one (pose phase; 4 until the
-# localization phase took the script past 1000 s)
-POSE_REPEATS = 2
+# localization phase took the script past 1000 s, 2 until the r50 phases
+# took it past 1200 s)
+POSE_REPEATS = 1
 # rows 3 and 4 on banks of mostly invalid slots: one valid slot of 21, 17
 # of 21, and no valid slot (fillers only)
 ONE_OF_21 = tuple(int(f == 13) for f in range(21))
@@ -472,6 +531,9 @@ MODE_AGREEMENT = dict(pallas_packed=0.999, pallas_bf16=0.99,
 # frames a sequence (the siamfc fixture has 50) and bench_extract's frames
 BENCH_KERNEL_FRAMES = 24
 ANALYSIS_FRAMES, ANALYSIS_TRACK_FRAMES, ANALYSIS_EXTRACT_FRAMES = 12, 20, 20
+# bench_pretrain's batch (the configs' 32 until the r50 phases took the
+# script past 1200 s)
+ANALYSIS_PRETRAIN_BATCH = 8
 # slice 11: the K400 clips the native phase decodes, and the card's
 # 'jpeg' yuv420 unpack against the CPU's on the [0, 255] scale (the same
 # fp32 operations: rounding only)
@@ -2290,18 +2352,21 @@ def spans_ms(spans):
     return sum(start.elapsed_time(end) for start, end in spans)
 
 
-def write_eval_inputs(root):
-    """The eval path's inputs under ``root``: ``write_davis``'s dataset and
-    the r50 backbone of CONFIG_R50 with seeded random weights, saved as a
-    torchvision-layout ``.pth``. Returns ``write_davis``'s values and the
-    checkpoint's path."""
-    data = write_davis(root)
+def write_eval_inputs(root, n_videos=2):
+    """The eval path's inputs under ``root``: ``write_davis``'s dataset of
+    ``n_videos`` and the r50 backbone of CONFIG_R50 with seeded random
+    weights, saved as a torchvision-layout ``.pth``. Returns
+    ``write_davis``'s values and the checkpoint's path."""
+    data = write_davis(root, n_videos=n_videos)
     return (*data, write_backbone(CONFIG_R50, os.path.join(root, 'r50.pth')))
 
 
-def write_backbone(config, path):
+def write_backbone(config, path, randomize_bn=False):
     """The backbone of ``config`` with seeded random weights (seed 0),
-    saved at ``path`` as a torchvision-layout ``.pth``; returns ``path``."""
+    saved at ``path`` as a torchvision-layout ``.pth``; returns ``path``.
+    ``randomize_bn``: every BatchNorm's scale 1 + 0.1 N(0, 1) and shift
+    0.1 N(0, 1) (seed 1), so that a residual block whose last scale the
+    init zeroes is not the identity."""
     import runpy
     import torch
     from vfs_tpu_torch.models.backbones import ResNet
@@ -2309,6 +2374,15 @@ def write_backbone(config, path):
     backbone_cfg.pop('type')
     backbone = ResNet(**backbone_cfg)
     backbone.init_weights(torch.Generator().manual_seed(0))
+    if randomize_bn:
+        generator = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in backbone.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.weight.copy_(1 + 0.1 * torch.randn(
+                        m.weight.shape, generator=generator))
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape,
+                                                   generator=generator))
     torch.save(backbone.state_dict(), path)
     return path
 
@@ -2322,6 +2396,10 @@ def eval_argv(root, img_root, ann_root, ann_file, ckpt, backend, out):
             f'data.test.data_prefix={img_root}',
             f'data.test.anno_prefix={ann_root}',
             f'data.test.data_root={root}']
+
+
+# the eval phase's videos (two until the all-blocks phase took the other)
+EVAL_VIDEOS = 1
 
 
 def phase_eval(local_full):
@@ -2339,7 +2417,7 @@ def phase_eval(local_full):
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
         (img_root, ann_root, (list_all, list_one), shape,
-         ckpt) = write_eval_inputs(root)
+         ckpt) = write_eval_inputs(root, EVAL_VIDEOS)
 
         def run(backend, ann_file, name, options=()):
             out = os.path.join(root, f'{name}.npz')
@@ -2387,7 +2465,7 @@ def phase_eval(local_full):
 
         frames = sum(m.shape[0] for m in masks)
         steps = sum(m.shape[0] - 1 for m in masks)
-        if launches < steps or steps < 2 * (shape[0] - 1):
+        if launches < steps or steps < EVAL_VIDEOS * (shape[0] - 1):
             raise AssertionError(f'{launches} scan-kernel launches for '
                                  f'{steps} steps')
         for m in masks:
@@ -2429,6 +2507,159 @@ def phase_eval(local_full):
                 bound_by=local_full['bound_by'],
                 bound_share=local_full['bound_share'], library_ms=None,
                 library_note=NO_LIBRARY_CALL)
+
+
+# the all-blocks eval (module docstring, phase 5b): r50's layer3 blocks
+ALL_BLOCKS_R50 = 6
+
+
+def layer3_blocks(ckpt, imgs, batch_step, mean, std):
+    """The outputs of the plain r50 ``ResNet``'s ``layer3[j]``, taken with
+    forward hooks over ``imgs`` in ``batch_step`` chunks as
+    ``VanillaTracker._extract_feats`` runs it: one (T, h, w, 1024) fp32
+    bank a block."""
+    import runpy
+    import torch
+    from vfs_tpu_torch.models import build_model
+    cfg = runpy.run_path(CONFIG_R50)
+    tracker = build_model(dict(type='VanillaTracker',
+                               backbone=dict(cfg['model']['backbone'])),
+                          test_cfg=dict(cfg['test_cfg']))
+    tracker.load_weights(ckpt)
+    blocks = list(tracker.backbone.layer3)
+    parts = [[] for _ in blocks]
+    hooks = [b.register_forward_hook(
+        lambda m, args, out, j=j: parts[j].append(
+            out.permute(0, 2, 3, 1).to(torch.float32)))
+        for j, b in enumerate(blocks)]
+    try:
+        tracker._extract_feats(imgs, batch_step, mean, std)
+    finally:
+        for h in hooks:
+            h.remove()
+    return [torch.cat(p) for p in parts]
+
+
+def phase_all_blocks(dev, smi_line):
+    """The all-blocks eval (module docstring, phase 5b): ``tools.test`` on
+    the r50 config with ``test_cfg.all_blocks=True`` on one synthetic
+    video. Returns the launches of video_topk_affinity on it."""
+    import torch
+    import vfs_tpu_torch.apis as apis
+    from vfs_tpu_torch.models.trackers import vanilla_tracker
+    from vfs_tpu_torch.ops import propagation, video_topk_affinity_cuda
+    from vfs_tpu_torch.tools import test as tools_test
+
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        img_root, ann_root, (list_one, _), shape = write_davis(
+            root, n_videos=1)
+        # the eval phase's seeded weights, BatchNorm scales drawn: with
+        # each Bottleneck's zero-initialised bn3 scale, layer3's blocks 1-5
+        # would be identities and their masks those of block 0
+        ckpt = write_backbone(CONFIG_R50, os.path.join(root, 'r50.pth'),
+                              randomize_bn=True)
+
+        def run(name, options=()):
+            out = os.path.join(root, f'{name}.npz')
+            jf = tools_test.main([
+                CONFIG_R50, ckpt, '--eval', 'davis', '--out', out,
+                '--options', f'data.test.ann_file={list_one}',
+                f'data.test.data_prefix={img_root}',
+                f'data.test.anno_prefix={ann_root}',
+                f'data.test.data_root={root}', *options])
+            with np.load(out) as saved:
+                return jf, saved['arr_0']
+
+        blockwise = ['test_cfg.all_blocks=True']
+        walls, extract_spans, propagate_spans, seen = [], [], [], []
+
+        def keep_feats(fn):
+            timed = span_timer(extract_spans)(fn)
+
+            def kept(self, imgs, batch_step, mean=None, std=None, *args,
+                     **kwargs):
+                banks = timed(self, imgs, batch_step, mean, std, *args,
+                              **kwargs)
+                seen.append((imgs, batch_step, mean, std, banks))
+                return banks
+            return kept
+
+        # the path, counted, timed per stage; the peak memory of the run
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        video_topk_affinity_cuda.launches = 0
+        with patched(apis, 'single_process_test', wall_timer(walls)), \
+                patched(vanilla_tracker.VanillaTracker, '_extract_feats',
+                        keep_feats), \
+                patched(vanilla_tracker.VanillaTracker, '_propagate_decode',
+                        span_timer(propagate_spans)):
+            jf, masks = run('all_blocks', blockwise)
+        launches = video_topk_affinity_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        eval_s = walls[-1]
+        extract_ms = spans_ms(extract_spans)
+        propagate_ms = spans_ms(propagate_spans)
+
+        # the six banks against the plain ResNet's layer3 blocks
+        imgs, batch_step, mean, std, banks = seen[-1]
+        plain_banks = layer3_blocks(ckpt, imgs, batch_step, mean, std)
+        bit_equal = [bool(torch.equal(a, b))
+                     for a, b in zip(banks, plain_banks)]
+        feat_err = [float((a - b).abs().max()) for a, b in
+                    zip(banks, plain_banks)]
+        close = [bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5))
+                 for a, b in zip(banks, plain_banks)]
+        del seen, banks, plain_banks, imgs
+        torch.cuda.empty_cache()
+
+        # what the tracker's synchronous per-block readback costs: one
+        # block's masks from the card, CUDA events around the copy
+        on_card = torch.as_tensor(masks[-1], device=dev)
+        readback_ms = cuda_ms(lambda: on_card.cpu())
+        del on_card
+
+        _, masks_std = run('standard')
+        with patched(propagation, 'video_topk_affinity', plain_phase1):
+            _, masks_plain = run('plain', blockwise)
+
+    blocks = ALL_BLOCKS_R50
+    keys = [f'feat_{i}.J&F-Mean' for i in range(blocks)]
+    agree_plain = [float((a == b).mean()) for a, b in zip(masks, masks_plain)]
+    if launches != blocks:
+        raise AssertionError(f'all_blocks: {launches} row-1 launches for '
+                             f'one video (want {blocks})')
+    if masks.shape != (blocks, *shape) or masks.dtype != np.uint8:
+        raise AssertionError(f'all_blocks masks {masks.shape} {masks.dtype}')
+    if not all(close):
+        raise AssertionError(f'all_blocks banks against the ResNet layer3 '
+                             f'blocks: largest differences {feat_err}')
+    if not np.array_equal(masks[-1], masks_std):
+        raise AssertionError('all_blocks: the last block masks differ from '
+                             'the standard eval masks')
+    if min(agree_plain) < 0.999:
+        raise AssertionError(f'all_blocks masks agree with a plain-phase-1 '
+                             f'run on {agree_plain} < 0.999')
+    if not set(keys) <= set(jf) or not all(0.0 <= jf[k] <= 1.0
+                                           for k in keys):
+        raise AssertionError(f'all_blocks results {sorted(jf)}')
+    frames = shape[0]
+    emit({'phase': 'all_blocks', 'card': smi_line,
+          'config': os.path.relpath(CONFIG_R50, ROOT),
+          'option': 'test_cfg.all_blocks=True', 'videos': 1,
+          'frames': frames, 'blocks': blocks, 'eval_s': eval_s,
+          'eval_fps': frames / eval_s,
+          'extract_ms_per_frame': extract_ms / frames,
+          'propagate_ms_per_frame': propagate_ms / frames,
+          'readback_ms_per_block': readback_ms,
+          'readback_ms_per_frame': readback_ms * blocks / frames,
+          'max_memory_allocated_gb': peak / 2**30,
+          'layer3_bit_equal': bit_equal, 'layer3_max_abs_err': feat_err,
+          'mask_agree_plain_phase1': agree_plain,
+          'last_block_equals_standard': True, 'kernel_launches': launches,
+          **{k: float(jf[k]) for k in keys}})
+    return launches
 
 
 def blocky_background(h, w, rng):
@@ -2751,32 +2982,70 @@ K400_CLIPS, K400_FRAMES, K400_HW = 32, 16, (256, 340)
 TRAIN_VAL_FRAMES = 10
 TIMED_STEPS, WARMUP_STEPS = 10, 3
 # batches in the epoch that times the end-to-end rate of the _deviceaug
-# config (two for each of the config's 16 loader processes, so that the
-# steps wait on the loader's second round) and of the host-aug config (one
-# for each: the 154 MB batches queue on the pool's result pipe from the
-# first round on; cut from 32 to keep the script's time), and in the warm
-# epoch that times the loader alone (one for each: all 16 busy)
-E2E_BATCHES, HOST_E2E_BATCHES, LOADER_BATCHES = 32, 16, 16
-LOADER_SAMPLES_IN_PROCESS = 8
+# config (one for each of the config's 16 loader processes; two until the
+# r50 phases took the script past 1200 s) and of the host-aug config (the
+# 154 MB batches queue on the pool's result pipe from the first round on;
+# 32, then 16, cut to keep the script's time), and in the warm epoch that
+# times the loader alone (the pipe, not the 16 processes, sets its rate;
+# 16 until the same cut)
+E2E_BATCHES, HOST_E2E_BATCHES, LOADER_BATCHES = 16, 8, 8
+LOADER_SAMPLES_IN_PROCESS = 4
+# the loader epoch whose first batch the card-vs-CPU checks take: 16
+# batches of the config's RepeatDataset (the first batch of each clip
+# format that every earlier run of this script took)
+GATE_LOADER_BATCHES = 16
 CARD_CPU_FACTOR, CARD_CPU_FLOOR = 4.0, 1e-5
+# a ReLU decision of an fp32 step may differ from the fp64 step's only
+# within this many fp32 ulps of the call's RMS input from 0 (measured on
+# the card and the CPU: up to 13.3)
+KINK_ULPS = 64
 # (low, high) relative L2 of the bf16 step's step-0 backbone features and
 # gradients from the fp32 step's (module docstring, tolerances)
 BF16_REL_L2 = dict(feats=(1e-3, 2.5e-2), grads=(1e-2, 0.4))
 BF16_LOSS_ATOL = 1e-3
 
 
-def write_k400(root):
-    """``K400_CLIPS`` Kinetics-layout MJPG clips of ``K400_FRAMES`` frames
-    of ``K400_HW`` under ``root`` (``tools.analysis.fixtures.write_k400``,
-    whose mp4v clips ``bench_pretrain`` writes). The train phase's
-    tolerances were measured on these MJPG clips. On the mp4v clips some
-    B=2 batches are ill-conditioned for fp32 BatchNorm statistics (``E[x^2]
-    - E[x]^2`` over smooth crops): there the CPU's own fp32 step lies far
-    from the fp64 one too, and the card-vs-CPU check reads the difference
-    of two roundings as the card's error. Returns the list file's path."""
+def write_k400(root, fmt):
+    """``K400_CLIPS`` Kinetics-layout clips of ``K400_FRAMES`` frames of
+    ``K400_HW`` under ``root`` (``tools.analysis.fixtures.write_k400``) in
+    ``fmt``: ``'mjpg'`` (the train runs' clips) or ``'mp4v'`` (the
+    fixture's default, which ``bench_pretrain`` writes); both feed the
+    card-vs-CPU checks (module docstring, tolerances). Returns the list
+    file's path."""
     from vfs_tpu_torch.tools.analysis.fixtures import MJPG
     from vfs_tpu_torch.tools.analysis.fixtures import write_k400 as write
-    return write(root, K400_CLIPS, K400_FRAMES, K400_HW, MJPG)
+    return write(root, K400_CLIPS, K400_FRAMES, K400_HW,
+                 MJPG if fmt == 'mjpg' else ('mp4', 'mp4v'))
+
+
+def loader_first_batch(cfg_dict, ann, clips, samples):
+    """The first ``samples`` samples of the first batch of ``cfg_dict``'s
+    train loader over ``clips`` for an epoch of ``GATE_LOADER_BATCHES``
+    batches (``RepeatDataset`` times raised to give them; shuffled with
+    seed 0): built in this process as the loader's first worker
+    builds them, its generators seeded with the loader's seed + 0, so that
+    the batch does not depend on which worker the pool hands it to.
+    Returns the frames as numpy."""
+    import random
+    from vfs_tpu_torch.datasets import build_dataloader, build_dataset
+    from vfs_tpu_torch.datasets.builder import collate
+    global_batch = cfg_dict['data']['videos_per_gpu']
+    dataset = build_dataset(dict(
+        cfg_dict['data']['train'],
+        times=GATE_LOADER_BATCHES * global_batch // K400_CLIPS, dataset=dict(
+            cfg_dict['data']['train']['dataset'], ann_file=ann,
+            data_prefix=clips)))
+    loader = build_dataloader(dataset, global_batch, 1, shuffle=True,
+                              drop_last=True, seed=0)
+    indices = loader.sampler.indices(0)[:samples]
+    saved = np.random.get_state(), random.getstate()
+    np.random.seed(loader.sampler.seed)
+    random.seed(loader.sampler.seed)
+    try:
+        return collate([dataset[int(i)] for i in indices])['imgs']
+    finally:
+        np.random.set_state(saved[0])
+        random.setstate(saved[1])
 
 
 def video_decoder():
@@ -2860,9 +3129,13 @@ def eval_counter(evals):
     return make
 
 
+_SEEDED_MODELS = {}
+
+
 def build_train_model(cfg_dict, mixed, dev):
     """The config's tracker at full width with seeded random weights
-    (seed 0), on ``dev``; ``mixed`` takes the bf16 backbone."""
+    (seed 0), on ``dev``; ``mixed`` takes the bf16 backbone. The seeded
+    init runs once a configuration; later calls copy its model."""
     import copy
     import torch
     from vfs_tpu_torch.apis.train import apply_mixed_precision
@@ -2872,8 +3145,13 @@ def build_train_model(cfg_dict, mixed, dev):
     if mixed:
         cfg.bf16 = True
         apply_mixed_precision(cfg)
-    model = build_model(cfg.model, train_cfg=cfg.get('train_cfg'))
-    model.init_weights(torch.Generator().manual_seed(0))
+    key = json.dumps([cfg_dict['model'], cfg_dict.get('train_cfg'), mixed],
+                     sort_keys=True, default=str)
+    if key not in _SEEDED_MODELS:
+        seeded = build_model(cfg.model, train_cfg=cfg.get('train_cfg'))
+        seeded.init_weights(torch.Generator().manual_seed(0))
+        _SEEDED_MODELS[key] = seeded
+    model = copy.deepcopy(_SEEDED_MODELS[key])
     model.to(dev).train()
     if dev.type == 'cuda':
         model.backbone.to(memory_format=torch.channels_last)
@@ -2910,15 +3188,24 @@ def grad_error(grads, ref):
 
 
 def card_vs_cpu(cfg_dict, batch, dev):
-    """One step at B=2 from the same weights and batch on the card and on
-    the CPU through the same code, each in exact fp32 and in fp64 (module
-    docstring, tolerances). Returns the losses and the errors."""
+    """One step at the batch's B from the same weights and batch on the
+    card and on the CPU through the same code, each in exact fp32 and in
+    fp64 (module docstring, tolerances). Returns the losses and the
+    errors."""
     import torch
     cpu = torch.device('cpu')
-    l64, g64 = train_grads(cfg_dict, batch, cpu, torch.float64)
-    card64 = train_grads(cfg_dict, batch, dev, torch.float64)
-    cpu32 = train_grads(cfg_dict, batch, cpu, torch.float32)
-    card32 = train_grads(cfg_dict, batch, dev, torch.float32)
+    return card_cpu_rule(train_grads(cfg_dict, batch, cpu, torch.float64),
+                         train_grads(cfg_dict, batch, dev, torch.float64),
+                         train_grads(cfg_dict, batch, cpu, torch.float32),
+                         train_grads(cfg_dict, batch, dev, torch.float32))
+
+
+def card_cpu_rule(exact, card64, cpu32, card32):
+    """The card-vs-CPU rule on four steps' (loss, gradients): the card's
+    fp64 step within 1e-9 of the CPU's, and the card's fp32 step within
+    ``CARD_CPU_FACTOR`` x the CPU's fp32 distance from it plus
+    ``CARD_CPU_FLOOR`` (the loss likewise, plus 1e-6 of it)."""
+    l64, g64 = exact
     err64, name64 = grad_error(card64[1], g64)
     err_cpu, _ = grad_error(cpu32[1], g64)
     err_card, name = grad_error(card32[1], g64)
@@ -2939,6 +3226,79 @@ def card_vs_cpu(cfg_dict, batch, dev):
                 grad_rel_l2_fp32_card_exact=err_card,
                 grad_rel_l2_fp32_cpu_exact=err_cpu,
                 grad_rel_l2_fp64_card_cpu=err64)
+
+
+@contextlib.contextmanager
+def relu_decisions(record=None, pinned=None):
+    """Inside the block every ``F.relu`` call (the backbones' and heads')
+    appends its input, on the CPU, to ``record``; or, given ``pinned``
+    (the boolean masks of another run's calls, in call order), passes its
+    input where the call's mask holds and 0 elsewhere, whatever the
+    input's sign, so that the gradient takes the mask's decision."""
+    import torch
+    import torch.nn.functional as F
+    relu, calls = F.relu, [0]
+
+    def decided(x, inplace=False):
+        i, calls[0] = calls[0], calls[0] + 1
+        if record is not None:
+            record.append(x.detach().cpu())
+        if pinned is None:
+            return relu(x)
+        return torch.where(pinned[i].to(x.device), x, torch.zeros_like(x))
+
+    F.relu = decided
+    try:
+        yield
+    finally:
+        F.relu = relu
+
+
+def card_vs_cpu_kinks(cfg_dict, batch, dev):
+    """``card_cpu_rule`` on steps whose ReLU decisions are the fp64 step's
+    (``relu_decisions``), and the fp32 decisions of the card and the CPU
+    that differ from the fp64 step's: each must sit within
+    ``KINK_ULPS`` fp32 ulps of the call's RMS input from 0 in fp64, where
+    the sign is the rounding's (module docstring, tolerances). A ReLU's
+    gradient jumps at 0, so such a decision moves every gradient that
+    sums over its position by what the position carries, on whichever
+    device rounds to the other side. Returns the rule's numbers with the
+    pinned decisions, the free steps' errors and the decisions that
+    differed."""
+    import torch
+    cpu = torch.device('cpu')
+    inputs = []
+    with relu_decisions(record=inputs):
+        exact = train_grads(cfg_dict, batch, cpu, torch.float64)
+    masks = [x > 0 for x in inputs]
+    card64 = train_grads(cfg_dict, batch, dev, torch.float64)
+    steps, flips = {}, {}
+    for name, device in (('cpu', cpu), ('card', dev)):
+        seen = []
+        with relu_decisions(record=seen):
+            free = train_grads(cfg_dict, batch, device, torch.float32)
+        with relu_decisions(pinned=masks):
+            steps[name] = train_grads(cfg_dict, batch, device,
+                                      torch.float32)
+        flips[name] = dict(free_grad_rel_l2=grad_error(free[1],
+                                                       exact[1])[0],
+                           decisions=0, max_ulps=0.0)
+        for x, m, x64 in zip(seen, masks, inputs):
+            differ = (x > 0) != m
+            if differ.any():
+                ulp = float(x64.square().mean().sqrt()) * 2.0**-23
+                ulps = float(x64[differ].abs().max()) / ulp
+                flips[name]['decisions'] += int(differ.sum())
+                flips[name]['max_ulps'] = max(flips[name]['max_ulps'], ulps)
+        if flips[name]['max_ulps'] > KINK_ULPS:
+            raise AssertionError(
+                f'{name} fp32 step: a ReLU decision differs from the fp64 '
+                f"step's {flips[name]['max_ulps']} ulps from 0 (> "
+                f'{KINK_ULPS})')
+    out = card_cpu_rule(exact, card64, steps['cpu'], steps['card'])
+    out.update({f'{k}_{name}': v for name, d in flips.items()
+                for k, v in d.items()})
+    return out
 
 
 KERNEL_KINDS = (('conv', ('conv', 'cudnn', 'xmma', 'wgrad', 'dgrad',
@@ -3023,6 +3383,16 @@ def device_steps(cfg_dict, batch, mixed, dev):
     return ms, peak, first, stats_fp32, breakdown
 
 
+def part_seconds(t_start, marks):
+    """Each part's seconds from ``marks`` (name: end time, in order) after
+    ``t_start``."""
+    out, t = {}, t_start
+    for name, end in marks.items():
+        out[name] = end - t
+        t = end
+    return out
+
+
 def phase_train(dev, smi_line):
     """Slice 6's path (module docstring, phase 8). Returns the launches of
     video_topk_affinity in the eval hook."""
@@ -3034,13 +3404,17 @@ def phase_train(dev, smi_line):
     from vfs_tpu_torch.tools import train as tools_train
     from vfs_tpu_torch.utils import Config
 
+    t_start = time.time()
     cfg_dict = Config.fromfile(CONFIG).to_dict()
     global_batch = cfg_dict['data']['videos_per_gpu']
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
-        clips = os.path.join(root, 'k400')
+        clips, clips_mp4v = (os.path.join(root, d)
+                             for d in ('k400', 'k400_mp4v'))
         os.makedirs(clips)
-        ann = write_k400(clips)
+        os.makedirs(clips_mp4v)
+        ann = write_k400(clips, 'mjpg')
+        ann_mp4v = write_k400(clips_mp4v, 'mp4v')
         davis = os.path.join(root, 'davis')
         img_root, ann_root, (list_all, _), _ = write_davis(
             davis, t_total=TRAIN_VAL_FRAMES)
@@ -3069,6 +3443,7 @@ def phase_train(dev, smi_line):
                 state = tools_train.main(argv)
                 return state, time.time() - t0
 
+        parts = {'setup': time.time()}
         # the path, counted: two epochs with the eval hook
         records, evals = [], []
         video_topk_affinity_cuda.launches = 0
@@ -3084,6 +3459,7 @@ def phase_train(dev, smi_line):
         # auto-resume: epoch 3 alone
         resume_records, resume_evals = [], []
         state3, _ = train(3, False, resume_records, resume_evals)
+        parts['path'] = time.time()
         ckpts = sorted(os.listdir(ckpt))
 
         # end to end in a window that keeps every loader process busy:
@@ -3094,6 +3470,7 @@ def phase_train(dev, smi_line):
         train(1, False, window_records, [], work=os.path.join(root, 'e2e'),
               extra=[f'data.train.times={times}'])
         window_ends = [t for _, t in window_records]
+        parts['e2e_window'] = time.time()
         e2e_sps = (len(window_ends) - 1) / (window_ends[-1]
                                             - window_ends[0])
 
@@ -3123,11 +3500,14 @@ def phase_train(dev, smi_line):
         for i in range(LOADER_SAMPLES_IN_PROCESS):
             dataset[i]
         in_process_sps = LOADER_SAMPLES_IN_PROCESS / (time.time() - t0)
+        parts['loader'] = time.time()
         frames_hw = first_batch['imgs'].shape[3:5]
         clip_len = first_batch['imgs'].shape[2]
         card_batch = torch.as_tensor(first_batch['imgs'], device=dev)
-        small = first_batch['imgs'][:2]
+        small = loader_first_batch(cfg_dict, ann, clips, 2)
+        small_mp4v = loader_first_batch(cfg_dict, ann_mp4v, clips_mp4v, 2)
         deviceaug = deviceaug_runs(root, ann, clips)
+        parts['deviceaug_runs'] = time.time()
 
     want = K400_CLIPS * cfg_dict['data']['train']['times'] // global_batch
     if state.step != 2 * steps_per_epoch or steps_per_epoch != want:
@@ -3155,6 +3535,8 @@ def phase_train(dev, smi_line):
                              f'steps (want {HOST_E2E_BATCHES})')
 
     card_cpu = card_vs_cpu(cfg_dict, small, dev)
+    card_cpu_mp4v = card_vs_cpu_kinks(cfg_dict, small_mp4v, dev)
+    parts['card_vs_cpu'] = time.time()
     n_frames = global_batch * 2 * clip_len
     flops, macs_per_frame = train_flops(
         build_train_model(cfg_dict, False, torch.device('cpu'))[0],
@@ -3189,7 +3571,9 @@ def phase_train(dev, smi_line):
                              f'{loss_gap} (> {BF16_LOSS_ATOL})')
     if not modes['bf16']['bn_stats_fp32']:
         raise AssertionError('bf16 step: BatchNorm statistics not fp32')
+    parts['device_steps'] = time.time()
     deviceaug.update(deviceaug_device(deviceaug.pop('first_batch'), dev))
+    parts['deviceaug_device'] = time.time()
     deviceaug.update(host_aug_e2e_steps_per_s=e2e_sps,
                      host_aug_loader_samples_per_s=loader_sps,
                      host_aug_batch_bytes=card_batch.numel()
@@ -3207,6 +3591,7 @@ def phase_train(dev, smi_line):
           'bf16_fp32_feature_rel_l2': bf16_gap['feats'],
           'bf16_fp32_grad_rel_l2': bf16_gap['grads'],
           **{f'card_vs_cpu_{k}': v for k, v in card_cpu.items()},
+          **{f'card_vs_cpu_mp4v_{k}': v for k, v in card_cpu_mp4v.items()},
           'loader_samples_per_s': loader_sps,
           'loader_samples_per_s_in_process': in_process_sps,
           'loader_video_decoder': video_decoder(),
@@ -3218,7 +3603,137 @@ def phase_train(dev, smi_line):
           'eval_jf': [r['J&F-Mean'] for r in val],
           'eval_wall_s': [e['wall_s'] for e in evals],
           'eval_videos': evals[0]['videos'], 'kernel_launches': launches,
-          'resume_final_step': state3.step, 'checkpoints': ckpts})
+          'resume_final_step': state3.step, 'checkpoints': ckpts,
+          'part_seconds': part_seconds(t_start, parts)})
+    return launches
+
+
+# the r50 pretraining phase (module docstring, phase 8b): steps an epoch,
+# and the samples of the card-vs-CPU batches (module docstring,
+# tolerances: at 2 the head's BatchNorm1d is degenerate)
+R50_EPOCH_STEPS = 2
+R50_GATE_SAMPLES = 4
+
+
+def phase_train_r50(dev, smi_line):
+    """The r50 pretraining config's path (module docstring, phase 8b).
+    Returns the launches of video_topk_affinity in the eval hook."""
+    import torch
+    import vfs_tpu_torch.apis.test as apis_test
+    import vfs_tpu_torch.apis.train as apis_train
+    from vfs_tpu_torch.ops import video_topk_affinity_cuda
+    from vfs_tpu_torch.tools import train as tools_train
+    from vfs_tpu_torch.utils import Config
+
+    t_start = time.time()
+    cfg_dict = Config.fromfile(CONFIG_R50).to_dict()
+    global_batch = cfg_dict['data']['videos_per_gpu']
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
+        sets = {}
+        for fmt in ('mjpg', 'mp4v'):
+            clips = os.path.join(root, fmt)
+            os.makedirs(clips)
+            sets[fmt] = (write_k400(clips, fmt), clips)
+        ann, clips = sets['mjpg']
+        davis = os.path.join(root, 'davis')
+        img_root, ann_root, (list_all, _), _ = write_davis(
+            davis, t_total=TRAIN_VAL_FRAMES)
+        work = os.path.join(root, 'work')
+        # the config's key names feat_1, which an eval with one out_index
+        # does not give (train phase): key on the one J&F
+        options = [f'data.train.dataset.ann_file={ann}',
+                   f'data.train.dataset.data_prefix={clips}',
+                   'data.train.times='
+                   f'{R50_EPOCH_STEPS * global_batch // K400_CLIPS}',
+                   f'data.val.ann_file={list_all}',
+                   f'data.val.data_prefix={img_root}',
+                   f'data.val.anno_prefix={ann_root}',
+                   f'data.val.data_root={davis}',
+                   'evaluation.key_indicator=J&F-Mean']
+
+        def train(total_epochs, records, evals):
+            argv = [CONFIG_R50, '--work-dir', work, '--validate',
+                    '--auto-resume', '--options', *options,
+                    f'total_epochs={total_epochs}']
+            with patched(apis_train, 'make_train_step',
+                         step_timer(records)), \
+                    patched(apis_test, 'single_process_test',
+                            eval_counter(evals)):
+                t0 = time.time()
+                state = tools_train.main(argv)
+                return state, time.time() - t0
+
+        # the path, counted: an epoch with the eval hook, then a resume
+        # that runs the next epoch and its eval
+        parts = {'setup': time.time()}
+        records, evals, resume_records, resume_evals = [], [], [], []
+        video_topk_affinity_cuda.launches = 0
+        state, wall_s = train(1, records, evals)
+        state2, resume_wall_s = train(2, resume_records, resume_evals)
+        launches = video_topk_affinity_cuda.launches
+        parts['path'] = time.time()
+        ckpts = sorted(os.listdir(os.path.join(work, 'checkpoints')))
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            val = [r for r in map(json.loads, f) if r['mode'] == 'val']
+        batches = {fmt: loader_first_batch(
+            cfg_dict, a, c, global_batch if fmt == 'mjpg'
+            else R50_GATE_SAMPLES) for fmt, (a, c) in sets.items()}
+        parts['batches'] = time.time()
+
+    losses = [float(loss) for loss, _ in records + resume_records]
+    all_evals = evals + resume_evals
+    if state.step != R50_EPOCH_STEPS or state2.step != 2 * R50_EPOCH_STEPS \
+            or len(records) != R50_EPOCH_STEPS \
+            or len(resume_records) != R50_EPOCH_STEPS:
+        raise AssertionError(f'r50: steps {state.step}, {state2.step} '
+                             f'({len(records)} + {len(resume_records)} run)')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'r50 train losses {losses}')
+    if 'epoch_1' not in ckpts or 'epoch_2' not in ckpts:
+        raise AssertionError(f'r50 checkpoints {ckpts}')
+    if len(all_evals) != 2 or len(val) != 2 or launches != sum(
+            e['videos'] for e in all_evals) or any(
+                e['launches'] != e['videos'] for e in all_evals):
+        raise AssertionError(f'r50 eval hook {all_evals} ({launches} '
+                             'launches; want one per val video per epoch)')
+    gates = {fmt: card_vs_cpu_kinks(cfg_dict, b[:R50_GATE_SAMPLES], dev)
+             for fmt, b in batches.items()}
+    parts['card_vs_cpu'] = time.time()
+    card_batch = torch.as_tensor(batches['mjpg'], device=dev)
+    frames_hw = card_batch.shape[3:5]
+    n_frames = global_batch * 2 * card_batch.shape[2]
+    flops, macs_per_frame = train_flops(
+        build_train_model(cfg_dict, False, torch.device('cpu'))[0],
+        frames_hw, n_frames)
+    fp32_tflops = peaks(smi_line)[0]
+    ms, mem, first, stats_fp32, breakdown = device_steps(
+        cfg_dict, card_batch, False, dev)
+    del card_batch
+    parts['device_steps'] = time.time()
+    emit({'phase': 'train_r50', 'card': smi_line,
+          'config': os.path.relpath(CONFIG_R50, ROOT),
+          'global_batch': global_batch, 'frames_per_step': n_frames,
+          'frame_hw': list(frames_hw),
+          'gmac_per_frame': macs_per_frame / 1e9,
+          'tflop_per_step': flops / 1e12,
+          'fp32_ms_per_step': ms, 'fp32_steps_per_s': 1e3 / ms,
+          'fp32_frames_per_s': n_frames * 1e3 / ms,
+          'fp32_train_mfu': flops / (ms * 1e-3) / (fp32_tflops * 1e12),
+          'fp32_bound_ms': flops / (fp32_tflops * 1e12) * 1e3,
+          'fp32_max_memory_allocated_gb': mem / 2**30,
+          'fp32_step0_loss': first['loss'], 'bn_stats_fp32': stats_fp32,
+          **{f'fp32_{k}': v for k, v in breakdown.items()},
+          **{f'card_vs_cpu_{fmt}_{k}': v for fmt, d in gates.items()
+             for k, v in d.items()},
+          'card_vs_cpu_samples': R50_GATE_SAMPLES,
+          'loader_workers': cfg_dict['data']['workers_per_gpu'],
+          'train_wall_s': wall_s, 'resume_wall_s': resume_wall_s,
+          'losses': losses, 'eval_jf': [r['J&F-Mean'] for r in val],
+          'eval_wall_s': [e['wall_s'] for e in all_evals],
+          'kernel_launches': launches, 'resume_final_step': state2.step,
+          'checkpoints': ckpts,
+          'part_seconds': part_seconds(t_start, parts)})
     return launches
 
 
@@ -3228,9 +3743,13 @@ def phase_train(dev, smi_line):
 DA_CONFIG = os.path.join(ROOT, 'configs',
                          'r18_sgd_cos_100e_r2_1xNx8_k400_deviceaug.py')
 DA_RUN_EPOCHS = 4
+# loader processes of the profile and resume runs, which take a batch an
+# epoch (the config's 16 until the r50 phases took the script past 1200 s)
+DA_RUN_WORKERS = 4
 DA_CARD_CPU_ATOL = 1e-3
-# the dense phase (module docstring, phase 9)
-DENSE_FRAMES = 12
+# the dense phase (module docstring, phase 9; 12 frames until the r50
+# phases took the script past 1200 s)
+DENSE_FRAMES = 8
 DENSE_RUNS = (('first_neighbor_exempt', dict(with_first_neighbor=False)),
               ('no_mask_dense', dict(neighbor_range=None, backend='dense')))
 
@@ -3279,10 +3798,12 @@ def deviceaug_runs(root, ann, clips):
     options = [f'data.train.dataset.ann_file={ann}',
                f'data.train.dataset.data_prefix={clips}']
 
-    def train(work, epochs, times, records, draws, extra=()):
+    def train(work, epochs, times, records, draws, extra=(), workers=None):
         argv = [DA_CONFIG, '--work-dir', work, '--auto-resume', *extra,
                 '--options', *options, f'data.train.times={times}',
                 f'total_epochs={epochs}']
+        if workers is not None:
+            argv.append(f'data.workers_per_gpu={workers}')
         with patched(apis_train, 'make_train_step', step_timer(records)), \
                 patched(device_aug.DeviceAugChain, 'draw',
                         draw_recorder(draws)):
@@ -3330,7 +3851,7 @@ def deviceaug_runs(root, ann, clips):
     steps_per_epoch = K400_CLIPS // batch
     records, draws = [], []
     state = train(work, DA_RUN_EPOCHS, 1, records, draws,
-                  extra=['--profile', '2'])
+                  extra=['--profile', '2'], workers=DA_RUN_WORKERS)
     kernels = trace_kernels(os.path.join(work, 'profile',
                                          'trace_rank0.json'))
     conv = [k for k in kernels if any(
@@ -3342,7 +3863,8 @@ def deviceaug_runs(root, ann, clips):
     with open(os.path.join(work, 'checkpoints', 'latest'), 'w') as f:
         f.write(f'epoch_{DA_RUN_EPOCHS - 1}')
     resumed = []
-    state = train(work, DA_RUN_EPOCHS, 1, [], resumed)
+    state = train(work, DA_RUN_EPOCHS, 1, [], resumed,
+                  workers=DA_RUN_WORKERS)
     if state.step != DA_RUN_EPOCHS * steps_per_epoch \
             or len(resumed) != steps_per_epoch \
             or len(draws) != DA_RUN_EPOCHS * steps_per_epoch:
@@ -4469,6 +4991,12 @@ def phase_analysis(dev, smi_line):
                                               get_flops, profile_kernel)
     from vfs_tpu_torch.utils import JsonlLogger
     t0 = time.time()
+    marks = [t0]
+
+    def lap():
+        marks.append(time.time())
+        return marks[-1] - marks[-2]
+
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     out = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
@@ -4485,12 +5013,12 @@ def phase_analysis(dev, smi_line):
                     raise AssertionError(f'bench_kernel {model}: {name} '
                                          f'agrees on {res["agreement"][name]}'
                                          f' < {floor}')
-            emit({'phase': 'analysis', 'cli': 'bench_kernel', 'model': model,
+            emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'bench_kernel', 'model': model,
                   'card': smi_line, **res})
         res = profile_kernel.main(['--repeats', '2', '--frames',
                                    str(ANALYSIS_FRAMES), '--out',
                                    os.path.join(root, 'prof')])
-        emit({'phase': 'analysis', 'cli': 'profile_kernel', **res})
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'profile_kernel', **res})
         res = bench_track.main(['--seqs', str(TRACK_SEQS), '--frames',
                                 str(ANALYSIS_TRACK_FRAMES), '--hw',
                                 *map(str, TRACK_HW),
@@ -4501,13 +5029,13 @@ def phase_analysis(dev, smi_line):
         if worst > TRACK_GATES['box_agreement_px']:
             raise AssertionError(f'bench_track: boxes {worst} px from '
                                  f'host_seq: {res}')
-        emit({'phase': 'analysis', 'cli': 'bench_track', **res})
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'bench_track', **res})
         res = bench_extract.main(['--frames', str(ANALYSIS_EXTRACT_FRAMES),
                                   '--steps', '10', '20'])
-        emit({'phase': 'analysis', 'cli': 'bench_extract', **res})
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'bench_extract', **res})
         for config in (CONFIG, CONFIG_R50):
             res = get_flops.main([config])
-            emit({'phase': 'analysis', 'cli': 'get_flops',
+            emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'get_flops',
                   'config': os.path.relpath(config, ROOT), **res})
         img_root, ann_root, (list_all, _), _, ckpt = write_eval_inputs(root)
         data = eval_argv(root, img_root, ann_root, list_all, ckpt, 'pallas',
@@ -4515,16 +5043,17 @@ def phase_analysis(dev, smi_line):
         data = data[data.index('--options') + 1:]
         res = benchmark.main([CONFIG_R50, ckpt, '--num-videos', '1',
                               '--options', *data])
-        emit({'phase': 'analysis', 'cli': 'benchmark', **res})
-        k400 = ['--steps', '3', '--num-videos', str(K400_CLIPS),
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'benchmark', **res})
+        k400 = ['--steps', '3', '--batch-size', str(ANALYSIS_PRETRAIN_BATCH),
+                '--num-videos', str(K400_CLIPS),
                 '--video-frames', str(K400_FRAMES), '--data-dir',
                 os.path.join(root, 'k400')]
         res = bench_pretrain.main(k400)
-        emit({'phase': 'analysis', 'cli': 'bench_pretrain', **res})
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'bench_pretrain', **res})
         res = bench_pretrain.main([DA_CONFIG, '--device-aug', *k400])
         if not res['device_aug']:
             raise AssertionError(f'bench_pretrain --device-aug: {res}')
-        emit({'phase': 'analysis', 'cli': 'bench_pretrain', **res})
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'bench_pretrain', **res})
         log = os.path.join(root, 'train_log.jsonl')
         for i, dt in enumerate((0.5, 0.25, 0.75)):
             JsonlLogger(log).log(dict(mode='train', iter=i + 1, time=dt,
@@ -4538,7 +5067,7 @@ def phase_analysis(dev, smi_line):
         if version is not None:
             analyze_logs.main(['plot_curve', log, '--out',
                                os.path.join(root, 'curve.png')])
-        emit({'phase': 'analysis', 'cli': 'analyze_logs',
+        emit({'phase': 'analysis', 'seconds': lap(), 'cli': 'analyze_logs',
               'cal_train_time': times, 'matplotlib': version})
     out['seconds'] = time.time() - t0
     emit({'phase': 'analysis', 'seconds': out['seconds']})
@@ -4872,7 +5401,7 @@ def recognition_train(root, dev, smi_line):
     from vfs_tpu_torch.utils import Config
     clips = os.path.join(root, 'k400')
     os.makedirs(clips)
-    ann = write_k400(clips)
+    ann = write_k400(clips, 'mjpg')
     cfg_dict = tsm_r50_cfg(ann, clips, os.path.join(root, 'w'))
     cfg = Config.fromdict(copy.deepcopy(cfg_dict))
     dataset = build_dataset(cfg.data.train)
@@ -5789,8 +6318,11 @@ def main():
     row1 = timed('main', phase_main, dev, smi_line)
     wide = timed('wide', phase_wide, dev, smi_line)
     eval_modes, row3 = timed('eval', phase_eval, local_full)
+    row1[0]['launches'] += timed('all_blocks', phase_all_blocks, dev,
+                                 smi_line)
     v1_launches = timed('pose', phase_pose) + timed('vip', phase_vip)
     row1[0]['launches'] += timed('train', phase_train, dev, smi_line)
+    row1[0]['launches'] += timed('train_r50', phase_train_r50, dev, smi_line)
     timed('dense', phase_dense, dev, smi_line)
     row1[0]['launches'] += timed('learning', phase_learning, smi_line)
     bench = timed('bench_cfg', phase_bench_cfg, dev, smi_line)

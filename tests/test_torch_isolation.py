@@ -111,9 +111,10 @@ for name in ('checkpoint', 'datasets', 'default_config', 'device_crops',
 import train_siamfc_torch
 assert callable(train_siamfc_torch.main)
 names += siamfc
-import ab_eval, ab_kernels, chip_smoke, loader_probe
+import ab_eval, ab_kernels, chip_smoke, loader_probe, precision_probe
 assert callable(chip_smoke.main) and callable(ab_eval.main)
 assert callable(ab_kernels.main) and callable(loader_probe.main)
+assert callable(precision_probe.main)
 from vfs_tpu_torch.ops import _build
 assert not _build._LIBS, 'a kernel was built at import'
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)

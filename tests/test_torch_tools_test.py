@@ -34,38 +34,52 @@ torch.set_num_threads(1)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(ROOT, 'configs', 'r18_nc_sgd_cos_100e_r2_1xNx8_k400.py')
+CONFIG_R50 = osp.join(ROOT, 'configs', 'r50_nc_sgd_cos_100e_r5_1xNx2_k400.py')
 
 
-@pytest.fixture(scope='module')
-def eval_setup(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp('tools_test')
+def _write_setup(tmp, config, name, block, layers):
+    """The mini-DAVIS fixture, a fabricated torchvision-layout ``.pth`` of
+    ``block`` x ``layers`` and a config of ``config``'s model and
+    ``test_cfg`` at the fixture's size, under ``tmp``."""
     fixture = davis_fixture_module()
     ann_file, img_root, ann_root = fixture.make_mini_davis(str(tmp))
     ref = _torchvision_reference()
     torch.manual_seed(0)
-    tmodel = ref.TorchResNet(ref.TorchBasicBlock, (2, 2, 2, 2),
+    tmodel = ref.TorchResNet(getattr(ref, block), layers,
                              strides=(1, 2, 1, 1))
     ref._randomize_bn_stats(tmodel)
-    ckpt = str(tmp / 'r18.pth')
+    ckpt = str(tmp / f'{name}.pth')
     torch.save(tmodel.state_dict(), ckpt)
 
-    base = runpy.run_path(CONFIG)
+    base = runpy.run_path(config)
     test_cfg = dict(base['test_cfg'], backend='pallas', precede_frames=3,
                     batch_step=4)
     davis = dict(type='DavisDataset', ann_file=ann_file,
                  data_prefix=img_root, anno_prefix=ann_root,
                  data_root=osp.dirname(img_root),
                  pipeline=fixture.VAL_PIPELINE, test_mode=True)
-    path = tmp / 'r18_fixture.py'
+    path = tmp / f'{name}_fixture.py'
     path.write_text(f'model = {base["model"]!r}\n'
                     f'test_cfg = {test_cfg!r}\n'
                     f'data = {dict(test=davis)!r}\n')
     return str(path), ckpt, tmp
 
 
-def _jax_eval(config, ckpt):
+@pytest.fixture(scope='module')
+def eval_setup(tmp_path_factory):
+    return _write_setup(tmp_path_factory.mktemp('tools_test'), CONFIG,
+                        'r18', 'TorchBasicBlock', (2, 2, 2, 2))
+
+
+@pytest.fixture(scope='module')
+def eval_setup_r50(tmp_path_factory):
+    return _write_setup(tmp_path_factory.mktemp('tools_test_r50'),
+                        CONFIG_R50, 'r50', 'TorchBottleneck', (3, 4, 6, 3))
+
+
+def _jax_eval(config, ckpt, **options):
     cfg = JaxConfig.fromfile(config)
-    cfg.merge_from_dict({'test_cfg.backend': 'tiled'})
+    cfg.merge_from_dict({'test_cfg.backend': 'tiled', **options})
     dataset = jax_build_dataset(cfg.data.test, dict(test_mode=True))
     model_cfg = dict(type='VanillaTracker', backbone=dict(cfg.model.backbone))
     model_cfg['backbone']['pretrained'] = ckpt
@@ -98,6 +112,31 @@ def test_tools_test_matches_jax_chain(eval_setup, capsys):
         assert round(got[key], 4) == round(ref[key], 4), key
     assert 0.0 <= got['J&F-Mean'] <= 1.0
     assert len(list((tmp / 'pngs').rglob('*.png'))) == 16
+
+
+def test_tools_test_all_blocks_r50_matches_jax_chain(eval_setup_r50):
+    """``--options test_cfg.all_blocks=True`` on the r50 config: a
+    prediction for each of layer3's six Bottlenecks, evaluated under the
+    ``feat_{i}.`` prefixes, equal to the JAX package's masks and
+    metrics."""
+    config, ckpt, tmp = eval_setup_r50
+    out_npz = str(tmp / 'all_blocks.npz')
+    got = tools_test.main([config, ckpt, '--eval', 'davis', '--device',
+                           'cpu', '--out', out_npz, '--options',
+                           'test_cfg.all_blocks=True'])
+    ref_results, ref = _jax_eval(config, ckpt,
+                                 **{'test_cfg.all_blocks': True})
+    with np.load(out_npz) as saved:
+        masks = [saved[k] for k in sorted(saved.files,
+                                          key=lambda n: int(n[4:]))]
+    assert len(masks) == len(ref_results) == 2
+    for a, b in zip(masks, ref_results):
+        assert a.shape == (6, 8, 64, 96) and a.dtype == np.uint8
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert {f'feat_{i}.J&F-Mean' for i in range(6)} <= set(got)
+    assert set(got) == set(ref)
+    for key in ref:
+        assert round(got[key], 4) == round(ref[key], 4), key
 
 
 def test_tools_test_runs_on_cuda_by_default(eval_setup, monkeypatch):

@@ -26,6 +26,8 @@ torch.set_num_threads(1)
 
 CONFIG = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
                   'configs', 'r18_nc_sgd_cos_100e_r2_1xNx8_k400.py')
+CONFIG_R50 = osp.join(osp.dirname(CONFIG),
+                      'r50_nc_sgd_cos_100e_r5_1xNx2_k400.py')
 
 
 def make_video(num_frames=10, hw=(64, 96), seed=0):
@@ -103,17 +105,22 @@ def test_forward_test_soft_labels_match_jax(trackers):
     np.testing.assert_allclose(out[0], ref[0], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize('extra', [dict(all_blocks=True),
-                                   dict(save_np=True)])
-def test_forward_test_branches_match_jax(extra, tmp_path, monkeypatch):
-    """all_blocks (one prediction per layer3 block, stacked) and save_np
-    (predictions written to .eval/*.npy, paths returned)."""
+@pytest.mark.parametrize('extra,config', [
+    pytest.param(dict(all_blocks=True), CONFIG, id='extra0'),
+    pytest.param(dict(save_np=True), CONFIG, id='extra1'),
+    pytest.param(dict(all_blocks=True), CONFIG_R50, id='all_blocks_r50')])
+def test_forward_test_branches_match_jax(extra, config, tmp_path,
+                                         monkeypatch):
+    """all_blocks (one prediction per layer3 block, stacked: 2 at r18, 6
+    Bottlenecks at r50) and save_np (predictions written to .eval/*.npy,
+    paths returned)."""
     monkeypatch.chdir(tmp_path)
-    cfg = runpy.run_path(CONFIG)
+    cfg = runpy.run_path(config)
     test_cfg = dict(cfg['test_cfg'], precede_frames=3, **extra)
     model_cfg = dict(type='VanillaTracker',
                      backbone=dict(cfg['model']['backbone']))
-    _, variables = jax_resnet_variables(18, (1, 2, 1, 1), (2,), seed=4,
+    depth = cfg['model']['backbone']['depth']
+    _, variables = jax_resnet_variables(depth, (1, 2, 1, 1), (2,), seed=4,
                                         hw=(64, 96))
     jax_tracker = jax_build_model(model_cfg, test_cfg=test_cfg)
     jax_tracker.variables = variables
@@ -132,7 +139,9 @@ def test_forward_test_branches_match_jax(extra, tmp_path, monkeypatch):
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     if extra.get('all_blocks'):
-        assert out[0].shape == (2, 6, 64, 96)  # r18 layer3 has 2 blocks
+        # layer3 has 2 blocks at r18, 6 at r50
+        blocks = 2 if depth == 18 else 6
+        assert out[0].shape == (blocks, 6, 64, 96)
 
 
 def test_later_slice_options_raise(trackers):

@@ -14,6 +14,7 @@ to run without a GPU unless asked for the CPU.
 import json
 import os
 import os.path as osp
+import runpy
 import socket
 import subprocess
 import sys
@@ -170,6 +171,55 @@ def test_tools_train_cli_on_cpu_and_no_gpu(data, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tools_train.main([config, '--work-dir', work])
+
+
+def _r50_extra():
+    """configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py at a test size: its
+    tracker (ResNet-50, ``zero_init_residual``, ``intra_video=False``)
+    with a narrow head, and its train pipeline (DecordInit, 2 clips of
+    ``clip_len`` 1, RandomResizedCrop, Flip) resized to 32x32."""
+    from test_torch_train_step_r50 import MODEL_CFG as R50_MODEL_CFG
+    r50 = runpy.run_path(osp.join(ROOT, 'configs',
+                                  'r50_nc_sgd_cos_100e_r5_1xNx2_k400.py'))
+    pipeline = [dict(step, scale=(32, 32)) if step['type'] == 'Resize'
+                else dict(step) for step in r50['train_pipeline']]
+    assert [s['type'] for s in pipeline][:3] == [
+        'DecordInit', 'SampleFrames', 'DecordDecode']
+    assert pipeline[1]['clip_len'] == 1 and pipeline[1]['num_clips'] == 2
+    return dict(model=R50_MODEL_CFG, train_cfg=dict(r50['train_cfg'])), \
+        pipeline
+
+
+def test_tools_train_r50_config_on_cpu(data, tmp_path):
+    """The r50 pretraining config through ``python -m
+    vfs_tpu_torch.tools.train --device cpu --validate --auto-resume``: two
+    epochs of two steps with the DAVIS hook (layer3's 1024 channels),
+    ``best.json``, then a resume that runs epoch 3 alone."""
+    extra, pipeline = _r50_extra()
+    cfg = _cfg_dict(data, tmp_path / 'unused')
+    cfg['data']['train']['dataset']['pipeline'] = pipeline
+    config = _write_config(data, tmp_path, data=cfg['data'], **extra)
+    work = str(tmp_path / 'r50')
+    state = tools_train.main([config, '--work-dir', work, '--device', 'cpu',
+                              '--validate', '--auto-resume'])
+    assert state.step == 4
+    with open(osp.join(work, 'best.json')) as f:
+        assert 0.0 <= json.load(f)['best_score'] <= 1.0
+    with open(osp.join(work, 'train_log.jsonl')) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    train_lines = [r for r in lines if r['mode'] == 'train']
+    assert len(train_lines) == 4
+    assert all(np.isfinite(r['loss']) for r in train_lines)
+    assert sum(r['mode'] == 'val' for r in lines) == 2
+    state = tools_train.main([config, '--work-dir', work, '--device', 'cpu',
+                              '--auto-resume', '--options',
+                              'total_epochs=3'])
+    assert state.step == 6
+    assert sorted(os.listdir(osp.join(work, 'checkpoints'))) == [
+        'epoch_1', 'epoch_2', 'epoch_3', 'latest']
+    saved = torch.load(osp.join(work, 'checkpoints', 'epoch_3'),
+                       weights_only=True)
+    assert saved['model']['backbone.layer4.2.bn3.weight'].shape == (2048,)
 
 
 RECOGNIZER_CFG = dict(

@@ -215,7 +215,7 @@ class VanillaTracker(nn.Module):
         if backbone is None:
             self.to(imgs.device)
             backbone = self._prepare(self.backbone, imgs.device)
-        parts = []
+        banks = None
         with torch.no_grad(), exact_fp32():
             for i in range(0, imgs.shape[0], batch_step):
                 chunk = imgs[i:i + batch_step]
@@ -225,8 +225,19 @@ class VanillaTracker(nn.Module):
                     chunk = (chunk.to(torch.float32) - norm_mean) / norm_std
                 outs = backbone(chunk)
                 outs = outs if isinstance(outs, tuple) else (outs,)
-                parts.append(tuple(o.to(torch.float32) for o in outs))
-        return tuple(torch.cat(p, 0) for p in zip(*parts))
+                if banks is None:
+                    # each bank is filled in place: no chunk list and no
+                    # concatenated copy beside it (six r50 banks under
+                    # all_blocks are 7.6 GB at 48x480x854)
+                    banks = tuple(
+                        torch.empty((imgs.shape[0], *o.shape[1:]),
+                                    dtype=torch.float32, device=o.device)
+                        for o in outs)
+                for bank, o in zip(banks, outs):
+                    bank[i:i + o.shape[0]].copy_(o)
+                # the chunk's outputs go before the next chunk runs
+                del outs, chunk
+        return banks
 
     def _propagate_decode(self, feats: torch.Tensor, seg_first: torch.Tensor,
                           mask, class_valid: torch.Tensor,
