@@ -1,0 +1,13 @@
+"""Device milliseconds a step of ATen's reduction kernels (BatchNorm's
+sums and the other reductions, by name) in the traced steps."""
+
+from portbench.harness.trace import device_seconds
+
+KEYS = ('reduce',)
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.counts.get('traced_steps'):
+        return None
+    s = device_seconds(ctx.trace, keys=KEYS)
+    return 1e3 * s / ctx.counts['traced_steps'] if s > 0 else None
