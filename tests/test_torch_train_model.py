@@ -325,6 +325,33 @@ def test_profile_traces_steps_from_two(data, tmp_path, steps):
     assert sum(n.startswith('aten::') for n in names) > 20
 
 
+def test_profile_trace_holds_the_program_spans(data, tmp_path):
+    """Under ``--profile N`` the program's spans (``utils.trace``) of the
+    profiled steps are in the written trace, beside the operators."""
+    config = _write_config(data, tmp_path)
+    work = tmp_path / 'w'
+    tools_train.main([config, '--work-dir', str(work), '--device', 'cpu',
+                      '--profile', '1'])
+    names = _trace_names(work / 'profile' / 'trace_rank0.json')
+    assert {'train.step', 'train.h2d', 'train.forward', 'train.backward',
+            'train.optimizer'} <= names
+    assert 'aten::convolution' in names or 'aten::conv2d' in names
+
+
+def test_log_entries_carry_the_loader_wait(data, tmp_path):
+    """Each train log entry carries ``data_time``, the mean wait for the
+    loader an iteration, which is part of ``time``."""
+    config = _write_config(data, tmp_path)
+    work = tmp_path / 'w'
+    tools_train.main([config, '--work-dir', str(work), '--device', 'cpu'])
+    lines = [json.loads(ln) for ln in
+             (work / 'train_log.jsonl').read_text().split('\n') if ln]
+    train = [r for r in lines if r['mode'] == 'train']
+    assert len(train) == 4
+    for r in train:
+        assert 0.0 < r['data_time'] <= r['time']
+
+
 def test_profiler_that_fails_to_start_raises(data, tmp_path, monkeypatch):
     import torch.profiler
 

@@ -164,6 +164,18 @@ def recorded(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda: types.SimpleNamespace(cuda_stream=0))
+    # the wrappers' launch counters count these recorded launches too:
+    # they go back to their values when the test ends, so that a later
+    # test in the process finds no launch it did not make
+    for fn in (video_affinity.video_topk_affinity_cuda,
+               video_affinity.video_topk_affinity_wide_cuda,
+               video_affinity_v1.video_topk_affinity_v1_cuda,
+               local_attention.local_topk_attend_cuda,
+               local_attention.local_topk_attend_wide_cuda,
+               local_attention_v2.local_topk_attend_v2_cuda):
+        for counter in ('launches', 'wide_launches'):
+            if hasattr(fn, counter):
+                monkeypatch.setattr(fn, counter, getattr(fn, counter))
     return lib, allocated, names
 
 

@@ -21,7 +21,7 @@ import torch.distributed as dist
 
 from ..device import DeviceLike, exact_fp32
 from ..parallel import get_rank, get_world_size
-from ..utils import get_root_logger
+from ..utils import get_root_logger, trace
 
 
 def _frames(sample):
@@ -37,9 +37,12 @@ def single_process_test(model, dataset, devices: Sequence = None,
                         device: DeviceLike = None) -> List:
     """Evaluate every video on ``device`` (CUDA unless the caller says
     otherwise). A worker thread decodes the next video and copies it to
-    the device (``model.preload``) while the current one computes. The
-    port's ``forward_test`` returns after its predictions are on the host,
-    so the JAX loop's deferred readback has nothing to overlap here.
+    the device (``model.preload``) while the current one computes
+    (spans ``test.decode`` and ``test.preload`` on that thread,
+    ``test.wait_input`` and ``test.video`` on the caller's, keyed by the
+    video's index: ``utils.trace``). The port's ``forward_test`` returns
+    after its predictions are on the host, so the JAX loop's deferred
+    readback has nothing to overlap here.
 
     ``devices``: several devices (``'cuda:0'``, ``'cuda:1'``, ... or
     ``'cpu'`` more than once) to round-robin the videos over, one worker
@@ -54,19 +57,23 @@ def single_process_test(model, dataset, devices: Sequence = None,
     n = len(dataset)
 
     def fetch(i):
-        sample = dataset[i]
-        return sample, model.preload(_frames(sample), device=device)
+        with trace.span('test.decode', i):
+            sample = dataset[i]
+        with trace.span('test.preload', i):
+            return sample, model.preload(_frames(sample), device=device)
 
     results = []
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         pending = pool.submit(fetch, 0) if n else None
         for i in range(n):
-            sample, imgs = pending.result()
+            with trace.span('test.wait_input', i):
+                sample, imgs = pending.result()
             if i + 1 < n:
                 pending = pool.submit(fetch, i + 1)
-            results.extend(model.forward_test(
-                imgs, sample['ref_seg_map'], [sample['img_meta']],
-                device=device))
+            with trace.span('test.video', i):
+                results.extend(model.forward_test(
+                    imgs, sample['ref_seg_map'], [sample['img_meta']],
+                    device=device))
             logger.info(f'eval [{i + 1}/{n}] '
                         f'{sample["img_meta"].get("frame_dir", "")}')
     return results

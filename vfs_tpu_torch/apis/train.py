@@ -26,7 +26,10 @@ MMAction2's TSM configs give it, takes the TSM parameter groups
 ``cfg.device_aug`` runs the augmentation chain in the step on the batch's
 device (``ops.device_aug``; the loader ships uint8 staging frames and
 ``orig_hw``). ``cfg.profile_steps`` (``--profile N``) traces steps
-[2, 2+N) with ``torch.profiler`` into ``work_dir/profile``. A
+[2, 2+N) with ``torch.profiler`` into ``work_dir/profile``, the
+program's spans (``utils.trace``) beside the operators. Each log entry
+carries ``time`` (seconds an iteration) and ``data_time`` (of those, the
+wait for the loader, span ``train.wait_batch``). A
 ``WandbLoggerHook`` in ``log_config.hooks`` mirrors the JSONL log to wandb
 (``utils.wandb_logger``).
 
@@ -38,6 +41,7 @@ The validation eval runs over the processes of the group
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
 import time
@@ -58,7 +62,7 @@ from ..models.trackers.sim_siam_tracker import parse_losses
 from ..ops.device_aug import DeviceAugChain, build_device_aug, step_seed
 from ..parallel import (get_rank, get_world_size, reduce_log_vars,
                         wrap_distributed)
-from ..utils import JsonlLogger, build_wandb_logger, get_root_logger
+from ..utils import JsonlLogger, build_wandb_logger, get_root_logger, trace
 
 
 # the step_seed stream of the heads' dropout ('drop')
@@ -123,13 +127,20 @@ def save_epoch_checkpoint(model: nn.Module, optimizer: ChainedOptimizer,
 
 def log_train_entry(logger, jsonl: JsonlLogger, epoch: int, it: int,
                     iters_per_epoch: int, lr: float, dt: float,
-                    log_vars: Dict[str, float]) -> Dict:
+                    log_vars: Dict[str, float],
+                    data_time: Optional[float] = None) -> Dict:
     """One train log entry: the logger's line on every rank, the JSONL
-    line on rank 0. Returns the entry."""
+    line on rank 0. ``dt``: seconds an iteration over the interval;
+    ``data_time``: of those, the mean wait for the loader (MMAction2's
+    ``IterTimerHook`` field), left out if None. Returns the entry."""
+    timing = dict(time=dt)
+    if data_time is not None:
+        timing['data_time'] = data_time
     logger.info(f'Epoch [{epoch}][{it}/{iters_per_epoch}] '
-                f'lr: {lr:.5f}, time: {dt:.3f}, ' + ', '.join(
-                    f'{k}: {v:.4f}' for k, v in log_vars.items()))
-    entry = dict(mode='train', epoch=epoch, iter=it, lr=lr, time=dt,
+                f'lr: {lr:.5f}, ' + ', '.join(
+                    f'{k}: {v:.3f}' for k, v in timing.items()) + ', '
+                + ', '.join(f'{k}: {v:.4f}' for k, v in log_vars.items()))
+    entry = dict(mode='train', epoch=epoch, iter=it, lr=lr, **timing,
                  **log_vars)
     if get_rank() == 0:
         jsonl.log(entry)
@@ -188,7 +199,13 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
     ``device_aug`` runs the augmentation chain on the uint8 staging
     frames and their (B, 2) ``orig_hw`` before the forward, in fp32,
     drawing from a generator on the device seeded from ``(seed, rank,
-    step)``, ``step`` being the optimizer's update count."""
+    step)``, ``step`` being the optimizer's update count.
+
+    Spans (``utils.trace``), keyed by the optimizer's update count:
+    ``train.step`` around the whole step, and inside it ``train.h2d``
+    (the batch's copies to the device), ``train.device_aug``,
+    ``train.forward`` (with ``parse_losses``), ``train.backward`` (with
+    ``zero_grad``) and ``train.optimizer``."""
     device = next(model.parameters()).device
     rank = get_rank()
     mean = std = None
@@ -202,11 +219,21 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
 
     def train_step(imgs, orig_hw=None,
                    labels=None) -> Dict[str, torch.Tensor]:
-        x = torch.as_tensor(imgs).to(device)
+        with trace.span('train.step', optimizer.count):
+            return _step(imgs, orig_hw, labels)
+
+    def _step(imgs, orig_hw, labels) -> Dict[str, torch.Tensor]:
+        with trace.span('train.h2d'):
+            x = torch.as_tensor(imgs).to(device)
+            if device_aug is not None:
+                orig_hw = torch.as_tensor(orig_hw).to(device)
+            if takes_labels:
+                labels = torch.as_tensor(labels).to(device)
         if device_aug is not None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(step_seed(seed, rank, optimizer.count))
-            x = device_aug(x, torch.as_tensor(orig_hw).to(device), generator)
+            with trace.span('train.device_aug'):
+                generator = torch.Generator(device=device)
+                generator.manual_seed(step_seed(seed, rank, optimizer.count))
+                x = device_aug(x, orig_hw, generator)
         elif x.dtype == torch.uint8:
             if mean is None:
                 raise ValueError(
@@ -216,16 +243,19 @@ def make_train_step(model: nn.Module, optimizer: ChainedOptimizer,
             x = (x.to(torch.float32) - mean) / std
         args, kwargs = (x,), {}
         if takes_labels:
-            args += (torch.as_tensor(labels).to(device),)
+            args += (labels,)
             generator = torch.Generator(device=device)
             generator.manual_seed(step_seed(seed, rank, optimizer.count,
                                             DROPOUT_STREAM))
             kwargs['generator'] = generator
         with exact_fp32():
-            total, log_vars = parse_losses(model(*args, **kwargs))
-            optimizer.zero_grad()
-            total.backward()
-        optimizer.step()
+            with trace.span('train.forward'):
+                total, log_vars = parse_losses(model(*args, **kwargs))
+            with trace.span('train.backward'):
+                optimizer.zero_grad()
+                total.backward()
+        with trace.span('train.optimizer'):
+            optimizer.step()
         return {k: v.detach() for k, v in log_vars.items()}
 
     return train_step
@@ -342,25 +372,30 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
             key_indicator=eval_cfg.get('key_indicator'),
             rule=eval_cfg.get('rule'), work_dir=work_dir,
             save_best=rank == 0)
-    # --profile N: a torch.profiler trace of the steps [2, 2+N)
+    # --profile N: a torch.profiler trace of the steps [2, 2+N), with the
+    # program's spans recorded into it
     profile_steps = max(0, int(cfg.get('profile_steps', 0) or 0))
     profiler = None
     steps_run = 0
+    spans = contextlib.ExitStack()
 
     try:
         for epoch in range(start_epoch, total_epochs):
             loader.set_epoch(epoch)
             model.train()
             t_iter = time.time()
-            for i, batch in enumerate(loader):
+            waited = [0.0]
+            for i, batch in enumerate(_waits(loader, optimizer, waited)):
                 if profile_steps and steps_run == 2:
                     profiler = _start_profiler(device)
+                    spans.enter_context(trace.recording(annotate=True))
                 log_vars = train_step(
                     batch['imgs'], batch.get('orig_hw'),
                     batch.get('label') if takes_labels else None)
                 steps_run += 1
                 if profiler is not None \
                         and steps_run >= 2 + profile_steps:
+                    spans.close()
                     _stop_profiler(profiler, work_dir, device, logger)
                     profiler = None
                 if (i + 1) % log_interval == 0:
@@ -370,7 +405,9 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                     t_iter = time.time()
                     entry = log_train_entry(logger, jsonl, epoch + 1, i + 1,
                                             iters_per_epoch, lr, dt,
-                                            log_vars)
+                                            log_vars,
+                                            waited[0] / log_interval)
+                    waited[0] = 0.0
                     if wandb_log is not None:
                         wandb_log.log(entry, step=optimizer.count)
             save_epoch_checkpoint(model, optimizer, work_dir, epoch + 1, cfg,
@@ -385,15 +422,32 @@ def train_model(model: nn.Module, dataset, cfg, validate: bool = False,
                     if wandb_log is not None:
                         wandb_log.log(entry, step=optimizer.count)
         if profiler is not None:  # fewer steps than asked for
+            spans.close()
             _stop_profiler(profiler, work_dir, device, logger)
             profiler = None
     finally:
         loader.close()
+        spans.close()
         if profiler is not None:  # a step raised inside the trace
             profiler.stop()
     if wandb_log is not None:
         wandb_log.finish()
     return TrainState(model, optimizer, optimizer.count)
+
+
+def _waits(loader, optimizer: ChainedOptimizer, waited: list):
+    """The batches of ``loader``; each wait for one (``next``) runs in the
+    span ``train.wait_batch``, keyed by the update it feeds, and its
+    seconds are added to ``waited[0]``."""
+    batches = iter(loader)
+    while True:
+        t0 = time.time()
+        with trace.span('train.wait_batch', optimizer.count):
+            batch = next(batches, None)
+        waited[0] += time.time() - t0
+        if batch is None:
+            return
+        yield batch
 
 
 def _start_profiler(device: torch.device):

@@ -44,6 +44,7 @@ from ...ops.affinity import spatial_neighbor
 from ...ops.propagation import PropagationConfig, propagate_video
 from ...ops.resize import pil_nearest_resize, resize_bilinear
 from ...ops.yuv import Yuv420Frames, rgb_to_yuv420, yuv420_to_rgb
+from ...utils import trace
 from .. import builder
 from ..backbones.resnet import ResNetBlockwise
 from ..common.utils import normalize_logit
@@ -293,7 +294,11 @@ class VanillaTracker(nn.Module):
         (T, K, H0, W0) heatmaps); ``defer_fetch`` returns a thunk that
         gives the same list. ``backbone``: the weights to run, on
         ``device`` (an entry of ``distribute``'s list); the model's own
-        if None."""
+        if None. Spans (``utils.trace``): ``tracker.extract``, then for each
+        feature bank (counter ``tracker.blocks``) ``tracker.labels`` (the
+        first frame's labels at feature size, on the device),
+        ``tracker.propagate`` and ``tracker.readback`` (the predictions'
+        copy to the host)."""
         test_cfg = self.test_cfg
         yuv = None
         if isinstance(imgs, (PackedFrames, Yuv420Frames)) or test_cfg.get(
@@ -319,48 +324,58 @@ class VanillaTracker(nn.Module):
                 np.asarray(norm_cfg['std'], np.float32), device=dev)
         else:
             imgs = imgs.to(torch.float32)
-        feats = self._extract_feats(imgs, batch_step, norm_mean, norm_std,
-                                    yuv, backbone)
+        with trace.span('tracker.extract'):
+            feats = self._extract_feats(imgs, batch_step, norm_mean,
+                                        norm_std, yuv, backbone)
 
         original_shape = tuple(img_meta[0]['original_shape'][:2])
         input_onehot = ref_seg_map.ndim == 3  # (H, W, K) soft labels
         all_seg_preds = []
         for feat in feats:
+            trace.count('tracker.blocks')
             h, w = feat.shape[1:3]
             cfg, mask = make_propagation_config(test_cfg, h, w)
             if not input_onehot:
-                # PIL-nearest downsample of int labels -> one-hot
-                resized = pil_nearest_resize(
-                    ref_seg_map.astype(np.float32), (h, w)).astype(np.int64)
-                num_classes = int(ref_seg_map.max()) + 1
-                k_pad = _round_up(max(num_classes, 2), 4)
-                seg_first = np.eye(k_pad, dtype=np.float32)[resized]
-                class_valid = torch.as_tensor(
-                    np.arange(k_pad) < num_classes, device=dev)
-                first_pred = ref_seg_map.astype(np.uint8)
-                if first_pred.shape != original_shape:
-                    from PIL import Image
-                    first_pred = np.asarray(
-                        Image.fromarray(first_pred).resize(
-                            (original_shape[1], original_shape[0]),
-                            Image.NEAREST))
-                seg_preds, _ = self._propagate_decode(
-                    feat, torch.as_tensor(seg_first, device=dev), mask,
-                    class_valid, cfg, original_shape)
-                seg_preds = seg_preds.cpu().numpy()
+                with trace.span('tracker.labels'):
+                    # PIL-nearest downsample of int labels -> one-hot
+                    resized = pil_nearest_resize(
+                        ref_seg_map.astype(np.float32),
+                        (h, w)).astype(np.int64)
+                    num_classes = int(ref_seg_map.max()) + 1
+                    k_pad = _round_up(max(num_classes, 2), 4)
+                    seg_first = torch.as_tensor(
+                        np.eye(k_pad, dtype=np.float32)[resized], device=dev)
+                    class_valid = torch.as_tensor(
+                        np.arange(k_pad) < num_classes, device=dev)
+                    first_pred = ref_seg_map.astype(np.uint8)
+                    if first_pred.shape != original_shape:
+                        from PIL import Image
+                        first_pred = np.asarray(
+                            Image.fromarray(first_pred).resize(
+                                (original_shape[1], original_shape[0]),
+                                Image.NEAREST))
+                with trace.span('tracker.propagate'):
+                    seg_preds, _ = self._propagate_decode(
+                        feat, seg_first, mask, class_valid, cfg,
+                        original_shape)
+                with trace.span('tracker.readback'):
+                    seg_preds = seg_preds.cpu().numpy()
                 seg_preds[0] = first_pred  # frame 0 = the input labels
                 all_seg_preds.append(seg_preds[None])  # (1, T, H0, W0)
             else:
                 # soft labels (JHMDB pose heatmaps): bilinear both ways;
                 # per-frame heatmaps channel-first (T, K, H0, W0)
-                ref = torch.as_tensor(ref_seg_map, dtype=torch.float32,
-                                      device=dev)[None]
-                with torch.no_grad(), exact_fp32():
+                with trace.span('tracker.labels'):
+                    ref = torch.as_tensor(ref_seg_map, dtype=torch.float32,
+                                          device=dev)[None]
+                with torch.no_grad(), exact_fp32(), \
+                        trace.span('tracker.propagate'):
                     seg_first = resize_bilinear(ref, (h, w))[0]
                     seg_logits = propagate_video(feat, seg_first, mask, cfg)
                     logits = resize_bilinear(seg_logits, original_shape)
                     logits[0] = resize_bilinear(ref, original_shape)[0]
-                logits = logits.permute(0, 3, 1, 2).cpu().numpy()
+                with trace.span('tracker.readback'):
+                    logits = logits.permute(0, 3, 1, 2).cpu().numpy()
                 all_seg_preds.append(logits[None])
 
         if self.save_np:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import exact_fp32
+from ..utils import trace
 
 _GRAY_W = (0.299, 0.587, 0.114)  # cv2 RGB2GRAY
 
@@ -289,7 +290,13 @@ class DeviceAugChain:
     def draw(self, shape, orig_hw: torch.Tensor,
              generator: torch.Generator) -> Params:
         """Per-frame parameters of every op, flat over the (B*N*T) frames
-        of a batch of ``shape`` (B, N, T, Hs, Ws, C)."""
+        of a batch of ``shape`` (B, N, T, Hs, Ws, C), in the span
+        ``aug.draw`` (``utils.trace``)."""
+        with trace.span('aug.draw'):
+            return self._draw(shape, orig_hw, generator)
+
+    def _draw(self, shape, orig_hw: torch.Tensor,
+              generator: torch.Generator) -> Params:
         b, n, t, hs, ws, _ = shape
         params = []
         for typ, cfg in self.spec:
@@ -347,33 +354,40 @@ class DeviceAugChain:
 
     def apply(self, imgs: torch.Tensor, params: Params) -> torch.Tensor:
         """The chain on uint8 ``imgs`` (B, N, T, Hs, Ws, C) with drawn
-        ``params``, in fp32 (TF32 off)."""
+        ``params``, in fp32 (TF32 off); each transform runs in a span
+        ``aug.<type>``, the normalisation in ``aug.normalise``
+        (``utils.trace``)."""
         b, n, t, hs, ws, c = imgs.shape
         x = imgs.to(torch.float32).reshape(b * n * t, hs, ws, c)
         cropped = False
         with exact_fp32():
             for typ, p in params:
-                if typ == 'RandomResizedCrop':
-                    x = crop_resize(x, p['rects'], self.out_hw)
-                    cropped = True
-                elif typ == 'Flip':
-                    x = torch.where(p['flip'][:, None, None, None],
-                                    x.flip(p['axis']), x)
-                elif typ == 'ColorJitter':
-                    x = color_jitter(x, p['bright'], p['contrast'], p['sat'],
-                                     p['hue'], p['apply'], p['order'])
-                elif typ == 'RandomGrayScale':
-                    x = grayscale(x, p['apply'])
-                elif typ == 'RandomGaussianBlur':
-                    x = gaussian_blur(x, p['sigma'], p['apply'],
-                                      p['max_radius'])
+                with trace.span('aug.' + typ):
+                    if typ == 'RandomResizedCrop':
+                        x = crop_resize(x, p['rects'], self.out_hw)
+                        cropped = True
+                    elif typ == 'Flip':
+                        x = torch.where(p['flip'][:, None, None, None],
+                                        x.flip(p['axis']), x)
+                    elif typ == 'ColorJitter':
+                        x = color_jitter(x, p['bright'], p['contrast'],
+                                         p['sat'], p['hue'], p['apply'],
+                                         p['order'])
+                    elif typ == 'RandomGrayScale':
+                        x = grayscale(x, p['apply'])
+                    elif typ == 'RandomGaussianBlur':
+                        x = gaussian_blur(x, p['sigma'], p['apply'],
+                                          p['max_radius'])
         if not cropped and (hs, ws) != self.out_hw:
             raise ValueError('device aug without RandomResizedCrop needs '
                              f'staging == out size, got {(hs, ws)} vs '
                              f'{self.out_hw}')
-        mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
-        x = (x - mean) / std
+        with trace.span('aug.normalise'):
+            mean = torch.tensor(self.mean, dtype=torch.float32,
+                                device=x.device)
+            std = torch.tensor(self.std, dtype=torch.float32,
+                               device=x.device)
+            x = (x - mean) / std
         return x.reshape(b, n, t, self.out_hw[0], self.out_hw[1], c)
 
 

@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import trace
 from .affinity import NEG_INF, l2_normalize, spatial_neighbor, \
     topk_first_index
 from .local_attention import check_mode, local_topk_attend
@@ -188,6 +189,10 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
 
     Returns:
         (T, H, W, K) label logits; frame 0 is ``seg_first``.
+
+    The decoupled engines run in two spans (``utils.trace``):
+    ``propagation.affinity`` (the windowed top-k: row 1, row 2 or the
+    wide entry) and ``propagation.labels`` (``propagate_labels``).
     """
     _check_supported(cfg)
     seg_first = seg_first.to(torch.float32)
@@ -210,15 +215,17 @@ def propagate_video(feats: torch.Tensor, seg_first: torch.Tensor,
     if cfg.backend == 'pallas':
         return _propagate_video_scan(feats, seg_first, cfg)
     radius = float(cfg.neighbor_range // 2)
-    if cfg.backend == 'pallas_video' and cfg.video_engine != 'v2':
-        scores, src = video_topk_affinity_v1(
-            feats, radius, cfg.temperature, cfg.topk, cfg.precede_frames,
-            early_exit=cfg.video_early_exit, extract=cfg.video_extract,
-            bank_splits=cfg.video_bank_splits)
-    else:
-        scores, src = video_topk_affinity(feats, radius, cfg.temperature,
-                                          cfg.topk, cfg.precede_frames)
-    return propagate_labels(scores, src, seg_first)
+    with trace.span('propagation.affinity'):
+        if cfg.backend == 'pallas_video' and cfg.video_engine != 'v2':
+            scores, src = video_topk_affinity_v1(
+                feats, radius, cfg.temperature, cfg.topk,
+                cfg.precede_frames, early_exit=cfg.video_early_exit,
+                extract=cfg.video_extract, bank_splits=cfg.video_bank_splits)
+        else:
+            scores, src = video_topk_affinity(
+                feats, radius, cfg.temperature, cfg.topk, cfg.precede_frames)
+    with trace.span('propagation.labels'):
+        return propagate_labels(scores, src, seg_first)
 
 
 def _propagate_video_scan(feats: torch.Tensor, seg_first: torch.Tensor,
