@@ -6,6 +6,7 @@ each other, or this checkout's rows 1 and 3 against their ablations.
     python3 ab_kernels.py --wide DIR_A DIR_B
     python3 ab_kernels.py --ablate
     python3 ab_kernels.py --modes
+    python3 ab_kernels.py --tc
 
 Every mode uses the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
 (60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
@@ -52,6 +53,18 @@ fp32 entry on the same step, in the order exact, each mode, each mode
 again in reverse, exact; one JSON line per width with each entry's
 median ms and its ratio to the exact entry.
 
+``--tc`` times row 1's two fp32 paths on the same features, the FFMA
+core (``video_affinity.launch_core``) and the tensor-core path
+(``video_affinity.launch_tc``, ``csrc/video_topk_tc.cu``), in the order
+core, tc, tc, core at T=24 and T=48 for each width, beside the
+fp32 bound; holds the tensor-core path's scores and sources bit-identical
+to the core's and to row 2's (exit on) at T=24 and T=48, and to the
+core's on the near-tie kinds of ``chip_smoke.TC_KINDS`` (T=24); reports
+its counters (keys re-scored, queries overflowed) and checks the mma
+accumulation model (``chip_smoke.mma_model_check``). One JSON line per
+width, then both paths' ms per frame at C of ``TC_SWEEP`` (r18's radius,
+T=24: the C crossover), then the model check.
+
 Every mode ends with the card's name and power limit as ``nvidia-smi``
 gives them. Needs one card.
 """
@@ -69,6 +82,8 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, P, TOPK, K_CLASSES, SLOTS = 60, 107, 20, 10, 4, 21
 ROWS = (1, 2, 3, 4)
+# --tc: the widths of the crossover sweep
+TC_SWEEP = (64, 128, 256, 384, 512)
 # the ablation builds: rows 1 and 3
 KERNELS = ('video_topk_affinity', 'local_topk_attend')
 # window_topk.cuh's WTK_ABLATE bits: what each variant leaves out (1 inner
@@ -243,6 +258,83 @@ def modes():
     print(chip_smoke.card_line())
 
 
+def tensor_cores():
+    """Row 1's FFMA core and tensor-core path at both widths, in turns;
+    bit-identity and counters; the accumulation model's check."""
+    import statistics
+
+    import chip_smoke
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import video_topk_affinity_v1_cuda
+    from vfs_tpu_torch.ops.video_affinity import launch_core, launch_tc
+    dev = torch.device('cuda', 0)
+    smi_line = chip_smoke.card_line()
+    paths = {'core': launch_core, 'tc': launch_tc}
+    with exact_fp32():
+        for model, c, radius in chip_smoke.MODELS:
+            inputs = make_inputs(dev, c)
+            out = {'model': model}
+            runs = {}
+            for t in (24, 48):
+                feats = inputs[f'feats{t}']
+                for name in ('core', 'tc', 'tc', 'core'):
+                    runs.setdefault(f'{name}_T{t}', []).append(
+                        chip_smoke.cuda_ms(lambda: paths[name](
+                            feats, radius, 0.07, TOPK, P)))
+                got, counts = chip_smoke.tc_counted(feats, radius, TOPK, P)
+                out[f'T{t}_bit_identical_to_core'] = chip_smoke.tc_same(
+                    got, launch_core(feats, radius, 0.07, TOPK, P))
+                out[f'T{t}_bit_identical_to_row2'] = chip_smoke.tc_same(
+                    got, video_topk_affinity_v1_cuda(feats, radius, 0.07,
+                                                     TOPK, P))
+                out[f'T{t}_counts'] = counts
+            ms = {k: statistics.median(v) for k, v in runs.items()}
+            f24 = chip_smoke.affinity_work(24, H, W, c, radius, TOPK, P)[0]
+            f48 = chip_smoke.affinity_work(48, H, W, c, radius, TOPK, P)[0]
+            for name in paths:
+                per_frame = ms[f'{name}_T24'] / 23
+                steady = (ms[f'{name}_T48'] - ms[f'{name}_T24']) / 24
+                bound = chip_smoke.bound_ms(f24 / 23, 0.0, smi_line)[0]
+                bound_steady = chip_smoke.bound_ms((f48 - f24) / 24, 0.0,
+                                                   smi_line)[0]
+                out[name] = dict(ms_per_frame_T24=per_frame,
+                                 steady_ms_per_frame=steady,
+                                 bound_ms_per_frame_T24=bound,
+                                 bound_share_T24=bound / per_frame,
+                                 steady_bound_share=bound_steady / steady)
+            out['runs'] = runs
+            del inputs
+            torch.cuda.empty_cache()
+            for kind in chip_smoke.TC_KINDS[1:]:
+                feats = chip_smoke.tc_feats(dev, kind, 24, H, W, c, c)
+                got, counts = chip_smoke.tc_counted(feats, radius, TOPK, P)
+                out[f'{kind}_bit_identical_to_core'] = chip_smoke.tc_same(
+                    got, launch_core(feats, radius, 0.07, TOPK, P))
+                out[f'{kind}_counts'] = counts
+                out[f'{kind}_tc_ms_T24'] = chip_smoke.cuda_ms(
+                    lambda: launch_tc(feats, radius, 0.07, TOPK, P), runs=3)
+                del feats, got
+                torch.cuda.empty_cache()
+            print(json.dumps(out), flush=True)
+        # the C crossover (window_geometry.TC_MIN_CHANNELS): both paths at
+        # the r18 window, T=24, narrower and wider than its 256 channels
+        sweep = {}
+        for c in TC_SWEEP:
+            inputs = make_inputs(dev, c)
+            feats = inputs['feats24']
+            runs = {}
+            for name in ('core', 'tc', 'tc', 'core'):
+                runs.setdefault(name, []).append(chip_smoke.cuda_ms(
+                    lambda: paths[name](feats, 12.0, 0.07, TOPK, P), runs=3))
+            sweep[c] = {k: statistics.median(v) / 23 for k, v in runs.items()}
+            del inputs, feats
+            torch.cuda.empty_cache()
+        print(json.dumps({'crossover_ms_per_frame_T24_radius12': sweep}))
+    print(json.dumps({'mma_model': chip_smoke.mma_model_check(dev)}))
+    print(smi_line)
+
+
 def ablate():
     """This checkout's rows 1 and 3 and their ablations, in the order
     full, each ablation, full."""
@@ -320,6 +412,7 @@ def main():
     parser.add_argument('--ablate', action='store_true')
     parser.add_argument('--modes', action='store_true')
     parser.add_argument('--wide', action='store_true')
+    parser.add_argument('--tc', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
@@ -328,6 +421,8 @@ def main():
         return ablate()
     if args.modes:
         return modes()
+    if args.tc:
+        return tensor_cores()
     if len(args.checkouts) != 2:
         parser.error('give two checkouts or --ablate')
     import ab_eval

@@ -709,7 +709,7 @@ def phase_build():
     from vfs_tpu_torch.ops import _build
     names = [info['name']
              for info in (KERNEL_INFO, V1_INFO, LOCAL_INFO, V2_INFO)] + [
-                 'window_topk_wide']
+                 'window_topk_wide', 'video_topk_tc']
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 2) as pool:
         decoders = {name: pool.submit(get) for name, get in (
@@ -2021,6 +2021,190 @@ def wide_forward(dev):
     emit({'phase': 'wide', 'part': 'forward_test', 'video': list(imgs.shape),
           'neighbor_range': WIDE_NEIGHBOR_RANGE, 'runs': runs})
     return launches
+
+
+# Row 1's tensor-core path (csrc/video_topk_tc.cu): the small cases (T,
+# h, w, C, radius, P, topk) at tile, chunk and radius edges (r 0, 3, 11,
+# 17 and 31: every instance of the kernels), and the feature kinds whose
+# near ties overflow its lists
+TC_SMALL_CASES = [(5, 9, 40, 16, 4.0, 2, 4), (6, 10, 40, 32, 4.0, 3, 10),
+                  (6, 12, 45, 64, 12.0, 20, 10), (5, 20, 70, 48, 18.0, 3, 10),
+                  (4, 10, 70, 36, 31.5, 2, 8), (5, 17, 37, 1024, 18.0, 20, 10),
+                  (4, 9, 33, 20, 1.0, 1, 1), (4, 9, 33, 20, 1.5, 2, 32)]
+TC_KINDS = ('random', 'static', 'flat', 'ulp')
+
+
+def tc_feats(dev, kind, t_total, h, w, c, seed):
+    """L2-normalised (T, h, w, C) fp32 features on ``dev``: random, or
+    with near ties: every frame the first ('static', a still background),
+    a constant region in every frame ('flat'), frames 2.. an ulp from
+    frame 1 in one channel ('ulp')."""
+    import torch
+    from vfs_tpu_torch.ops import l2_normalize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((t_total, h, w, c), device=dev, generator=g)
+    if kind == 'static':
+        x[1:] = x[0]
+    elif kind == 'flat':
+        x[:, h // 4:h // 2 + 1, w // 4:w // 2 + 1] = x[0, 0, 0]
+    f = l2_normalize(x).contiguous()
+    if kind == 'ulp':
+        f[2:] = f[1]
+        for t in range(2, t_total):
+            ch = f[1, ..., t % c]
+            f[t, ..., t % c] = torch.nextafter(
+                ch, torch.full_like(ch, float('inf') if t % 2
+                                    else float('-inf')))
+    return f
+
+
+def tc_counted(feats, radius, topk, p):
+    """The tensor-core path's outputs and its counters (a recording)."""
+    import torch
+    from vfs_tpu_torch.ops.video_affinity import flush_counts, launch_tc
+    from vfs_tpu_torch.utils import trace
+    with trace.recording() as rec:
+        out = launch_tc(feats, radius, 0.07, topk, p)
+        torch.cuda.synchronize()
+        flush_counts()
+    return out, dict(rec.counts)
+
+
+def tc_same(a, b):
+    """Whether two (scores, src) are equal bit for bit."""
+    import torch
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def tf32_np(x):
+    """fp32 values with their low 13 mantissa bits cleared (TF32)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xffffe000)).view(np.float32)
+
+
+def mma_model_check(dev, n=2048, seed=0):
+    """window_geometry.MMA_RHO's model on the card: n single k8 steps of
+    wgmma m64n56 TF32, the main kernel's shape
+    (``vfs_video_topk_mma_check``), on TF32-exact operands of four kinds (c near 1 with products just under its last
+    bits, spread exponents, sums that cancel c, feature-like values), each
+    result against the float64 sum; and n more on raw fp32 operands
+    (c = 0), against the products of their truncated and their rounded
+    TF32 parts. Returns the largest |d - exact| / (|c| + sum |a_i b_i|)
+    in units of rho by kind (the raw kinds: against truncation), the
+    shares of results equal to the exact sum rounded to nearest and toward
+    zero, and the raw runs' largest gap to rounded operands."""
+    import torch
+    from vfs_tpu_torch.ops import window_geometry
+    from vfs_tpu_torch.ops.video_affinity import _tc_library
+    rng = np.random.RandomState(seed)
+    q = n // 4
+
+    def signed(*shape):
+        return rng.uniform(1, 2, shape) * rng.choice([-1, 1], shape)
+
+    a, b, c = signed(n, 64, 8), signed(n, 56, 8), signed(n, 64, 56)
+    a[:q] *= 2.0 ** rng.randint(-14, -11, (q, 64, 8))      # under c's ulp
+    b[:q] *= 2.0 ** rng.randint(-14, -11, (q, 56, 8))
+    a[q:2 * q] *= 2.0 ** rng.randint(-20, 1, (q, 64, 8))   # spread
+    b[q:2 * q] *= 2.0 ** rng.randint(-20, 1, (q, 56, 8))
+    c[q:2 * q] *= 2.0 ** rng.randint(-24, 4, (q, 64, 56))
+    a[3 * q:] = rng.randn(n - 3 * q, 64, 8) / np.sqrt(1024)  # features
+    b[3 * q:] = rng.randn(n - 3 * q, 56, 8) / np.sqrt(1024)
+    c[3 * q:] = rng.randn(n - 3 * q, 64, 56) / 4
+
+    def run(a, b, c):
+        d = torch.empty((n, 64, 56), dtype=torch.float32, device=dev)
+        ta, tb, tcc = (torch.from_numpy(np.ascontiguousarray(
+            x, np.float32)).to(dev) for x in (a, b, c))
+        err = _tc_library().vfs_video_topk_mma_check(
+            ta.data_ptr(), tb.data_ptr(), tcc.data_ptr(), d.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'mma check launch failed: CUDA error {err}')
+        return d.cpu().numpy().astype(np.float64)
+
+    def exact_of(a, b, c):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        c = c.astype(np.float64)
+        return (c + a @ b.transpose(0, 2, 1),
+                np.abs(c) + np.abs(a) @ np.abs(b).transpose(0, 2, 1))
+
+    a, b = tf32_np(a), tf32_np(b)
+    prod = a.astype(np.float64) @ b.astype(np.float64).transpose(0, 2, 1)
+    c[2 * q:3 * q] = -prod[2 * q:3 * q] * (1 + rng.uniform(  # cancelling
+        -1e-6, 1e-6, (q, 64, 56)))
+    c = c.astype(np.float32)
+    got = run(a, b, c)
+    exact, mag = exact_of(a, b, c)
+    ratio = np.abs(got - exact) / mag / window_geometry.MMA_RHO
+    rn = exact.astype(np.float32)
+    rz = np.where(np.abs(rn.astype(np.float64)) > np.abs(exact),
+                  np.nextafter(rn, np.float32(0)), rn)
+    kinds = ('under_ulp', 'spread', 'cancel', 'features')
+    out = dict(max_err_over_rho={k: float(ratio[i * q:(i + 1) * q].max())
+                                 for i, k in enumerate(kinds)},
+               rounded_nearest_share=float((got == rn).mean()),
+               rounded_toward_zero_share=float((got == rz).mean()),
+               steps=n)
+    raw_a = rng.randn(n, 64, 8).astype(np.float32)
+    raw_b = rng.randn(n, 56, 8).astype(np.float32)
+    got = run(raw_a, raw_b, np.zeros((n, 64, 56), np.float32))
+    exact, mag = exact_of(tf32_np(raw_a), tf32_np(raw_b),
+                          np.zeros((n, 64, 56)))
+    out['max_err_over_rho']['raw_truncated'] = float(
+        (np.abs(got - exact) / mag).max() / window_geometry.MMA_RHO)
+    rna = [((np.ascontiguousarray(x).view(np.uint32) + np.uint32(0x1000))
+            & np.uint32(0xffffe000)).view(np.float32) for x in (raw_a, raw_b)]
+    exact, mag = exact_of(*rna, np.zeros((n, 64, 56)))
+    out['raw_vs_rounded_operands_over_rho'] = float(
+        (np.abs(got - exact) / mag).max() / window_geometry.MMA_RHO)
+    return out
+
+
+def phase_tc(dev, smi_line):
+    """Row 1's tensor-core path against the FFMA core, bit for bit: the
+    small cases on random and near-tie features, then the r18 and r50
+    widths (T = 24, 60 x 107, P = 20, top-10) on each feature kind, with
+    the keys it re-scored and the queries its lists did not settle; and
+    the accumulation model's check."""
+    import torch
+    from vfs_tpu_torch.ops.video_affinity import launch_core
+    small = []
+    for t_total, h, w, c, radius, p, topk in TC_SMALL_CASES:
+        for kind in TC_KINDS:
+            feats = tc_feats(dev, kind, t_total, h, w, c, t_total * 1000 + c)
+            out, counts = tc_counted(feats, radius, topk, p)
+            same = tc_same(out, launch_core(feats, radius, 0.07, topk, p))
+            small.append([t_total, h, w, c, radius, p, topk, kind, same,
+                          counts.get('row1.overflow_queries', 0)])
+            if not same:
+                raise AssertionError(f'tensor-core row 1 differs from the '
+                                     f'core: {small[-1]}')
+    full = {}
+    h, w, p, topk = 60, 107, 20, 10
+    for model, c, radius in MODELS:
+        for kind in TC_KINDS:
+            feats = tc_feats(dev, kind, 24, h, w, c, c)
+            out, counts = tc_counted(feats, radius, topk, p)
+            same = tc_same(out, launch_core(feats, radius, 0.07, topk, p))
+            if not same:
+                raise AssertionError(f'tensor-core row 1 differs from the '
+                                     f'core: {model} {kind}')
+            queries = 23 * h * w
+            full[f'{model}/{kind}'] = dict(
+                bit_identical=same, **counts,
+                overflow_share=counts.get('row1.overflow_queries', 0)
+                / queries)
+            del feats, out
+            torch.cuda.empty_cache()
+    model_check = mma_model_check(dev)
+    if max(model_check['max_err_over_rho'].values()) > 1:
+        raise AssertionError(f'the mma accumulation model fails: '
+                             f'{model_check}')
+    emit({'phase': 'tc', 'card': smi_line,
+          'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk', 'kind',
+                      'bit_identical', 'overflow_queries'],
+          'small': small, 'full': full, 'mma_model': model_check})
 
 
 def phase_wide(dev, smi_name):
@@ -6315,6 +6499,7 @@ def main():
     modes_full = timed('full_modes', phase_full_modes, dev, smi_line)
     v1_full = timed('full_v1', phase_full_v1, dev, smi_line, plain_ms)
     v2_entry = timed('full_v2', phase_full_v2, dev, smi_line)
+    timed('tc', phase_tc, dev, smi_line)
     row1 = timed('main', phase_main, dev, smi_line)
     wide = timed('wide', phase_wide, dev, smi_line)
     eval_modes, row3 = timed('eval', phase_eval, local_full)

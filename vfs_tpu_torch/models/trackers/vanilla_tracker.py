@@ -43,6 +43,7 @@ from ...device import DeviceLike, exact_fp32, resolve_device
 from ...ops.affinity import spatial_neighbor
 from ...ops.propagation import PropagationConfig, propagate_video
 from ...ops.resize import pil_nearest_resize, resize_bilinear
+from ...ops.video_affinity import flush_counts
 from ...ops.yuv import Yuv420Frames, rgb_to_yuv420, yuv420_to_rgb
 from ...utils import trace
 from .. import builder
@@ -360,6 +361,7 @@ class VanillaTracker(nn.Module):
                         original_shape)
                 with trace.span('tracker.readback'):
                     seg_preds = seg_preds.cpu().numpy()
+                flush_counts()  # row 1's counters, after the readback's sync
                 seg_preds[0] = first_pred  # frame 0 = the input labels
                 all_seg_preds.append(seg_preds[None])  # (1, T, H0, W0)
             else:
@@ -376,6 +378,7 @@ class VanillaTracker(nn.Module):
                     logits[0] = resize_bilinear(ref, original_shape)[0]
                 with trace.span('tracker.readback'):
                     logits = logits.permute(0, 3, 1, 2).cpu().numpy()
+                flush_counts()
                 all_seg_preds.append(logits[None])
 
         if self.save_np:

@@ -22,12 +22,18 @@ results are:
   and ``src`` = the query's own cell in frame 0. Row 0 is zero.
 
 A CPU tensor takes the plain version, ``video_topk_affinity_reference``;
-a CUDA tensor launches a hand-written kernel or raises: the tuned core
-(``vfs_tpu_torch/csrc/video_topk_affinity.cu``, its bf16 entry for bf16
-features) where it takes the radius and top-k
-(``window_geometry.core_takes``: r <= 31, topk <= 32), else the wide
-kernel (``csrc/window_topk_wide.cu``), which takes any, as the JAX
-package does. The plain version widens bf16 features to fp32 and
+a CUDA tensor launches a hand-written kernel or raises: where the core's
+limits hold (``window_geometry.core_takes``: r <= 31, topk <= 32), fp32
+features of ``C >= TC_MIN_CHANNELS`` channels take the tensor-core path
+(``csrc/video_topk_tc.cu``: a TF32 pre-score picks candidates, the fmaf
+chain re-ranks them; ``window_geometry.tc_takes``) and the rest the tuned
+FFMA core (``csrc/video_topk_affinity.cu``, its bf16 entry for bf16
+features), both with the same outputs bit for bit; past those limits the
+wide kernel (``csrc/window_topk_wide.cu``), which takes any, as the JAX
+package does. While a ``utils.trace`` recording is open, the tensor-core
+path counts the keys it re-scored and the queries its list could not
+settle, read at the tracker's readback (``flush_counts``:
+``row1.rescored_pairs``, ``row1.overflow_queries``). The plain version widens bf16 features to fp32 and
 runs the fp32 path: a bf16 product is exact in fp32, so the kernel's bf16
 scores are its fp32 scores on the widened features.
 """
@@ -35,18 +41,24 @@ scores are its fp32 scores on the widened features.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .affinity import NEG_INF
 from .window_geometry import (WIDE_KERNEL_NAME, band_tensor, core_takes,
-                              data_ptr, plan_args, wide_lists, wide_plan,
-                              window_plan)
+                              data_ptr, norm_grow, plan_args,
+                              prescore_margin, tc_takes, tc_workspace_ints,
+                              wide_lists, wide_plan, window_plan)
 
 KERNEL_NAME = 'video_topk_affinity'
+TC_KERNEL_NAME = 'video_topk_tc'
+# the tensor-core path's counters, in the order of its C entry's stats
+TC_COUNTS = ('row1.rescored_pairs', 'row1.overflow_queries')
 
 
 def circle_offsets(radius: float, device=None):
@@ -176,6 +188,119 @@ def _wide_library() -> ctypes.CDLL:
     return lib
 
 
+def _tc_library() -> ctypes.CDLL:
+    lib = _build.load(TC_KERNEL_NAME)
+    lib.vfs_video_topk_tc.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                             ctypes.c_int, ctypes.c_int] + [
+        ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    lib.vfs_video_topk_tc.restype = ctypes.c_int
+    lib.vfs_video_topk_mma_check.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.vfs_video_topk_mma_check.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# counters of launches made while a trace records, read by flush_counts
+_pending = []
+
+
+def flush_counts() -> None:
+    """Add the tensor-core path's counters of the launches made since the
+    last call to the open ``utils.trace`` recording (``TC_COUNTS``). The
+    tracker calls it after its readback, when the device is done, so the
+    copy waits for nothing; outside a recording there is nothing to
+    read."""
+    while _pending:
+        values = _pending.pop(0).tolist()
+        if trace.active():
+            for name, n in zip(TC_COUNTS, values):
+                trace.count(name, int(n))
+
+
+def _alloc_outputs(feats: torch.Tensor, topk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    t_total, h, w, _ = feats.shape
+    scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
+                         device=feats.device)
+    src = torch.empty((t_total, h, w, topk), dtype=torch.int64,
+                      device=feats.device)
+    scores[0] = 0
+    src[0] = 0
+    return scores, src
+
+
+def launch_tc(feats: torch.Tensor, radius: float, temperature: float,
+              topk: int, precede_frames: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 1's function on the tensor-core path (``csrc/video_topk_tc.cu``)
+    for fp32 features at any C and the core's radii and top-k, on
+    ``feats``' device and current stream; counts no launch but, while a
+    trace records, its counters (``flush_counts``). Checks and timings call
+    it to force the path."""
+    plan = window_plan(radius, topk)
+    check_features(feats, precede_frames)
+    if feats.dtype != torch.float32:
+        raise TypeError(f'the tensor-core path takes float32 features, got '
+                        f'{feats.dtype}')
+    scores, src = _alloc_outputs(feats, topk)
+    t_total, h, w, c = feats.shape
+    if t_total < 2:
+        return scores, src
+    dev = feats.device
+    units_grid = _sm_count(dev.index if dev.index is not None
+                          else torch.cuda.current_device())
+    work = torch.empty(tc_workspace_ints(t_total, h, w, precede_frames,
+                                         plan.r, units_grid),
+                       dtype=torch.int32, device=dev)
+    stats = None
+    if trace.active():
+        stats = torch.zeros(len(TC_COUNTS), dtype=torch.int64, device=dev)
+        _pending.append(stats)
+    inv_tau = 1.0 / temperature
+    coef, absolute = prescore_margin(c, float(ctypes.c_float(inv_tau).value))
+    with torch.cuda.device(dev):
+        err = _tc_library().vfs_video_topk_tc(
+            feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
+            work.data_ptr(), data_ptr(stats), t_total, h, w, c,
+            *plan_args(plan), inv_tau, topk, precede_frames, coef, absolute,
+            norm_grow(c), units_grid, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{TC_KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    return scores, src
+
+
+def launch_core(feats: torch.Tensor, radius: float, temperature: float,
+                topk: int, precede_frames: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 1's function on the FFMA core (its bf16 entry for bf16
+    features) at any C, on ``feats``' device and current stream; counts
+    nothing. Checks and timings call it to force the path."""
+    plan = window_plan(radius, topk)
+    check_features(feats, precede_frames)
+    scores, src = _alloc_outputs(feats, topk)
+    t_total, h, w, c = feats.shape
+    if t_total < 2:
+        return scores, src
+    lib = _library()
+    fn = (lib.vfs_video_topk_affinity_bf16 if feats.dtype == torch.bfloat16
+          else lib.vfs_video_topk_affinity)
+    with torch.cuda.device(feats.device):
+        err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
+                 t_total, h, w, c, *plan_args(plan), 1.0 / temperature, topk,
+                 precede_frames, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
+                           f'error {err}')
+    return scores, src
+
+
 def launch_wide(feats: torch.Tensor, radius: float, temperature: float,
                 topk: int, precede_frames: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,43 +357,29 @@ def video_topk_affinity_cuda(feats: torch.Tensor, radius: float,
                              precede_frames: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a CUDA kernel on ``feats``' device and current stream: the
-    core (its bf16 entry for bf16 features) where it takes the radius and
-    top-k, else the wide kernel. ``video_topk_affinity_cuda.launches``
-    counts the core's launches, ``.bf16_launches`` those of its bf16
-    entry, ``.wide_launches`` the wide kernel's. The path is chosen before
-    anything else."""
+    tensor-core path or the core where the core's limits hold
+    (``tc_takes``), else the wide kernel.
+    ``video_topk_affinity_cuda.launches`` counts the launches of the first
+    two, ``.tc_launches`` those of the tensor-core path, ``.bf16_launches``
+    those of the core's bf16 entry, ``.wide_launches`` the wide kernel's.
+    The path is chosen before anything else."""
     if not core_takes(radius, topk):
         out = launch_wide(feats, radius, temperature, topk, precede_frames)
         video_topk_affinity_cuda.wide_launches += feats.shape[0] >= 2
         return out
-    plan = window_plan(radius, topk)
-    check_features(feats, precede_frames)
-    t_total, h, w, c = feats.shape
-    scores = torch.empty((t_total, h, w, topk), dtype=torch.float32,
-                         device=feats.device)
-    src = torch.empty((t_total, h, w, topk), dtype=torch.int64,
-                      device=feats.device)
-    scores[0] = 0
-    src[0] = 0
-    if t_total < 2:
-        return scores, src
-    lib = _library()
-    bf16 = feats.dtype == torch.bfloat16
-    fn = (lib.vfs_video_topk_affinity_bf16 if bf16
-          else lib.vfs_video_topk_affinity)
-    with torch.cuda.device(feats.device):
-        err = fn(feats.data_ptr(), scores.data_ptr(), src.data_ptr(),
-                 t_total, h, w, c, *plan_args(plan), 1.0 / temperature, topk,
-                 precede_frames, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{KERNEL_NAME} kernel launch failed: CUDA '
-                           f'error {err}')
-    video_topk_affinity_cuda.launches += 1
-    video_topk_affinity_cuda.bf16_launches += bf16
-    return scores, src
+    tc = tc_takes(feats.shape[-1], feats.dtype)
+    out = (launch_tc if tc else launch_core)(feats, radius, temperature, topk,
+                                              precede_frames)
+    if feats.shape[0] >= 2:
+        video_topk_affinity_cuda.launches += 1
+        video_topk_affinity_cuda.tc_launches += tc
+        video_topk_affinity_cuda.bf16_launches += (
+            feats.dtype == torch.bfloat16)
+    return out
 
 
 video_topk_affinity_cuda.launches = 0
+video_topk_affinity_cuda.tc_launches = 0
 video_topk_affinity_cuda.bf16_launches = 0
 video_topk_affinity_cuda.wide_launches = 0
 

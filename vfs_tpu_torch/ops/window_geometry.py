@@ -23,6 +23,12 @@ wrappers allocate for the running and the per-slot lists
 (``band_tensor``). ``core_takes`` says which path a ``(radius, topk)``
 takes; the four wrappers ask it before anything else.
 
+Row 1's tensor-core path (``csrc/video_topk_tc.cu``) pre-scores on TF32
+``mma`` and re-ranks exactly; ``prescore_margin`` is the proven bound on
+the gap between a pre-score and the exact score that it selects
+candidates within, and ``tc_takes`` says which fp32 launches of the core
+go there.
+
 The tile: a block owns ``TILE_H x TILE_W`` query cells. A warp computes
 4 query rows x 32 query columns x ``PASS_DX`` consecutive dx of one key
 row: its pass. ``passes`` warps cover the window's ``2r + 1`` dx for each
@@ -266,3 +272,101 @@ def pair_counts(h: int, w: int, radius: float) -> Tuple[int, int]:
                          if y < h and abs(ky - y) <= r), default=-1)
                 computed += len(pass_starts(plan, e)) * 4 * TILE_W * PASS_DX
     return needed, computed * -(-w // TILE_W)
+
+
+# Row 1's tensor-core path: the smallest C it takes (below it the core
+# is as fast: ``tc_takes``), the channels its mma accumulators sum before
+# they are added to a running sum in shared memory, and the accumulation
+# model of one TF32 m16n8k8 mma (``prescore_margin``).
+TC_MIN_CHANNELS = 512
+TC_FLUSH_CHANNELS = 128
+MMA_K = 8
+MMA_RHO = 2.0 ** -21
+UNIT = 2.0 ** -24
+
+
+def tc_takes(c: int, dtype: torch.dtype) -> bool:
+    """Whether row 1's fp32 launch of the core goes to the tensor-core
+    path: fp32 features with ``C >= TC_MIN_CHANNELS`` (below it the FFMA
+    core is as fast, ``ab_kernels.py``); the bf16 entry keeps the core."""
+    return dtype == torch.float32 and c >= TC_MIN_CHANNELS
+
+
+def prescore_margin(c: int, inv_tau: float, splits: int = 3
+                    ) -> Tuple[float, float]:
+    """``(coef, absolute)``: for fp32 features of C channels whose norms
+    multiply to at most N^2, ``m = coef * N^2 + absolute`` bounds
+    ``|fl(p * inv_tau) - fl(s * inv_tau)|``, p the kernel's TF32
+    pre-score and s the fmaf chain over channels 0..C-1 (the exact score
+    before scaling). ``splits`` 3: q k ~ qh kh + qh kl + ql kh, each of
+    q, k split into hi = q with its low 13 mantissa bits cleared (exact
+    TF32) and lo = q - hi, which the tensor cores read as a TF32 value
+    within 2^-10 |lo| of it; 1: qh kh. The mmas sum
+    ``TC_FLUSH_CHANNELS`` channels from zero, and those G = ceil(C / 128)
+    partial sums are added in fp32. With D the exact dot and S = sum
+    |q_i k_i| <= N^2:
+
+    - the chain: |s - D| <= gamma_C S, gamma_C = C u / (1 - C u),
+      u = 2^-24 (C roundings of fmaf);
+    - the operands: |hi - q| <= 2^-10 |q| and |lo| <= 2^-10 |q|, so
+      |qh kh + qh kl' + ql' kh - q k| <= 3 2^-20 (1 + 2^-9) |q k| (splits
+      3; kl', ql' as the tensor cores read them) and |qh kh - q k| <=
+      (2^-9 + 2^-20)(1 + 2^-9) |q k| (splits 1);
+    - the accumulation: each k8 step returns c + the sum of its 8 exact
+      products within rho = ``MMA_RHO`` of |c| + sum |a_i b_i|; over the
+      n = splits * ceil(min(C, 128) / 8) steps of one partial sum, whose
+      products' magnitudes add to S_g <= (1 + 2^-8) S_g' (S_g' its share
+      of S), |c| never passes S_g plus the errors so far, so its errors
+      add to at most rho (n + 1) S_g / (1 - rho (n + 1)), and over the
+      partial sums to that with S;
+    - the G additions of partial sums and the scaling: fl(x inv_tau) is
+      within u |x| inv_tau of x inv_tau, for p and for s: (G + 2) u (1 +
+      2^-8) S;
+    - underflow (a flushed or subnormal product or sum) adds at most
+      2^-126 a product and a chain step: 4 C 2^-126 before scaling.
+
+    The kernel multiplies ``coef`` by its own bound on N^2 (the largest
+    squared norm of the features, computed on the card).
+    ``csrc/video_topk_tc.cu`` (Margin) says how it selects within m."""
+    if splits not in (1, 3):
+        raise ValueError(f'splits is 1 or 3, got {splits}')
+    if c < 1:
+        raise ValueError(f'C must be >= 1, got {c}')
+    grow = 1 + 2.0 ** -8
+    chain = c * UNIT / (1 - c * UNIT)
+    operand = (3 * 2.0 ** -20 if splits == 3
+               else 2.0 ** -9 + 2.0 ** -20) * (1 + 2.0 ** -9)
+    n = splits * -(-min(c, TC_FLUSH_CHANNELS) // MMA_K)
+    accum = MMA_RHO * (n + 1) * grow / (1 - MMA_RHO * (n + 1))
+    adds = (-(-c // TC_FLUSH_CHANNELS) + 2) * UNIT * grow
+    coef = inv_tau * (chain + operand + accum + adds)
+    absolute = inv_tau * 4 * c * 2.0 ** -126
+    return _up32(coef), _up32(absolute)
+
+
+def tc_workspace_ints(t_total: int, h: int, w: int, precede: int, r: int,
+                      units_grid: int) -> int:
+    """int32 words of the tensor-core path's workspace
+    (``csrc/video_topk_tc.cu``, Work): 8 control words, a threshold a
+    query of frames 1..T-1, a queue slot a (frame, 4 query rows, 16
+    columns), and the overflow kernel's scratch: for each of its
+    ``units_grid`` blocks, room for 64 queries' whole windows, (P + 1)
+    (2r + 1)^2 keys each."""
+    return (8 + (t_total - 1) * h * w
+            + (t_total - 1) * -(-h // 4) * -(-w // 16)
+            + units_grid * 64 * (precede + 1) * (2 * r + 1) ** 2)
+
+
+def norm_grow(c: int) -> float:
+    """What the kernel multiplies its largest computed squared norm by to
+    bound the exact one: a sum of C squares in fp32 is within gamma_C of
+    it, and 1 + 4 C 2^-24 covers 1 / (1 - gamma_C)."""
+    return _up32(1 + 4 * c * UNIT)
+
+
+def _up32(x: float) -> float:
+    """The smallest float32 at or above ``x``, as a Python float."""
+    f = np.float32(x)
+    if float(f) < x:
+        f = np.nextafter(f, np.float32(np.inf))
+    return float(f)

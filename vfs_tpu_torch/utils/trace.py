@@ -30,7 +30,10 @@ Spans in the program: ``test.decode``, ``test.preload`` (prefetch
 thread), ``test.wait_input``, ``test.video`` (``apis/test.py``);
 ``tracker.extract``, ``tracker.labels``, ``tracker.propagate``,
 ``tracker.readback`` and the counter ``tracker.blocks``
-(``models/trackers/vanilla_tracker.py``); ``propagation.affinity``,
+(``models/trackers/vanilla_tracker.py``); the counters
+``row1.rescored_pairs`` and ``row1.overflow_queries`` (row 1's
+tensor-core path, ``ops/video_affinity.py``, added at the tracker's
+readback); ``propagation.affinity``,
 ``propagation.labels`` (``ops/propagation.py``); ``train.step`` with
 ``train.h2d``, ``train.device_aug``, ``train.forward``,
 ``train.backward``, ``train.optimizer``, and ``train.wait_batch``
@@ -46,7 +49,7 @@ import threading
 import time
 from typing import Dict, Hashable, List, NamedTuple, Optional
 
-__all__ = ['Span', 'Recording', 'span', 'count', 'recording']
+__all__ = ['Span', 'Recording', 'span', 'count', 'active', 'recording']
 
 
 class Span(NamedTuple):
@@ -133,6 +136,12 @@ def count(name: str, n: int = 1) -> None:
         return
     with rec._lock:
         rec.counts[name] = rec.counts.get(name, 0) + n
+
+
+def active() -> bool:
+    """Whether a ``recording()`` is open: code that would have to wait
+    for the device to count something asks first."""
+    return _active is not None
 
 
 @contextlib.contextmanager
