@@ -1,0 +1,13 @@
+"""Device milliseconds a profiled step of the work launched inside the
+program's span ``optimizer.clip`` (the global-norm clip of
+``core/optimizer/builder.py::ChainedOptimizer``), over the profiled
+steps. None where the run recorded no such span."""
+
+from portbench.harness.program_trace import row
+
+
+def read(ctx):
+    r = row(ctx.counts.get('program'), 'optimizer.clip')
+    if r is None or not r['device_s'] or not ctx.counts.get('traced_steps'):
+        return None
+    return 1e3 * r['device_s'] / ctx.counts['traced_steps']

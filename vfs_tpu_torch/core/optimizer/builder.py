@@ -12,7 +12,8 @@ torch parameters (``ChainedOptimizer``):
   ``torch.optim.Adam(weight_decay=...)`` (which adds it to the gradient);
 - AdamW: the same chain with a default decay of 0.01 and eps 1e-8;
 - ``grad_clip``: optax's ``clip_by_global_norm`` first in the chain,
-  ``g / ||g|| * max_norm`` when ``||g|| >= max_norm``.
+  ``g / ||g|| * max_norm`` when ``||g|| >= max_norm``, selected on the
+  device (span ``optimizer.clip``, ``utils.trace``).
 
 Schedules are functions of the update count (0 for the first update),
 with optax's formulas for every policy: cosine, step, fixed, exp, tin and
@@ -25,6 +26,8 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
+
+from ...utils import trace
 
 Schedule = Callable[[int], float]
 
@@ -188,9 +191,13 @@ class ChainedOptimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self.grad_clip:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            if not bool(norm < self.grad_clip):
-                grads = [g / norm * self.grad_clip for g in grads]
+            with trace.span('optimizer.clip'):
+                # a select on the card, as optax's, so the host never
+                # waits for the norm
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                keep = norm < self.grad_clip
+                grads = [torch.where(keep, g, g / norm * self.grad_clip)
+                         for g in grads]
         return grads
 
     @torch.no_grad()

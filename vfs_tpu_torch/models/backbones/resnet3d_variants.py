@@ -10,6 +10,11 @@ stages and, on the slow side, the lateral convolutions ``lateral{i}``
 concatenated after the slow stem and each slow stage but the last. In
 training mode ``norm_eval`` keeps every BatchNorm on its running
 statistics.
+
+Spans (``utils.trace``): ``slowfast.slow`` and ``slowfast.fast`` around
+each pathway's stem and each of its stages, ``slowfast.lateral`` around
+each lateral with its concatenation; the counter
+``slowfast.concat_bytes`` adds the bytes each concatenation writes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils import trace
 from ..common.norm import BatchNorm3d, NormEvalModule
 from ..registry import BACKBONES
 from .resnet3d import ARCH_SETTINGS_3D, ConvBN3d, _ntuple, max_pool_3d
@@ -114,18 +120,30 @@ class ResNet3dSlowFast(NormEvalModule):
 
     def forward(self, x):
         slow, fast = self.slow_path, self.fast_path
-        x_slow = slow.stem(x[:, :, ::self.resample_rate])
-        x_fast = fast.stem(
-            x[:, :, ::max(self.resample_rate // self.speed_ratio, 1)])
+        with trace.span('slowfast.slow'):
+            x_slow = slow.stem(x[:, :, ::self.resample_rate])
+        with trace.span('slowfast.fast'):
+            x_fast = fast.stem(
+                x[:, :, ::max(self.resample_rate // self.speed_ratio, 1)])
         if slow.lateral:
-            x_slow = torch.cat([x_slow, slow.lateral0(x_fast)], dim=1)
+            x_slow = self._fuse(x_slow, x_fast, 0)
         for i in range(slow.num_stages):
-            x_slow = getattr(slow, f'layer{i + 1}')(x_slow)
-            x_fast = getattr(fast, f'layer{i + 1}')(x_fast)
+            with trace.span('slowfast.slow'):
+                x_slow = getattr(slow, f'layer{i + 1}')(x_slow)
+            with trace.span('slowfast.fast'):
+                x_fast = getattr(fast, f'layer{i + 1}')(x_fast)
             if i != slow.num_stages - 1 and slow.lateral:
-                lat = getattr(slow, f'lateral{i + 1}')(x_fast)
-                x_slow = torch.cat([x_slow, lat], dim=1)
+                x_slow = self._fuse(x_slow, x_fast, i + 1)
         return x_slow, x_fast
+
+    def _fuse(self, x_slow, x_fast, i: int):
+        """The slow maps with lateral ``i`` of the fast maps concatenated
+        on their channels; counts the bytes the concatenation writes."""
+        with trace.span('slowfast.lateral'):
+            lat = getattr(self.slow_path, f'lateral{i}')(x_fast)
+            out = torch.cat([x_slow, lat], dim=1)
+        trace.count('slowfast.concat_bytes', out.numel() * out.element_size())
+        return out
 
 
 def conv2plus1d_mid(in_c: int, features: int, kh: int, kw: int) -> int:

@@ -14,7 +14,8 @@ the frames as they come and permutes its maps.
 ``forward(imgs, labels, return_loss=True)`` returns the head's loss dict;
 with ``return_loss=False`` the clip scores, averaged as
 ``test_cfg.average_clips`` says (base.py:58-84). ``generator`` feeds the
-head's dropout in training mode.
+head's dropout in training mode. The span ``recognizer.head``
+(``utils.trace``) covers the head and its loss.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ...utils import trace
 from .. import builder
 from ..backbones.resnet import ResNet
 from ..common.utils import flax_module_init
@@ -86,8 +88,9 @@ class Recognizer2D(BaseRecognizer):
         else:
             x = self.backbone(x.permute(0, 3, 1, 2))
             x = x[-1] if isinstance(x, tuple) else x
-        cls_score = self.cls_head(x, num_segs, generator=generator)
-        return self._result(cls_score, labels, return_loss)
+        with trace.span('recognizer.head'):
+            cls_score = self.cls_head(x, num_segs, generator=generator)
+            return self._result(cls_score, labels, return_loss)
 
 
 @RECOGNIZERS.register_module()
@@ -99,5 +102,6 @@ class Recognizer3D(BaseRecognizer):
                 generator: Optional[torch.Generator] = None):
         x = imgs.reshape(-1, *imgs.shape[2:])  # (N * clips, T, H, W, C)
         x = self.backbone(x.permute(0, 4, 1, 2, 3))
-        cls_score = self.cls_head(x, generator=generator)
-        return self._result(cls_score, labels, return_loss)
+        with trace.span('recognizer.head'):
+            cls_score = self.cls_head(x, generator=generator)
+            return self._result(cls_score, labels, return_loss)

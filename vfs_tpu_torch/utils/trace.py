@@ -38,7 +38,11 @@ readback); ``propagation.affinity``,
 ``train.h2d``, ``train.device_aug``, ``train.forward``,
 ``train.backward``, ``train.optimizer``, and ``train.wait_batch``
 (``apis/train.py``); ``aug.draw``, ``aug.<transform>``, ``aug.normalise``
-(``ops/device_aug.py``).
+(``ops/device_aug.py``); ``slowfast.slow``, ``slowfast.fast``,
+``slowfast.lateral`` and the counter ``slowfast.concat_bytes``
+(``models/backbones/resnet3d_variants.py``); ``recognizer.head``
+(``models/recognizers/recognizers.py``); ``optimizer.clip``
+(``core/optimizer/builder.py``).
 """
 
 from __future__ import annotations
