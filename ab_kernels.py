@@ -7,6 +7,7 @@ each other, or this checkout's rows 1 and 3 against their ablations.
     python3 ab_kernels.py --ablate
     python3 ab_kernels.py --modes
     python3 ab_kernels.py --tc
+    python3 ab_kernels.py --wgrad3d
 
 Every mode uses the DAVIS-480p shapes of ``chip_smoke.py``'s full phase
 (60x107 cells, P=20, top-10; the r18 and r50 widths, seeded random
@@ -64,6 +65,21 @@ its counters (keys re-scored, queries overflowed) and checks the mma
 accumulation model (``chip_smoke.mma_model_check``). One JSON line per
 width, then both paths' ms per frame at C of ``TC_SWEEP`` (r18's radius,
 T=24: the C crossover), then the model check.
+
+``--wgrad3d`` times the narrow weight-gradient kernel
+(``ops/conv3d_wgrad.py::conv3d_weight_cuda``, ``csrc/conv3d_wgrad.cu``)
+against cuDNN's weight gradient (``torch.nn.grad.conv3d_weight``, TF32
+off) at every distinct convolution of train_slowfast_r50 that the kernel
+can take (``chip_smoke.conv3d_shapes``; channels-last seeded X and dY),
+then at those of the other 3-D recognizers of
+``chip_smoke.WGRAD3D_OTHERS`` (I3D-R50, SlowOnly-R50, ir-CSN-152 at one
+card's clips), in the order cuDNN, kernel, kernel, cuDNN (median of 3
+CUDA-event timings each): one JSON line per convolution with the model,
+both medians, the bound, whether ``conv3d_wgrad.narrow`` routes it and
+whether the kernel was the faster; a narrow convolution for which the
+kernel has no plan (too wide a window for shared memory) gets cuDNN's
+time alone. ``narrow_shape``'s rule comes from
+the SlowFast lines; the others check it.
 
 Every mode ends with the card's name and power limit as ``nvidia-smi``
 gives them. Needs one card.
@@ -258,6 +274,58 @@ def modes():
     print(chip_smoke.card_line())
 
 
+def wgrad3d():
+    """The narrow weight-gradient kernel against cuDNN's weight gradient
+    at every convolution of train_slowfast_r50 and of the other 3-D
+    recognizers that the kernel can take, in turns."""
+    import statistics
+
+    import chip_smoke
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.ops import conv3d_wgrad as cw
+    dev = torch.device('cuda', 0)
+    smi_line = chip_smoke.card_line()
+    models = {'slowfast_r50_4x16x1': (None, chip_smoke.WGRAD3D_CLIP),
+              **chip_smoke.WGRAD3D_OTHERS}
+    shapes = [dict(c, model=model)
+              for model, (cfg, clip) in models.items()
+              for c in chip_smoke.conv3d_shapes(cfg, clip)]
+    with exact_fp32():
+        for k, c in enumerate(shapes):
+            xs, ws, st, pad = c['x'], c['weight'], c['stride'], c['padding']
+            if cw.plan(xs, ws, st, pad) is None:
+                if c['narrow']:  # narrow, but the kernel has no plan
+                    x, dy, w = chip_smoke.wgrad3d_inputs(xs, ws, st, pad,
+                                                         dev, k)
+                    print(json.dumps({**c, 'kernel_ms': None, 'library_ms':
+                                      chip_smoke.cuda_ms(
+                                          lambda: torch.nn.grad.conv3d_weight(
+                                              x, ws, dy, st, pad), runs=3)}),
+                          flush=True)
+                    del x, dy, w
+                continue
+            x, dy, w = chip_smoke.wgrad3d_inputs(xs, ws, st, pad, dev, k)
+            paths = {'library': lambda: torch.nn.grad.conv3d_weight(
+                         x, ws, dy, st, pad),
+                     'kernel': lambda: cw.conv3d_weight_cuda(x, dy, w, st,
+                                                             pad)}
+            runs = {}
+            for name in ('library', 'kernel', 'kernel', 'library'):
+                runs.setdefault(name, []).append(
+                    chip_smoke.cuda_ms(paths[name], runs=3))
+            ms = {n: statistics.median(r) for n, r in runs.items()}
+            flops, nbytes = chip_smoke.wgrad3d_work(xs, ws, st, pad)
+            print(json.dumps({
+                **c, 'kernel_ms': ms['kernel'], 'library_ms': ms['library'],
+                'runs': runs, 'kernel_faster': ms['kernel'] < ms['library'],
+                'bound_ms': chip_smoke.bound_ms(flops, nbytes, smi_line)[0]}),
+                flush=True)
+            del x, dy, w
+            torch.cuda.empty_cache()
+    print(smi_line)
+
+
 def tensor_cores():
     """Row 1's FFMA core and tensor-core path at both widths, in turns;
     bit-identity and counters; the accumulation model's check."""
@@ -413,6 +481,7 @@ def main():
     parser.add_argument('--modes', action='store_true')
     parser.add_argument('--wide', action='store_true')
     parser.add_argument('--tc', action='store_true')
+    parser.add_argument('--wgrad3d', action='store_true')
     parser.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
@@ -423,6 +492,8 @@ def main():
         return modes()
     if args.tc:
         return tensor_cores()
+    if args.wgrad3d:
+        return wgrad3d()
     if len(args.checkouts) != 2:
         parser.error('give two checkouts or --ablate')
     import ab_eval

@@ -93,6 +93,23 @@ Phases, one JSON line each on stdout:
    row 3 once a step) and no core, and the masks agree with the tiled
    run's on >= 99.9% of pixels. The comm helpers of slice 14 run once, in
    the bench_cfg phase's first one-rank NCCL group (``comm_checks``).
+4c. wgrad3d: the narrow weight-gradient kernel (``csrc/conv3d_wgrad.cu``,
+   ``ops/conv3d_wgrad.py``) that ``ConvBN3d`` routes SlowFast's narrow
+   convolutions to in fp32 training. ``WGRAD3D_SMALL`` (the five families,
+   ragged tiles, padding, strides, in NCDHW and NDHWC) against float64
+   within ``WGRAD3D_SMALL_TOL``, dW in the weight's strides; then each
+   routed convolution of ``train_slowfast_r50`` (``conv3d_shapes``)
+   at the cell's shapes: kernel, plain and cuDNN (``library_ms``,
+   ``torch.nn.grad.conv3d_weight`` with TF32 off) ms, the bound (the
+   positions of X that the taps read, dY, dW) and its share, each one's
+   largest gap to float64 (the kernel's no worse than cuDNN's), two runs
+   bit for bit, one launch counted on the wrapper and on the program
+   counter ``conv3d.narrow_wgrad``; then a ``ConvBN3d`` step on the card
+   through the routing, its gradient as cuDNN's; then the main path: one
+   full-width step of the cell's model, optimizer and 32 clips through
+   ``make_train_step`` with the launch count set to 0 just before it,
+   which must launch the kernel once for each module the rule routes,
+   on the wrapper and on the program counter.
 5. eval: slice 2's path, the config-driven DAVIS eval of the r50 model
    (configs/r50_nc_sgd_cos_100e_r5_1xNx2_k400.py, full width, seeded
    random weights saved as a torchvision-layout ``.pth``) through
@@ -307,8 +324,9 @@ Phases, one JSON line each on stdout:
    on one clip with the trained checkpoint, and
    ``tools.analysis.report_accuracy`` over two score files (centre crops
    and their flips of every clip, each scored by
-   ``VideoDataset.evaluate``). None of the four hand-written kernels may
-   launch in the phase.
+   ``VideoDataset.evaluate``). None of the four rows' kernels may launch
+   in the phase (the narrow weight-gradient kernel of phase 4c runs in
+   the fp32 train steps of the 3-D backbones' gates).
 15. localization: slice 13's path, temporal action localization (ROADMAP
    item 7b), five lines (``part``). ``train_bmn``: MMAction2 v0.6.0's
    BMN recipe at its published width (``bmn_cfg``: T=100, 400 features,
@@ -347,8 +365,11 @@ Phases, one JSON line each on stdout:
    full lines also give the share of the computed pairs the function
    needs, from the core's pass rule. Times of an earlier checkout come
    from ``ab_kernels.py``, which runs both checkouts in one call.) Its
-   ``paths_without_kernels`` names the recognition and localization
-   paths, which launch none. Rows 1-4's wide entries (slice 14) carry
+   ``paths_without_kernels`` names the localization path, which launches
+   none; the narrow wgrad3d entry's ``launches`` are those of one
+   ``train_slowfast_r50`` step (phase 4c) and its
+   ``recognition_launches`` those of the recognition phase, whose 3-D
+   gates route their narrow fp32 convolutions to it. Rows 1-4's wide entries (slice 14) carry
    their launches on the wide phase's paths and its full-width numbers
    (radius 40 / top-10; radius 12 / top-48 beside). A ``total`` line before it gives the
    script's seconds and each phase's (``phase_seconds``).
@@ -709,7 +730,7 @@ def phase_build():
     from vfs_tpu_torch.ops import _build
     names = [info['name']
              for info in (KERNEL_INFO, V1_INFO, LOCAL_INFO, V2_INFO)] + [
-                 'window_topk_wide', 'video_topk_tc']
+                 'window_topk_wide', 'video_topk_tc', 'conv3d_wgrad']
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 2) as pool:
         decoders = {name: pool.submit(get) for name, get in (
@@ -2205,6 +2226,266 @@ def phase_tc(dev, smi_line):
           'columns': ['T', 'h', 'w', 'C', 'radius', 'P', 'topk', 'kind',
                       'bit_identical', 'overflow_queries'],
           'small': small, 'full': full, 'mma_model': model_check})
+
+
+# the wgrad3d phase: the narrow weight-gradient kernel
+# (csrc/conv3d_wgrad.cu) against float64 on small shapes, each case (X
+# shape (N, Cin, T, H, W), weight shape, stride, padding) in NCDHW and
+# NDHWC: the five families of SlowFast's narrow convolutions, ragged row
+# tiles and segments, padding, stride (1, 2, 2), the laterals' temporal
+# stride 8, a 16-byte-misaligned stem row (W * Cin not a multiple of 4)
+WGRAD3D_SMALL = (((2, 3, 6, 20, 22), (8, 3, 5, 7, 7), (1, 2, 2), (2, 3, 3)),
+                 ((1, 3, 3, 9, 16), (8, 3, 5, 7, 7), (1, 2, 2), (2, 3, 3)),
+                 ((2, 3, 3, 17, 15), (64, 3, 1, 7, 7), (1, 2, 2), (0, 3, 3)),
+                 ((2, 8, 4, 9, 7), (32, 8, 1, 1, 1), (1, 1, 1), (0, 0, 0)),
+                 ((2, 8, 4, 9, 7), (8, 8, 1, 3, 3), (1, 1, 1), (0, 1, 1)),
+                 ((2, 8, 5, 6, 7), (8, 8, 3, 1, 1), (1, 1, 1), (1, 0, 0)),
+                 ((1, 8, 16, 3, 4), (16, 8, 5, 1, 1), (8, 1, 1), (2, 0, 0)),
+                 ((1, 16, 2, 7, 9), (16, 16, 1, 3, 3), (1, 2, 2), (0, 1, 1)),
+                 ((1, 4, 2, 7, 7), (8, 4, 1, 1, 1), (1, 2, 2), (0, 0, 0)),
+                 ((2, 40, 3, 5, 6), (64, 40, 3, 1, 1), (1, 1, 1), (1, 0, 0)))
+# the kernel's largest gap to float64 on them, over the largest |dW|: fp32
+# sums of at most a few thousand terms
+WGRAD3D_SMALL_TOL = 1e-5
+# the cell whose convolutions the phase and ab_kernels.py --wgrad3d take:
+# train_slowfast_r50's 32 clips of 32 x 224 x 224
+WGRAD3D_CLIP = (32, 3, 32, 224, 224)
+
+
+def conv3d_shapes(cfg=None, clip=WGRAD3D_CLIP):
+    """Every distinct convolution of the backbone (``ConvBN3d``) of the
+    recognizer ``cfg`` (``SLOWFAST_R50`` by default) at ``clip``'s input,
+    in the order the forward meets them: name of its first module, X
+    shape, weight shape, stride, padding, how many modules share it,
+    whether ``conv3d_wgrad.narrow`` takes it and whether its weight
+    gradient is routed to the kernel (``narrow`` and a ``plan`` for the
+    shape, as ``takes`` asks on the card). Traced on the meta device:
+    nothing is computed."""
+    import torch
+    from vfs_tpu_torch.models import build_model
+    from vfs_tpu_torch.models.backbones.resnet3d import ConvBN3d
+    from vfs_tpu_torch.ops import conv3d_wgrad
+    with torch.device('meta'):
+        model = build_model(dict(cfg or SLOWFAST_R50))
+    shapes = {}
+
+    def hook(name):
+        def record(module, args, _):
+            conv = module.conv
+            key = (tuple(args[0].shape), tuple(conv.weight.shape),
+                   tuple(conv.stride), tuple(conv.padding))
+            if key not in shapes:
+                narrow = conv3d_wgrad.narrow(conv, torch.float32)
+                shapes[key] = dict(
+                    name=name, x=key[0], weight=key[1], stride=key[2],
+                    padding=key[3], modules=0, narrow=narrow,
+                    routed=narrow and conv3d_wgrad.plan(*key) is not None)
+            shapes[key]['modules'] += 1
+        return record
+
+    for name, module in model.backbone.named_modules():
+        if isinstance(module, ConvBN3d):
+            module.register_forward_hook(hook(name))
+    with torch.device('meta'):
+        model.backbone(torch.empty(clip))
+    return list(shapes.values())
+
+
+def wgrad3d_reached(size, out, k, s, p):
+    """Input positions along one dimension that some output position's
+    taps read (padding excluded)."""
+    return len({o * s + d - p for o in range(out) for d in range(k)}
+               & set(range(size)))
+
+
+def wgrad3d_work(x_shape, w_shape, stride, padding):
+    """FLOPs (2 a multiply-add) and bytes (fp32: the positions of X that
+    some tap reads and dY, read once; dW written once) of one weight
+    gradient."""
+    from vfs_tpu_torch.ops.conv3d_wgrad import out_size
+    n, cin, *sizes = x_shape
+    cout, _, *kernel = w_shape
+    out = [out_size(*a) for a in zip(sizes, kernel, stride, padding)]
+    positions = n * int(np.prod(out))
+    reached = n * cin * int(np.prod([
+        wgrad3d_reached(z, o, k, st, p)
+        for z, o, k, st, p in zip(sizes, out, kernel, stride, padding)]))
+    dw = int(np.prod(w_shape))
+    return 2.0 * positions * dw, 4.0 * (reached + positions * cout + dw)
+
+
+def wgrad3d_inputs(x_shape, w_shape, stride, padding, dev, seed,
+                   channels_last=True):
+    """Seeded X and dY on ``dev`` (channels-last, as the training step
+    keeps them, or NCDHW) and an empty weight in the same format."""
+    import torch
+    from vfs_tpu_torch.ops.conv3d_wgrad import out_size
+    fmt = (torch.channels_last_3d if channels_last
+           else torch.contiguous_format)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(x_shape, device=dev, generator=g)
+    out = [out_size(*a) for a in zip(x_shape[2:], w_shape[2:], stride,
+                                     padding)]
+    dy = torch.randn((x_shape[0], w_shape[0], *out), device=dev, generator=g)
+    w = torch.empty(w_shape, device=dev)
+    return (x.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt),
+            w.contiguous(memory_format=fmt))
+
+
+def wgrad3d_gap(got, exact):
+    """The largest |got - exact| over the largest |exact|."""
+    return float((got.double() - exact).abs().max() / exact.abs().max())
+
+
+def phase_wgrad3d(dev, smi_line):
+    """The narrow weight-gradient kernel (module docstring, phase 4c): the
+    small cases against float64, then each convolution of
+    train_slowfast_r50 whose weight gradient ``conv3d_wgrad.narrow``
+    routes to it, at the cell's shapes: the kernel's time, the plain
+    version's, cuDNN's ``conv3d_weight`` (``library_ms``, TF32 off) and the
+    bound; the kernel's, cuDNN's and the plain version's largest gap to
+    float64; two runs bit for bit; the launch count and the program
+    counter moved by one launch. Then a ``ConvBN3d`` step on the card
+    through the routing, and the cell's own step (``slowfast_step``):
+    one launch a routed module. Returns the kernels line's entry, its
+    ``launches`` those of that step."""
+    import torch
+    from vfs_tpu_torch.device import exact_fp32
+    from vfs_tpu_torch.models.backbones.resnet3d import ConvBN3d
+    from vfs_tpu_torch.ops import conv3d_wgrad as cw
+    from vfs_tpu_torch.utils import trace
+    t0 = time.time()
+    small = []
+    with exact_fp32():
+        for i, (xs, ws, st, pad) in enumerate(WGRAD3D_SMALL):
+            for channels_last in (False, True):
+                x, dy, w = wgrad3d_inputs(xs, ws, st, pad, dev, i,
+                                          channels_last)
+                exact = torch.nn.grad.conv3d_weight(x.double(), ws,
+                                                    dy.double(), st, pad)
+                got = cw.conv3d_weight_cuda(x, dy, w, st, pad)
+                gap = wgrad3d_gap(got, exact)
+                small.append([xs, ws, st, pad, channels_last, gap,
+                              got.stride() == w.stride()])
+                if gap > WGRAD3D_SMALL_TOL or got.stride() != w.stride():
+                    raise AssertionError(f'narrow wgrad3d: {small[-1]}')
+        shapes, failed = {}, []
+        for k, c in enumerate(s for s in conv3d_shapes()
+                              if s['routed']):
+            xs, ws, st, pad = c['x'], c['weight'], c['stride'], c['padding']
+            x, dy, w = wgrad3d_inputs(xs, ws, st, pad, dev, 100 + k)
+            first = cw.conv3d_weight_cuda(x, dy, w, st, pad)
+            second = cw.conv3d_weight_cuda(x, dy, w, st, pad)
+            same = bool(torch.equal(first.view(torch.int32),
+                                    second.view(torch.int32)))
+            before = cw.conv3d_weight_cuda.launches
+            with trace.recording() as rec:
+                counted = cw.conv3d_weight(x, dy, w, st, pad)
+            moved = dict(launches=cw.conv3d_weight_cuda.launches - before,
+                         counter=rec.counts.get(cw.TRACE_COUNT, 0))
+            library = torch.nn.grad.conv3d_weight(x, ws, dy, st, pad)
+            plain = cw.conv3d_weight_reference(x, dy, w, st, pad)
+            exact = torch.nn.grad.conv3d_weight(x.double(), ws, dy.double(),
+                                                st, pad)
+            flops, nbytes = wgrad3d_work(xs, ws, st, pad)
+            bound, bound_by = bound_ms(flops, nbytes, smi_line)
+            kernel_ms = cuda_ms(lambda: cw.conv3d_weight_cuda(x, dy, w, st,
+                                                              pad))
+            entry = dict(
+                x=xs, weight=ws, stride=st, padding=pad,
+                modules=c['modules'], kernel_ms=kernel_ms,
+                plain_ms=cuda_ms(lambda: cw.conv3d_weight_reference(
+                    x, dy, w, st, pad), runs=3),
+                library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                    x, ws, dy, st, pad), runs=3),
+                bound_ms=bound, bound_by=bound_by,
+                share_of_bound=bound / kernel_ms,
+                gap_to_fp64=wgrad3d_gap(first, exact),
+                library_gap_to_fp64=wgrad3d_gap(library, exact),
+                plain_gap_to_fp64=wgrad3d_gap(plain, exact),
+                bit_identical=same and bool(torch.equal(first, counted)),
+                strides_kept=first.stride() == w.stride(), **moved)
+            shapes[c['name']] = entry
+            if not (entry['bit_identical'] and entry['strides_kept']
+                    and moved == dict(launches=1, counter=1)
+                    and entry['gap_to_fp64']
+                    <= entry['library_gap_to_fp64']):
+                failed.append(c['name'])
+            del x, dy, w, first, second, counted, library, plain, exact
+            torch.cuda.empty_cache()
+        # the routing: a ConvBN3d's step on the card takes the kernel, its
+        # gradient as cuDNN's within the fp32 rounding
+        block = ConvBN3d(8, 8, (1, 3, 3)).to(dev).to(
+            memory_format=torch.channels_last_3d)
+        x = torch.randn((2, 8, 4, 28, 28), device=dev).contiguous(
+            memory_format=torch.channels_last_3d)
+        before = cw.conv3d_weight_cuda.launches
+        block(x).square().sum().backward()
+        routed = cw.conv3d_weight_cuda.launches - before
+        grad = block.conv.weight.grad.clone()
+        block.conv.weight.grad = None
+        block.bn(block.conv(x)).relu().square().sum().backward()
+        convbn = dict(launches=routed,
+                      gap_to_cudnn=float((grad - block.conv.weight.grad)
+                                         .abs().max()
+                                         / block.conv.weight.grad.abs().max()))
+        del block, x, grad
+        step = slowfast_step(dev)
+    emit({'phase': 'wgrad3d', 'card': smi_line,
+          'columns': ['x', 'weight', 'stride', 'padding', 'channels_last',
+                      'gap_to_fp64', 'strides_kept'],
+          'small': small, 'shapes': shapes, 'convbn3d': convbn,
+          'train_slowfast_r50_step': step, 'seconds': time.time() - t0})
+    if failed:
+        raise AssertionError(f'narrow wgrad3d: {failed} fail (shapes above)')
+    if routed != 1 or convbn['gap_to_cudnn'] > WGRAD3D_SMALL_TOL:
+        raise AssertionError(f'ConvBN3d routing: {convbn}')
+    if not step['launches'] == step['counter'] == step['routed_modules']:
+        raise AssertionError(f'train_slowfast_r50 step: {step}')
+    return dict(name='narrow_wgrad3d', route='cuda',
+                source='vfs_tpu_torch/csrc/conv3d_wgrad.cu',
+                replaces=None, launches=step['launches'],
+                launches_of='one train_slowfast_r50 step (phase 4c)',
+                shapes=shapes)
+
+
+def slowfast_step(dev):
+    """One full-width step of train_slowfast_r50's model (``SLOWFAST_R50``,
+    seeded), optimizer (SGD lr 0.1, momentum 0.9, weight decay 1e-4) and
+    batch (32 clips of 32 x 224 x 224, ``WGRAD3D_CLIP``) through
+    ``make_train_step``, after one step to warm up, with the kernel's
+    launch count set to 0 just before it and a trace recording over it:
+    the launches, the program counter ``conv3d.narrow_wgrad``, the
+    modules the rule routes (``conv3d_shapes``) and the step's ms on the
+    host clock."""
+    import torch
+    from vfs_tpu_torch.apis.train import make_train_step
+    from vfs_tpu_torch.core.optimizer import build_optimizer
+    from vfs_tpu_torch.ops import conv3d_wgrad as cw
+    from vfs_tpu_torch.utils import trace
+    routed = sum(c['modules'] for c in conv3d_shapes() if c['routed'])
+    model = seeded_recognizer(dict(SLOWFAST_R50), dev).train()
+    optimizer, _ = build_optimizer(model.parameters(), dict(
+        type='SGD', lr=0.1, momentum=0.9, weight_decay=1e-4))
+    step = make_train_step(model, optimizer)
+    n, c, t, h, w = WGRAD3D_CLIP
+    g = torch.Generator(device=dev).manual_seed(0)
+    imgs = torch.randn((n, 1, t, h, w, c), device=dev, generator=g)
+    labels = torch.arange(n, device=dev) % 400
+    step(imgs, None, labels)
+    torch.cuda.synchronize()
+    cw.conv3d_weight_cuda.launches = 0
+    t0 = time.perf_counter()
+    with trace.recording() as rec:
+        step(imgs, None, labels)
+        torch.cuda.synchronize()
+    out = dict(launches=cw.conv3d_weight_cuda.launches,
+               counter=rec.counts.get(cw.TRACE_COUNT, 0),
+               routed_modules=routed,
+               step_ms=(time.perf_counter() - t0) * 1e3)
+    del model, optimizer, step, imgs, labels
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_wide(dev, smi_name):
@@ -5383,6 +5664,30 @@ SLOWFAST_R50 = dict(
                           pool1_stride_t=1, norm_eval=False)),
     cls_head=dict(type='SlowFastHead', in_channels=2304, num_classes=400,
                   spatial_type='avg', dropout_ratio=0.5))
+# MMAction2 v0.6.0 configs/recognition/slowonly/slowonly_r50_4x16x1_256e_
+# kinetics400_rgb.py and csn/ircsn_ig65m_pretrained_r152_32x2x1_58e_
+# kinetics400_rgb.py: the other recognizers whose ConvBN3d convolutions
+# the narrow weight-gradient rule routes (ab_kernels.py --wgrad3d)
+SLOWONLY_R50 = dict(
+    type='Recognizer3D',
+    backbone=dict(type='ResNet3dSlowOnly', depth=50, pretrained=None,
+                  lateral=False, conv1_kernel=(1, 7, 7), conv1_stride_t=1,
+                  pool1_stride_t=1, inflate=(0, 0, 1, 1), norm_eval=False),
+    cls_head=dict(type='I3DHead', in_channels=2048, num_classes=400,
+                  spatial_type='avg', dropout_ratio=0.5))
+IRCSN_R152 = dict(
+    type='Recognizer3D',
+    backbone=dict(type='ResNet3dCSN', pretrained=None, depth=152,
+                  with_pool2=False, bottleneck_mode='ir', norm_eval=False),
+    cls_head=dict(type='I3DHead', in_channels=2048, num_classes=400,
+                  spatial_type='avg', dropout_ratio=0.5))
+# name: (recognizer, one card's clips (N, C, T, H, W)): the recipes'
+# videos_per_gpu (8, 8, 3) of 32 x 2, 4 x 16 and 32 x 2 frames at 224
+WGRAD3D_OTHERS = {
+    'i3d_r50_32x2x1': (I3D_R50, (8, 3, 32, 224, 224)),
+    'slowonly_r50_4x16x1': (SLOWONLY_R50, (8, 3, 4, 224, 224)),
+    'ircsn_r152_32x2x1': (IRCSN_R152, (3, 3, 32, 224, 224)),
+}
 
 
 def _recognizer(backbone, head, in_channels, **head_kw):
@@ -5445,13 +5750,15 @@ def write_config(path, cfg_dict):
 
 def kernel_launches():
     """Every launch count of the hand-written kernels: the four rows'
-    wrappers (the wide kernel's launches through them included) and the
-    wide ops."""
+    wrappers (the wide kernel's launches through them included), the
+    wide ops and the narrow 3-D weight gradient."""
     from vfs_tpu_torch import ops
+    from vfs_tpu_torch.ops import conv3d_wgrad
     return sum(getattr(k, name) for k in (
         ops.video_topk_affinity_cuda, ops.video_topk_affinity_v1_cuda,
         ops.local_topk_attend_cuda, ops.local_topk_attend_v2_cuda,
-        ops.video_topk_affinity_wide_cuda, ops.local_topk_attend_wide_cuda)
+        ops.video_topk_affinity_wide_cuda, ops.local_topk_attend_wide_cuda,
+        conv3d_wgrad.conv3d_weight_cuda)
         for name in dir(k) if name.endswith('launches'))
 
 
@@ -5755,9 +6062,14 @@ def recognition_tools(root, cfg_dict, ann, ckpt):
 
 
 def phase_recognition(dev, smi_line):
-    """Slice 12's path (module docstring, phase 14). No hand-written
-    kernel lies on it: their launch counts must not move."""
+    """Slice 12's path (module docstring, phase 14). None of the four
+    rows' kernels lies on it: their launch counts must not move. Its 3-D
+    gates train narrow fp32 convolutions on the card, whose weight
+    gradient is the narrow wgrad3d kernel's: that count, set to 0 before
+    the phase, is returned with the phase's seconds."""
+    from vfs_tpu_torch.ops.conv3d_wgrad import conv3d_weight_cuda
     t0 = time.time()
+    conv3d_weight_cuda.launches = 0
     before = kernel_launches()
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as root:
@@ -5774,10 +6086,11 @@ def phase_recognition(dev, smi_line):
         tools = recognition_tools(root, cfg_dict, ann, ckpt)
         tools['seconds'] = time.time() - t1
     gates = recognition_gates(dev)
-    launches = kernel_launches() - before
+    wgrad3d = conv3d_weight_cuda.launches
+    launches = kernel_launches() - before - wgrad3d
     if launches:
-        raise AssertionError(f'recognition launched {launches} hand-written '
-                             'kernels (want none)')
+        raise AssertionError(f'recognition launched {launches} of the four '
+                             'rows\' kernels (want none)')
     emit({'phase': 'recognition', 'part': 'card_vs_cpu',
           'gates': gates, 'tolerances': dict(
               fp64=1e-9, fp32_factor=CARD_CPU_FACTOR,
@@ -5785,9 +6098,9 @@ def phase_recognition(dev, smi_line):
               fp32_depthwise_grads=RECOG_DEPTHWISE_GRAD)})
     seconds = time.time() - t0
     emit({'phase': 'recognition', 'part': 'tools', **tools,
-          'hand_written_kernel_launches': launches,
-          'phase_seconds': seconds})
-    return seconds
+          'row_kernel_launches': launches,
+          'narrow_wgrad3d_launches': wgrad3d, 'phase_seconds': seconds})
+    return seconds, wgrad3d
 
 
 # slice 13's localization path (module docstring, phase 15): MMAction2
@@ -6500,6 +6813,7 @@ def main():
     v1_full = timed('full_v1', phase_full_v1, dev, smi_line, plain_ms)
     v2_entry = timed('full_v2', phase_full_v2, dev, smi_line)
     timed('tc', phase_tc, dev, smi_line)
+    wgrad3d = timed('wgrad3d', phase_wgrad3d, dev, smi_line)
     row1 = timed('main', phase_main, dev, smi_line)
     wide = timed('wide', phase_wide, dev, smi_line)
     eval_modes, row3 = timed('eval', phase_eval, local_full)
@@ -6515,7 +6829,8 @@ def main():
     row2 = dict(**V1_INFO, launches=v1_launches, **v1_full, library_ms=None,
                 library_note=NO_LIBRARY_CALL)
     timed('analysis', phase_analysis, dev, smi_line)
-    timed('recognition', phase_recognition, dev, smi_line)
+    _, wgrad3d['recognition_launches'] = timed(
+        'recognition', phase_recognition, dev, smi_line)
     timed('localization', phase_localization, dev, smi_line)
     for entry, row in ((row1[0], 'row1'), (row2, 'row2'), (row3, 'row3')):
         entry['launches'] += bench[row]['launches']
@@ -6526,11 +6841,9 @@ def main():
                           **modes_full[name])
     emit({'phase': 'total', 'seconds': time.time() - t_start,
           'phase_seconds': phase_s})
-    emit({'kernels': [*row1, row2, row3, v2_entry, *wide],
+    emit({'kernels': [*row1, row2, row3, v2_entry, *wide, wgrad3d],
           'paths_without_kernels': {
-              'recognition': 'launches none of the four rows: cuDNN '
-                             'convolutions and PyTorch ops (phase 14)',
-              'localization': 'launches none of the four rows: cuDNN '
+              'localization': 'launches no hand-written kernel: cuDNN '
                               'convolutions, torch.matmul and PyTorch ops '
                               '(phase 15)'}})
     emit({'ok': True, 'device': {'platform': 'gpu',

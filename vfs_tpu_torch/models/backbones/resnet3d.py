@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops import conv3d_wgrad
 from ..common.non_local import NonLocal3d, non_local_kwargs
 from ..common.norm import BatchNorm3d, frozen_running_stats
 from ..registry import BACKBONES
@@ -53,7 +54,9 @@ def autocast_dtype(dtype):
 
 class ConvBN3d(nn.Module):
     """Conv3d [+ BatchNorm3d] [+ ReLU]; ``padding`` defaults to half the
-    kernel."""
+    kernel. The convolution runs through ``ops.conv3d_wgrad.conv3d``: a
+    narrow one's weight gradient on the card is a hand-written kernel, the
+    rest cuDNN's."""
 
     def __init__(self, in_channels: int, features: int, kernel,
                  strides=(1, 1, 1), padding=None, dilation=(1, 1, 1),
@@ -75,7 +78,7 @@ class ConvBN3d(nn.Module):
             self.bn.weight.zero_()
 
     def forward(self, x):
-        x = self.conv(x)
+        x = conv3d_wgrad.conv3d(self.conv, x)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.act else x

@@ -40,7 +40,9 @@ readback); ``propagation.affinity``,
 (``apis/train.py``); ``aug.draw``, ``aug.<transform>``, ``aug.normalise``
 (``ops/device_aug.py``); ``slowfast.slow``, ``slowfast.fast``,
 ``slowfast.lateral`` and the counter ``slowfast.concat_bytes``
-(``models/backbones/resnet3d_variants.py``); ``recognizer.head``
+(``models/backbones/resnet3d_variants.py``); the counter
+``conv3d.narrow_wgrad``, a launch of the narrow 3-D weight-gradient
+kernel (``ops/conv3d_wgrad.py``); ``recognizer.head``
 (``models/recognizers/recognizers.py``); ``optimizer.clip``
 (``core/optimizer/builder.py``).
 """
